@@ -5,7 +5,7 @@ make_sane -> load/build index -> map reads in batches -> mapQV ->
 filter/nbest/hit-policy -> print.  ``--device`` picks the torch device
 (default ``cuda``; there is no silent fallback to the CPU).  Flags whose
 paths are not ported yet (BAM output, concordant/CCS, --onegap, --extend,
---useQuality, --affineAlign, the debug dumps) are rejected with an error.
+--affineAlign, the debug dumps) are rejected with an error.
 
 Run: ``python -m blasr_tpu_torch.cli.blasr reads.fa genome.fa -m 4``.
 """
@@ -18,11 +18,11 @@ import sys
 import time
 from typing import List, Optional
 
-from blasr_tpu.index.genome import GenomeIndex, build_genome_index
+from blasr_tpu_torch.index.genome import GenomeIndex, build_genome_index
 from blasr_tpu_torch.io import formats
-from blasr_tpu.io.fasta import read_fasta, read_sequences
-from blasr_tpu.io.fofn import expand_file_name_list
-from blasr_tpu.params import MappingParams
+from blasr_tpu_torch.io.fasta import read_fasta, read_sequences
+from blasr_tpu_torch.io.fofn import expand_file_name_list
+from blasr_tpu_torch.params import MappingParams
 from blasr_tpu_torch.pipeline.map_read import Mapper
 from blasr_tpu_torch.pipeline.select import (select_alignments, store_map_qvs,
                                              zmw_rand_int)
@@ -439,7 +439,7 @@ def run(argv: Optional[List[str]] = None) -> int:
         ("--bam", args.bam), ("--concordant", args.concordant),
         ("--useccs", args.useccs), ("--useccsall", args.useccsall),
         ("--useccsdenovo", args.useccsdenovo), ("--onegap", args.onegap),
-        ("--extend", args.extend), ("--useQuality", args.useQuality),
+        ("--extend", args.extend),
         ("--affineAlign", args.affineAlign), ("--anchors", args.anchors),
         ("--clusters", args.clusters),
         ("--printDotPlots", args.printDotPlots)) if on]
@@ -465,7 +465,7 @@ def run(argv: Optional[List[str]] = None) -> int:
     log("started.")
 
     if args.sa:
-        from blasr_tpu.io.refsa import is_ref_sa
+        from blasr_tpu_torch.io.refsa import is_ref_sa
         if is_ref_sa(args.sa):
             # reference binary .sa (SuffixArray::Write layout): it holds
             # only the SA + lookup table, not this runtime's packed k-mer
@@ -481,7 +481,7 @@ def run(argv: Optional[List[str]] = None) -> int:
     elif args.bwt:
         # --bwt path (Blasr.cpp:1073-1080): smaller artifact, slower load —
         # the BWT is inverted and the runtime k-mer index rebuilt
-        from blasr_tpu.io.refbin import is_ref_bwt
+        from blasr_tpu_torch.io.refbin import is_ref_bwt
         if is_ref_bwt(args.bwt):
             # reference binary .bwt carries no contig names; the genome
             # argument supplies them (the reference also reads the genome
@@ -490,8 +490,8 @@ def run(argv: Optional[List[str]] = None) -> int:
                 "rebuilding the runtime index from the genome.")
             contigs = read_fasta(args.genome)
         else:
-            from blasr_tpu.cli.bwt2sa import contigs_from_concat
-            from blasr_tpu.index.bwt import invert_bwt, load_bwt
+            from blasr_tpu_torch.cli.bwt2sa import contigs_from_concat
+            from blasr_tpu_torch.index.bwt import invert_bwt, load_bwt
             bwt, counts, names, lengths = load_bwt(args.bwt)
             contigs = contigs_from_concat(invert_bwt(bwt, counts),
                                           names, lengths)
@@ -503,11 +503,11 @@ def run(argv: Optional[List[str]] = None) -> int:
     if args.ctab:
         # precomputed tuple count table (printTupleCountTable artifact;
         # reference --ctab, Blasr.cpp:1136-1147)
-        from blasr_tpu.cli.small_tools import load_ctab
+        from blasr_tpu_torch.cli.small_tools import load_ctab
         gi.ctab_k, gi.ctab = load_ctab(args.ctab)
 
     reads = []
-    from blasr_tpu.io.fasta import sniff_format
+    from blasr_tpu_torch.io.fasta import sniff_format
     for path in expand_file_name_list([args.reads]):
         try:
             if sniff_format(path) == "hdf":
@@ -515,7 +515,7 @@ def run(argv: Optional[List[str]] = None) -> int:
                 # (MakePrimaryIntervals region variants, Blasr.cpp:89-179);
                 # a multipart bas.h5 (/MultiPart/Parts) expands to its
                 # bax.h5 parts first (ctest/multipart.t)
-                from blasr_tpu.io.hdf import BaxReader, expand_multipart
+                from blasr_tpu_torch.io.hdf import BaxReader, expand_multipart
                 for part in expand_multipart(path):
                     rdr = BaxReader(part, region_path=args.regionTable)
                     try:

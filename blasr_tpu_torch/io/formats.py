@@ -22,8 +22,8 @@ from typing import List, Optional, TextIO
 
 import numpy as np
 
-from blasr_tpu.index.genome import GenomeIndex
-from blasr_tpu.io.fasta import decode, revcomp
+from blasr_tpu_torch.index.genome import GenomeIndex
+from blasr_tpu_torch.io.fasta import decode, revcomp
 from blasr_tpu_torch.pipeline.map_read import Alignment
 
 VERSION = "0.1.0"
@@ -296,7 +296,7 @@ def write_sam(f: TextIO, a: Alignment, params=None,
 
 def to_bam_record(a: Alignment, params=None, ref_ids: Optional[dict] = None):
     """Alignment -> BamRecord, mirroring write_sam's clipping semantics."""
-    from blasr_tpu.io.bam import BamRecord
+    from blasr_tpu_torch.io.bam import BamRecord
     clipping = getattr(params, "clipping", "none") if params else "none"
     use_eq = getattr(params, "cigar_use_seq_match", False) if params else False
     oread = _oriented_read(a)

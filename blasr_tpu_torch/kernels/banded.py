@@ -1,5 +1,6 @@
 """Guided banded affine alignment: the DP forward pass and the run-length
-traceback (port of ``blasr_tpu/kernels/banded.py``, distance mode).
+traceback (port of ``blasr_tpu/kernels/banded.py``: the distance and the
+QV-steered modes of the forward pass; the hp band is not ported).
 
 Both functions keep the JAX package's contracts bit for bit: the int32
 cell-word layout below, ``BandedResult`` / ``TracebackResult``, and the
@@ -99,20 +100,39 @@ def _prev(x: torch.Tensor, fill) -> torch.Tensor:
                                  device=x.device), x[:, :-1]], dim=1)
 
 
+def unpack_qv(qv1: torch.Tensor, qv2: torch.Tensor):
+    """Per-row QV cost fields of the packed tracks (int32 [N, L]):
+    qv1 = insQV | delQV<<8 | subQV<<16 | dtag<<24 | stag<<27,
+    qv2 = delPrior | subPrior<<8.  Costs come back as float32, tags as
+    int64 (tag 7 matches no target base)."""
+    f32 = torch.float32
+    qv1, qv2 = qv1.to(torch.int64), qv2.to(torch.int64)
+    return dict(insq=(qv1 & 255).to(f32), delq=((qv1 >> 8) & 255).to(f32),
+                subq=((qv1 >> 16) & 255).to(f32), dtag=(qv1 >> 24) & 7,
+                stag=(qv1 >> 27) & 7, dpri=(qv2 & 255).to(f32),
+                spri=((qv2 >> 8) & 255).to(f32))
+
+
 def banded_align(reads, windows, offsets, qa, qb, ta, tb, submat,
                  ins_open, ins_ext, del_open, del_ext, *,
-                 w_b: int = 128) -> BandedResult:
-    """Batched guided banded alignment, distance mode (plain PyTorch).
+                 w_b: int = 128, qv1=None, qv2=None) -> BandedResult:
+    """Batched guided banded alignment (plain PyTorch).
 
     reads   int8  [N, L]     query codes
     windows int8  [N, W]     target window codes
     offsets int   [N, L]     band start per row (window coordinates)
     qa..tb  int   [N]        global alignment ranges (window coords for t)
     submat  float32 [25]     flattened 5x5 score matrix (integer-valued)
+    qv1/qv2 int32 [N, L]     packed per-row QV cost tracks (layout in
+                             :func:`unpack_qv`); given, they switch on the
+                             QV-steered mode: mismatch, insertion and
+                             per-cell linear deletion costs come from the
+                             tracks and the gap costs are unused
 
     Row-for-row the recurrence of ``blasr_tpu.kernels.banded._align_one``
-    without the hp band and QV tracks; any offsets path is accepted (band
-    shifts use the clamped dynamic-slice semantics)."""
+    in its distance and QV modes (the hp band is not ported); any offsets
+    path is accepted (band shifts use the clamped dynamic-slice
+    semantics)."""
     dev = reads.device
     N, L = reads.shape
     W = windows.shape[1]
@@ -128,6 +148,18 @@ def banded_align(reads, windows, offsets, qa, qb, ta, tb, submat,
     lane = torch.arange(w_b, device=dev)
     w_idx = lane.to(f32)
     full_inf = torch.full((N, w_b), INF, dtype=f32, device=dev)
+    use_qv = qv1 is not None
+    if use_qv:
+        q = unpack_qv(qv1, qv2)
+        # leading-deletion boundary profile: running sum, from ta, of row
+        # qa's per-cell deletion costs over the whole window
+        qa_c = qa.clamp(0, L - 1)[:, None]
+        row0 = {k: v.gather(1, qa_c) for k, v in q.items()}
+        c0 = torch.where(windows.to(i64) == row0["dtag"], row0["delq"],
+                         row0["dpri"])
+        cumz = torch.cat([torch.zeros((N, 1), dtype=f32, device=dev),
+                          torch.cumsum(c0, dim=1)], dim=1)       # [N, W+1]
+        cumz_ta = cumz.gather(1, ta.clamp(0, W)[:, None])
 
     pM, pI, pD = full_inf, full_inf, full_inf
     zi = torch.zeros((N, w_b), dtype=i32, device=dev)
@@ -146,10 +178,14 @@ def banded_align(reads, windows, offsets, qa, qb, ta, tb, submat,
 
         # boundary row (virtual row qa-1): zero-cost M cell at ta-1,
         # leading deletions open + ext*(t-ta) from ta on
-        d = (t_abs - ta[:, None]).to(f32)
         bM = torch.where(t_abs == ta[:, None] - 1, 0.0, full_inf)
-        bD = torch.where(t_abs >= ta[:, None], del_open + del_ext * d,
-                         full_inf)
+        if use_qv:
+            cg = cumz.gather(1, (t_abs + 1).clamp(0, W))
+            bD = torch.where(t_abs >= ta[:, None], cg - cumz_ta, full_inf)
+        else:
+            d = (t_abs - ta[:, None]).to(f32)
+            bD = torch.where(t_abs >= ta[:, None], del_open + del_ext * d,
+                             full_inf)
         f1 = first[:, None]
         pM_ = torch.where(f1, bM, pM)
         pI_ = torch.where(f1, full_inf, pI)
@@ -173,27 +209,51 @@ def banded_align(reads, windows, offsets, qa, qb, ta, tb, submat,
         rb = reads64[:, r][:, None]
         sub = submat[rb * 5 + tgt]
         eq = (rb == tgt) & (rb < 4)
+        if use_qv:
+            qr = {k: v[:, r][:, None] for k, v in q.items()}      # [N, 1]
+            # mismatch: substitutionQV where the target base matches the
+            # SubstitutionTag, else the per-row prior
+            sub = torch.where(eq, sub, torch.where(tgt == qr["stag"],
+                                                   qr["subq"], qr["spri"]))
 
         diag_best = torch.minimum(dM, torch.minimum(dI, dD))
         m_src = torch.where(dM <= diag_best, ST_M,
                             torch.where(dI <= diag_best, ST_I, ST_D)).to(i32)
         M = torch.where(in_t, sub + diag_best, full_inf)
 
-        i_from_m = vM + ins_open
-        i_from_i = vI + ins_ext
+        if use_qv:
+            # insertionQV prices this inserted query base (linear gap)
+            i_from_m = vM + qr["insq"]
+            i_from_i = vI + qr["insq"]
+        else:
+            i_from_m = vM + ins_open
+            i_from_i = vI + ins_ext
         I = torch.where(in_t_i, torch.minimum(i_from_m, i_from_i), full_inf)
         i_open = i_from_m <= i_from_i
 
         base = torch.minimum(M, I)
-        g = torch.where(base < INF * 0.5, base - del_ext * w_idx, full_inf)
-        run = torch.cummin(g, dim=1).values
-        run_prev = _prev(run, INF)
-        # D[w] = open + ext*(w - w' - 1) + base[w'] over w' < w
-        D = torch.where(in_t, del_ext * w_idx + run_prev
-                        + (del_open - del_ext), full_inf)
-        D = torch.minimum(D, full_inf)
         base_prev = _prev(base, INF)
-        d_open = D >= base_prev + del_open
+        if use_qv:
+            # per-cell linear deletion costs: deletionQV where the deleted
+            # target base matches the DeletionTag, else the prior; the
+            # closed form runs on their in-row cumsum S
+            cd = torch.where(tgt == qr["dtag"], qr["delq"], qr["dpri"])
+            S = torch.cumsum(cd, dim=1)
+            g = torch.where(base < INF * 0.5, base - S, full_inf)
+            run_prev = _prev(torch.cummin(g, dim=1).values, INF)
+            # D[w] = base[w'] + sum cd[w'+1..w] over w' < w
+            D = torch.where(in_t, S + run_prev, full_inf)
+            D = torch.minimum(D, full_inf)
+            d_open = D >= base_prev + cd
+        else:
+            g = torch.where(base < INF * 0.5, base - del_ext * w_idx,
+                            full_inf)
+            run_prev = _prev(torch.cummin(g, dim=1).values, INF)
+            # D[w] = open + ext*(w - w' - 1) + base[w'] over w' < w
+            D = torch.where(in_t, del_ext * w_idx + run_prev
+                            + (del_open - del_ext), full_inf)
+            D = torch.minimum(D, full_inf)
+            d_open = D >= base_prev + del_open
         d_from_m = _prev(M, INF) <= _prev(I, INF)
 
         from_m = m_src == ST_M

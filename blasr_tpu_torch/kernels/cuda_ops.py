@@ -36,7 +36,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # kernel launches since the last reset, one entry per wrapper
-LAUNCHES = {"banded_dp": 0, "banded_traceback": 0}
+LAUNCHES = {"banded_dp": 0, "banded_dp_qv": 0, "banded_traceback": 0}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -102,6 +102,9 @@ def _load() -> ctypes.CDLL:
             lib.blasr_banded_dp.restype = I
             lib.blasr_banded_dp.argtypes = (
                 [P] * 7 + [I] * 3 + [F] * 6 + [P] * 4 + [P])
+            lib.blasr_banded_dp_qv.restype = I
+            lib.blasr_banded_dp_qv.argtypes = (
+                [P] * 9 + [I] * 3 + [F] + [P] * 4 + [P])
             lib.blasr_banded_traceback.restype = I
             lib.blasr_banded_traceback.argtypes = (
                 [P] * 8 + [I] * 3 + [P] * 7 + [P])
@@ -128,10 +131,12 @@ def _launched(rc: int, what: str) -> None:
 
 def banded_dp_launch(reads, windows, offsets, qa, qb, ta, tb, *,
                      match: float, mismatch: float, ins_open: float,
-                     ins_ext: float, del_open: float,
-                     del_ext: float) -> BandedResult:
+                     ins_ext: float, del_open: float, del_ext: float,
+                     qv1=None, qv2=None) -> BandedResult:
     """K1 on CUDA tensors: reads/windows int8 [N, L]/[N, W], offsets int32
-    [N, L] (slope 0..2 per active row), qa..tb int32 [N]."""
+    [N, L] (slope 0..2 per active row), qa..tb int32 [N].  With qv1/qv2
+    (int32 [N, L] packed QV tracks) it launches K1-QV, which takes its
+    costs from the tracks and only ``match`` from the arguments."""
     dev = reads.device
     if dev.type != "cuda":
         raise ValueError("banded_dp_launch needs CUDA tensors")
@@ -142,6 +147,12 @@ def banded_dp_launch(reads, windows, offsets, qa, qb, ta, tb, *,
     _check(offsets, "offsets", torch.int32, (N, L), dev)
     for name, x in (("qa", qa), ("qb", qb), ("ta", ta), ("tb", tb)):
         _check(x, name, torch.int32, (N,), dev)
+    use_qv = qv1 is not None or qv2 is not None
+    if use_qv:
+        if qv1 is None or qv2 is None:
+            raise ValueError("K1-QV needs both qv1 and qv2")
+        _check(qv1, "qv1", torch.int32, (N, L), dev)
+        _check(qv2, "qv2", torch.int32, (N, L), dev)
     score = torch.empty(N, dtype=torch.float32, device=dev)
     tbbits = torch.empty((N, L, 128), dtype=torch.int32, device=dev)
     state = torch.empty(N, dtype=torch.int32, device=dev)
@@ -149,17 +160,24 @@ def banded_dp_launch(reads, windows, offsets, qa, qb, ta, tb, *,
     if N == 0:
         return BandedResult(score, tbbits, state, valid)
     lib = _load()
+    outs = (score.data_ptr(), tbbits.data_ptr(), state.data_ptr(),
+            valid.data_ptr())
+    ins = (reads.data_ptr(), windows.data_ptr(), offsets.data_ptr(),
+           qa.data_ptr(), qb.data_ptr(), ta.data_ptr(), tb.data_ptr())
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.blasr_banded_dp(
-            reads.data_ptr(), windows.data_ptr(), offsets.data_ptr(),
-            qa.data_ptr(), qb.data_ptr(), ta.data_ptr(), tb.data_ptr(),
-            N, L, W, float(match), float(mismatch), float(ins_open),
-            float(ins_ext), float(del_open), float(del_ext),
-            score.data_ptr(), tbbits.data_ptr(), state.data_ptr(),
-            valid.data_ptr(), stream)
-    _launched(rc, "banded_dp")
-    LAUNCHES["banded_dp"] += 1
+        if use_qv:
+            rc = lib.blasr_banded_dp_qv(
+                *ins, qv1.data_ptr(), qv2.data_ptr(), N, L, W, float(match),
+                *outs, stream)
+        else:
+            rc = lib.blasr_banded_dp(
+                *ins, N, L, W, float(match), float(mismatch),
+                float(ins_open), float(ins_ext), float(del_open),
+                float(del_ext), *outs, stream)
+    key = "banded_dp_qv" if use_qv else "banded_dp"
+    _launched(rc, key)
+    LAUNCHES[key] += 1
     return BandedResult(score, tbbits, state, valid)
 
 

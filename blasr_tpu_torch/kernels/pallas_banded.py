@@ -4,9 +4,9 @@
 128, a two-valued score matrix (match on the ACGT diagonal, one mismatch
 value elsewhere) and a band offset that advances by 0, 1 or 2 per row.  On
 CUDA tensors it launches the hand-written kernel K1
-(``csrc/banded_dp.cu``); on CPU tensors it runs the plain version,
-:func:`blasr_tpu_torch.kernels.banded.banded_align`.  The distance mode
-only: the QV mode of the TPU kernel is not ported yet.
+(``csrc/banded_dp.cu``) in its distance mode, or K1-QV when the packed
+QV tracks ``qv1``/``qv2`` are given; on CPU tensors it runs the plain
+version, :func:`blasr_tpu_torch.kernels.banded.banded_align`.
 """
 
 from __future__ import annotations
@@ -51,9 +51,9 @@ def check_slope(offsets: torch.Tensor, qa: torch.Tensor,
 
 def banded_align_cuda(reads, windows, offsets, qa, qb, ta, tb, submat,
                       ins_open, ins_ext, del_open, del_ext, *,
-                      w_b: int = 128) -> BandedResult:
-    """Same contract as ``banded_align`` (forward pass) plus the fast
-    path's requirements (module docstring)."""
+                      w_b: int = 128, qv1=None, qv2=None) -> BandedResult:
+    """Same contract as ``banded_align`` (forward pass, distance or QV
+    mode) plus the fast path's requirements (module docstring)."""
     if w_b != 128:
         raise ValueError(f"banded_align_cuda needs w_b == 128, got {w_b}")
     if not two_valued(submat):
@@ -61,7 +61,8 @@ def banded_align_cuda(reads, windows, offsets, qa, qb, ta, tb, submat,
     dev = reads.device
     if dev.type == "cpu":
         return banded_align(reads, windows, offsets, qa, qb, ta, tb, submat,
-                            ins_open, ins_ext, del_open, del_ext, w_b=w_b)
+                            ins_open, ins_ext, del_open, del_ext, w_b=w_b,
+                            qv1=qv1, qv2=qv2)
     if dev.type != "cuda":
         raise NotImplementedError(f"banded_align_cuda on {dev.type}")
     from blasr_tpu_torch.kernels import cuda_ops
@@ -72,4 +73,4 @@ def banded_align_cuda(reads, windows, offsets, qa, qb, ta, tb, submat,
         reads, windows, offsets, qa, qb, ta, tb,
         match=float(m[0]), mismatch=float(m[1]), ins_open=float(ins_open),
         ins_ext=float(ins_ext), del_open=float(del_open),
-        del_ext=float(del_ext))
+        del_ext=float(del_ext), qv1=qv1, qv2=qv2)

@@ -19,9 +19,9 @@ from typing import Dict, List, NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
-from blasr_tpu.index.genome import GenomeIndex
-from blasr_tpu.io.fasta import FastaRecord
-from blasr_tpu.params import MappingParams, ShapeConfig
+from blasr_tpu_torch.index.genome import GenomeIndex
+from blasr_tpu_torch.io.fasta import FastaRecord
+from blasr_tpu_torch.params import MappingParams, ShapeConfig
 from blasr_tpu_torch.kernels.anchor import find_anchors, read_kmer_keys
 from blasr_tpu_torch.kernels.banded import banded_align, banded_traceback
 from blasr_tpu_torch.kernels.chain import chain_anchors, chain_members
@@ -231,6 +231,22 @@ def _revcomp_batch(reads: torch.Tensor, read_len: torch.Tensor):
     return torch.where(ok, comp[gathered], 4).to(torch.int8)
 
 
+def _revcomp_qv(qv: torch.Tensor, read_len: torch.Tensor,
+                tag_shifts=()) -> torch.Tensor:
+    """Reverse a packed per-row QV cost track by ``read_len`` (QV values
+    follow their bases); 3-bit tag fields at ``tag_shifts`` are
+    complemented (tag < 4 -> 3 - tag); rows past read_len are 0."""
+    B, L = qv.shape
+    pos = torch.arange(L, device=qv.device)[None, :]
+    src = read_len.to(torch.int64)[:, None] - 1 - pos
+    g = qv.gather(1, src.clamp(0, L - 1))
+    for sh in tag_shifts:
+        tag = (g >> sh) & 7
+        ctag = torch.where(tag < 4, 3 - tag, tag)
+        g = (g & ~(7 << sh)) | (ctag << sh)
+    return torch.where(src >= 0, g, 0)
+
+
 def _band_offsets(mq, mt, ws, L, W, w_b,
                   frag_diag=None, frag_valid=None, between_only=False):
     """Band start per query row from the chain guide path, densified by
@@ -342,7 +358,8 @@ def _saturate_i32(x: torch.Tensor) -> torch.Tensor:
 
 
 def map_batch(index: DeviceIndex, reads, read_len, submat, gap_costs,
-              sig_thresh=0.0, min_interval_weight=0.0, sdp_bypass=1e6, *,
+              sig_thresh=0.0, min_interval_weight=0.0, sdp_bypass=1e6,
+              qv1=None, qv2=None, qv_rescore=None, *,
               cfg_k: int, L: int, W: int, w_b: int, C: int, A: int, O: int,
               E: int, T: int, max_chain: int, min_match: int,
               max_anchors_per_pos: int, max_lcp: int, indel_rate: float,
@@ -352,14 +369,19 @@ def map_batch(index: DeviceIndex, reads, read_len, submat, gap_costs,
               advance_exact: int = 0, k_sdp: int = 0, sdp_occ: int = 2,
               between_only: bool = False, guide_drift: float = 1.0,
               cand_drift: float = 0.0, full_widen: bool = False,
-              tb_cap: int = 0) -> PackedBatch:
+              tb_cap: int = 0, use_qv: bool = False,
+              qv_score_type: int = 0) -> PackedBatch:
     """One batch through the device pipeline (the JAX ``map_batch``
-    without its QV, hp-band and profiling options).
+    without its hp-band and profiling options).
 
     reads int8 [B, L] and read_len int32 [B] live on the index's device;
     ``submat`` is the flattened 5x5 matrix, ``gap_costs`` the four floats
     (ins_open, ins_ext, del_open, del_ext).  ``use_pallas`` selects the
-    two-valued fast path (K1 on CUDA)."""
+    two-valued fast path (K1 on CUDA).  ``use_qv`` runs the QV-steered DP
+    (K1-QV on CUDA) on the packed per-read cost tracks qv1/qv2 (int32
+    [B, L], forward orientation); with ``qv_score_type`` 0 the reported
+    score of a traced row is the distance rescore of its path with
+    ``qv_rescore`` (float32 [4]: match, mismatch, ins, del)."""
     dev = reads.device
     f32, i32, i64 = torch.float32, torch.int32, torch.int64
     B = reads.shape[0]
@@ -533,11 +555,20 @@ def map_batch(index: DeviceIndex, reads, read_len, submat, gap_costs,
                offs.to(i32).contiguous(), qa.to(i32), qb.to(i32),
                ta.to(i32), tb.to(i32))
     g = [float(x) for x in gap_costs[:4]]
+    qv = {}
+    if use_qv:
+        # QV-steered DP: per-read packed cost tracks, reversed by read_len
+        # (+ tag-complemented in qv1) for the rc rows
+        qv1_2 = torch.cat([qv1, _revcomp_qv(qv1, read_len,
+                                            tag_shifts=(24, 27))], dim=0)
+        qv2_2 = torch.cat([qv2, _revcomp_qv(qv2, read_len)], dim=0)
+        qv = dict(qv1=qv1_2[read_row].contiguous(),
+                  qv2=qv2_2[read_row].contiguous())
     if use_pallas:
         from blasr_tpu_torch.kernels.pallas_banded import banded_align_cuda
-        res = banded_align_cuda(*dp_args, submat, *g, w_b=w_b)
+        res = banded_align_cuda(*dp_args, submat, *g, w_b=w_b, **qv)
     elif dev.type == "cpu":
-        res = banded_align(*dp_args, submat, *g, w_b=w_b)
+        res = banded_align(*dp_args, submat, *g, w_b=w_b, **qv)
     else:
         raise NotImplementedError(
             "a general --scoreMatrix or band width runs only on the CPU "
@@ -587,6 +618,18 @@ def map_batch(index: DeviceIndex, reads, read_len, submat, gap_costs,
         return buf.reshape(n2, C, *vals.shape[1:])
 
     dp_slot = scatter(slot_of_dp, -1).to(i32)
+    score_out = res.score
+    if use_qv and not qv_score_type:
+        # the QV DP chose the path; the reported score is its distance
+        # rescore (scoreType 0); untraced rows keep the QV score.  Every
+        # term is an integer below 2^24, so float32 gives XLA's bits with
+        # or without a fused multiply-add: no xla_math emulation needed.
+        f = [tbk.n_match, tbk.n_mismatch, tbk.n_ins, tbk.n_del]
+        score_dist = (qv_rescore[0] * f[0].to(f32)
+                      + qv_rescore[1] * f[1].to(f32)
+                      + qv_rescore[2] * f[2].to(f32)
+                      + qv_rescore[3] * f[3].to(f32))
+        score_out = torch.where(keep_tb, back(score_dist), res.score)
     ints = torch.stack([
         scatter(valid_sel.to(i32)),
         scatter(qa.to(i32)),
@@ -598,7 +641,7 @@ def map_batch(index: DeviceIndex, reads, read_len, submat, gap_costs,
         scatter(back(tbk.n_ins)),
         scatter(back(tbk.n_del)),
         dp_slot,
-        _saturate_i32(scatter(res.score, 1e30)),
+        _saturate_i32(scatter(score_out, 1e30)),
         _saturate_i32(cands.score.reshape(n2, C)),
         cands.n_anchors.reshape(n2, C).to(i32),
         anchors.n_total[:, None].expand(n2, C).to(i32),
@@ -685,7 +728,7 @@ class LazyCigar:
 
     def _mat(self) -> List:
         if self._list is None:
-            from blasr_tpu.native import runs_to_list
+            from blasr_tpu_torch.native import runs_to_list
             self._list = runs_to_list(self._ops, self._cnts)
         return self._list
 
@@ -870,10 +913,15 @@ class Mapper:
         self.submat = torch.from_numpy(m.copy()).to(self.device)
         self.submat_np = m
         p = self.params
-        if not p.ignore_qualities:
-            raise NotImplementedError(
-                "--useQuality (the QV-steered DP) is not ported to "
-                "blasr_tpu_torch")
+        # QV-steered DP (--useQuality): the IDS/QV score function runs
+        # inside the banded kernel (K1-QV on CUDA); reads without QVs get
+        # flat per-row costs that reproduce the distance-mode DP exactly
+        self.use_qv = not p.ignore_qualities
+        # distance-matrix rescore of the QV-chosen path: match/mismatch
+        # from the matrix, indels at params.indel
+        self.qv_rescore = torch.tensor([m[0], m[1], p.indel, p.indel],
+                                       dtype=torch.float32,
+                                       device=self.device)
         if p.affine_align:
             raise NotImplementedError(
                 "--affineAlign (the homopolymer-insertion band) is not "
@@ -936,8 +984,96 @@ class Mapper:
             between_only=p.refine_between_anchors_only,
             cand_drift=p.candidate_drift_penalty,
             full_widen=cfg.full_widen,
-            tb_cap=tb_cap)
+            tb_cap=tb_cap, use_qv=self.use_qv, qv_score_type=p.score_type)
         return pos, kw
+
+    _TAG_CODE = None
+
+    @classmethod
+    def _tag_codes(cls):
+        if cls._TAG_CODE is None:
+            t = np.full(256, 7, np.int32)  # 7 = matches no target base
+            for i, c in enumerate("ACGT"):
+                t[ord(c)] = i
+            cls._TAG_CODE = t
+        return cls._TAG_CODE
+
+    def pack_qv_rows(self, group, batch: int, L: int):
+        """Per-read packed QV cost tracks (kernels.banded layout).
+
+        Per-row fallbacks make every flavor exact: full IDS tracks use
+        insertion/deletion/substitution QVs with tag-gated priors;
+        plain-QV reads (FASTQ) price mismatches at the base's quality
+        with flat indels (QualityValueScoreFunction, scoreFn.ins/del =
+        params.indel); reads with no QVs at all reproduce the flat
+        non-affine costs bit-for-bit."""
+        p = self.params
+        q1 = np.zeros((batch, L), np.int32)
+        q2 = np.zeros((batch, L), np.int32)
+        mm_default = int(np.clip(self.submat_np[1], 0, 255))
+        tagc = self._tag_codes()
+        for i, r in enumerate(group):
+            n = min(len(r.seq), L)
+            if n == 0:
+                continue
+            t = getattr(r, "tracks", None) or {}
+            iq = t.get("InsertionQV")
+            if iq is not None and len(np.unique(iq[:n])) > 1:
+                # IDS flavor (reference gate: insertionQV present and
+                # meaningful, BlasrMiscsImpl.hpp:50-77)
+                insq = np.clip(iq[:n], 0, 255).astype(np.int32)
+                dq = t.get("DeletionQV")
+                if dq is not None:
+                    delq = np.clip(dq[:n], 0, 255).astype(np.int32)
+                    dt = t.get("DeletionTag")
+                    if dt is not None:
+                        dtag = tagc[np.asarray(dt[:n], np.uint8)]
+                        dpri = np.full(n, p.global_deletion_prior,
+                                       np.int32)
+                    else:  # no tag: always the deletionQV
+                        dtag = np.full(n, 7, np.int32)
+                        dpri = delq
+                else:
+                    delq = np.zeros(n, np.int32)
+                    dtag = np.full(n, 7, np.int32)
+                    dpri = np.full(n, p.deletion, np.int32)
+                sq = t.get("SubstitutionQV")
+                if sq is not None:
+                    subq = np.clip(sq[:n], 0, 255).astype(np.int32)
+                    st = t.get("SubstitutionTag")
+                    if st is not None:
+                        stag = tagc[np.asarray(st[:n], np.uint8)]
+                        spri = np.full(n, p.substitution_prior, np.int32)
+                    else:
+                        stag = np.full(n, 7, np.int32)
+                        spri = subq
+                else:
+                    subq = np.zeros(n, np.int32)
+                    stag = np.full(n, 7, np.int32)
+                    spri = np.full(n, mm_default, np.int32)
+            elif r.qual is not None and len(r.qual) >= n \
+                    and len(np.unique(r.qual[:n])) > 1:
+                # plain-QV flavor: mismatch = base quality, flat indels
+                insq = np.full(n, p.indel, np.int32)
+                delq = np.zeros(n, np.int32)
+                dtag = np.full(n, 7, np.int32)
+                dpri = np.full(n, p.indel, np.int32)
+                subq = np.zeros(n, np.int32)
+                stag = np.full(n, 7, np.int32)
+                spri = np.clip(r.qual[:n], 0, 255).astype(np.int32)
+            else:
+                # no QVs: flat costs identical to the non-affine kernel
+                insq = np.full(n, p.insertion, np.int32)
+                delq = np.zeros(n, np.int32)
+                dtag = np.full(n, 7, np.int32)
+                dpri = np.full(n, p.deletion, np.int32)
+                subq = np.zeros(n, np.int32)
+                stag = np.full(n, 7, np.int32)
+                spri = np.full(n, mm_default, np.int32)
+            q1[i, :n] = (insq | (delq << 8) | (subq << 16)
+                         | (dtag << 24) | (stag << 27))
+            q2[i, :n] = dpri | (spri << 8)
+        return q1, q2
 
     def warmup(self, buckets: Optional[Sequence[int]] = None,
                n_threads: int = 0) -> None:
@@ -955,8 +1091,12 @@ class Mapper:
         T = L + W
         out: List[List[Alignment]] = []
 
-        def dispatch(arr_d, lens_d, tb_cap=0):
+        def dispatch(arr_d, lens_d, tb_cap=0, qv=None):
             pos, kw = self._batch_call_args(L, tb_cap)
+            if self.use_qv:
+                q1, q2 = qv
+                return map_batch(self.dev, arr_d, lens_d, *pos, qv1=q1,
+                                 qv2=q2, qv_rescore=self.qv_rescore, **kw)
             return map_batch(self.dev, arr_d, lens_d, *pos, **kw)
 
         for base in range(0, len(recs), batch):
@@ -969,15 +1109,20 @@ class Mapper:
                 lens[i] = n
             arr_d = torch.from_numpy(arr).to(self.device)
             lens_d = torch.from_numpy(lens).to(self.device)
+            qv = None
+            if self.use_qv:
+                qv = tuple(torch.from_numpy(q).to(self.device)
+                           for q in self.pack_qv_rows(group, batch, L))
             with self.metrics.clock("mapToGenome"):
-                res = dispatch(arr_d, lens_d)
+                res = dispatch(arr_d, lens_d, qv=qv)
             with self.metrics.clock("collectAlignments"):
                 res = unpack_batch(res)
                 # dense rerun only when an overflowed traceback can reach
                 # the output (candidates without a slot are dropped)
                 if (res.overflow & res.valid & (res.dp_slot >= 0)).any():
                     with self.metrics.clock("mapToGenome"):
-                        res = unpack_batch(dispatch(arr_d, lens_d, tb_cap=T))
+                        res = unpack_batch(dispatch(arr_d, lens_d,
+                                                    tb_cap=T, qv=qv))
                 out.extend(self._collect_batch(res, group, lens, batch))
             self.metrics.add("numReads", len(group))
             self.metrics.add("totalAnchors", int(res.n_anchors.sum()))
@@ -1087,7 +1232,7 @@ class Mapper:
             # (Blasr.cpp:757-764) and -V >=2 adds the sequence dumps
             w = self._vlog().write
             if p.verbosity >= 2:
-                from blasr_tpu.io.fasta import decode
+                from blasr_tpu_torch.io.fasta import decode
                 for i, rec in enumerate(group):
                     w(f"read {rec.name if rec.name else f'read/{i}'} "
                       f"{int(lens[i])}\n{decode(rec.seq[:int(lens[i])])}\n")
@@ -1119,7 +1264,7 @@ class Mapper:
         p = self.params
         batch = None
         try:
-            from blasr_tpu.native import cigar_native_batch
+            from blasr_tpu_torch.native import cigar_native_batch
             slots = np.fromiter((s for _, s in deferred), dtype=np.int64,
                                 count=len(deferred))
             batch = cigar_native_batch(ops, slots, p.allow_adjacent_indels)
@@ -1137,7 +1282,7 @@ class Mapper:
                     cg = merge_adjacent_indels(cg)
                 a.cigar = cg
         if p.cigar_use_seq_match:
-            from blasr_tpu.io.fasta import revcomp
+            from blasr_tpu_torch.io.fasta import revcomp
             for a, _ in deferred:
                 if a.strand == 0:
                     oq, qa = a.read, a.qstart

@@ -18,8 +18,8 @@ from typing import List, Sequence
 
 import numpy as np
 
-from blasr_tpu.params import (MAPQV_END_ALIGN_WIGGLE, MAX_PHRED_SCORE,
-                              MappingParams)
+from blasr_tpu_torch.params import (MAPQV_END_ALIGN_WIGGLE,
+                                    MAX_PHRED_SCORE, MappingParams)
 from blasr_tpu_torch.pipeline.map_read import Alignment
 
 # score -> log-prob scale: Phred-like, ln(10)/10 per score unit
@@ -67,7 +67,7 @@ def _log10_likelihood(a: Alignment, params: MappingParams, gi) -> float:
         return -a.score * _LAMBDA / math.log(10.0)
     if getattr(params, "ignore_qualities", True):
         a = dataclasses.replace(a, qual=None, tracks=None)
-    from blasr_tpu.io.fasta import revcomp
+    from blasr_tpu_torch.io.fasta import revcomp
     from blasr_tpu_torch.pipeline.scoring import QVTracks, log10_prob_alignment
     rc = a.strand == 1
 

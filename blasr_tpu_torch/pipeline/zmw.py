@@ -7,7 +7,7 @@ from __future__ import annotations
 import re
 from typing import Dict, List, Optional, Sequence, Tuple
 
-from blasr_tpu.io.fasta import FastaRecord
+from blasr_tpu_torch.io.fasta import FastaRecord
 
 _SUBREAD_RE = re.compile(r"^(.+)/(\d+)/(\d+)_(\d+)$")
 _ZMW_RE = re.compile(r"^(.+)/(\d+)$")

@@ -21,6 +21,7 @@ from blasr_tpu.kernels.banded import banded_traceback as jax_traceback  # noqa: 
 from blasr_tpu.params import MappingParams  # noqa: E402
 from blasr_tpu_torch.kernels import banded as tb  # noqa: E402
 from blasr_tpu_torch.kernels import pallas_banded as tpb  # noqa: E402
+from test_torch_cuda import qv_words  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -112,6 +113,52 @@ def test_plain_dp_matches_jax(N, L, W, gaps):
     fast = tpb.banded_align_cuda(*_torch(arrs), sm, *gaps)
     for a, b in zip(out, fast):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("N,L,W,flavours", [
+    (8, 256, 512, ("ids", "qv", "none")),
+    (5, 128, 384, ("ids",)),                  # N not a multiple of 8
+    (6, 192, 448, ("qv", "ids")),
+])
+def test_plain_qv_dp_matches_jax(N, L, W, flavours):
+    """QV-steered mode: the plain DP equals JAX's XLA kernel and the
+    Pallas kernel (interpret mode) on every output, every tbbits row."""
+    rng = np.random.default_rng(N * 100 + L + 1)
+    arrs = _case(rng, N, L, W, steep=(1,))
+    q1, q2 = qv_words(rng, N, L, flavours)
+    sm = _submat()
+    gaps = (4.0, 4.0, 5.0, 5.0)
+    ja = [jnp.asarray(a) for a in arrs]
+    jq = dict(qv1=jnp.asarray(q1), qv2=jnp.asarray(q2))
+    ref = jax_banded_align(*ja, jnp.asarray(sm), *gaps, w_b=128, **jq)
+    pal = pb.pallas_banded_align(*ja, jnp.asarray(sm), *gaps, w_b=128, **jq)
+    tq = dict(qv1=torch.from_numpy(q1), qv2=torch.from_numpy(q2))
+    out = tb.banded_align(*_torch(arrs), torch.from_numpy(sm), *gaps, **tq)
+    fields = ("score", "tbbits", "final_state", "valid")
+    _assert_same(ref, out, fields)
+    _assert_same(pal, out, fields)
+    assert out.valid.sum() >= N - 1
+    fast = tpb.banded_align_cuda(*_torch(arrs), sm, *gaps, **tq)
+    for a, b in zip(out, fast):
+        assert torch.equal(a, b)
+
+
+def test_no_qv_flavour_equals_distance_mode():
+    """Reads without QVs get flat per-row costs that reproduce the
+    distance-mode DP bit for bit (linear gaps at the default costs)."""
+    rng = np.random.default_rng(41)
+    N, L, W = 6, 192, 448
+    arrs = _torch(_case(rng, N, L, W, steep=(2,)))
+    q1, q2 = qv_words(rng, N, L, ("none",))
+    p = MappingParams().make_sane()
+    gaps = (p.insertion, p.insertion, p.deletion, p.deletion)
+    sm = _submat()
+    dist = tb.banded_align(*arrs, sm, *gaps)
+    qv = tb.banded_align(*arrs, sm, *gaps, qv1=torch.from_numpy(q1),
+                         qv2=torch.from_numpy(q2))
+    assert dist.valid.any()
+    for name, a, b in zip(dist._fields, dist, qv):
+        assert torch.equal(a, b), name
 
 
 @pytest.mark.parametrize("t_max", [128, 640])

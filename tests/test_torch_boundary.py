@@ -1,9 +1,10 @@
 """Guards on the PyTorch port's import boundary.
 
-* With JAX blocked (as on the GPU machine, which has no JAX), every
-  ``blasr_tpu_torch`` module imports and the CLI maps a tiny world on the
-  CPU.
-* Every function and class the port copied from ``blasr_tpu`` (the host
+* With JAX and the JAX package ``blasr_tpu`` blocked (the port imports
+  neither), every ``blasr_tpu_torch`` module imports and the CLI maps a
+  tiny world on the CPU, with and without ``--useQuality``.
+* Every module, function and class the port copied from ``blasr_tpu``
+  (params, sim, the io and index modules, the native helpers, the host
   half of map_read, metrics, scoring, select, the zmw and multihost
   helpers, formats) matches its original by ``ast.dump``, module names
   normalized; the differences the port needs are listed below.
@@ -22,8 +23,28 @@ torch = pytest.importorskip("torch")
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-# (port module, original module, names copied from it)
+# (port module, original module, names copied from it); "module" compares
+# the whole module, None every top-level function and class
 COPIES = [
+    ("params.py", "params.py", "module"),
+    ("sim.py", "sim.py", "module"),
+    ("io/fasta.py", "io/fasta.py", "module"),
+    ("io/fofn.py", "io/fofn.py", "module"),
+    ("io/bam.py", "io/bam.py", "module"),
+    ("io/bgzf.py", "io/bgzf.py", "module"),
+    ("io/hdf.py", "io/hdf.py", "module"),
+    ("io/dataset.py", "io/dataset.py", "module"),
+    ("io/refsa.py", "io/refsa.py", "module"),
+    ("io/refbin.py", "io/refbin.py", "module"),
+    ("index/genome.py", "index/genome.py", "module"),
+    ("index/suffix_array.py", "index/suffix_array.py", "module"),
+    ("index/bwt.py", "index/bwt.py", "module"),
+    # the build differs (get_lib / _build): into build/blasr_tpu_torch/
+    ("native/__init__.py", "native/__init__.py",
+     ["sais_native", "cigar_native", "cigar_native_batch", "runs_to_list",
+      "bwt_invert_native"]),
+    ("cli/bwt2sa.py", "cli/bwt2sa.py", ["contigs_from_concat"]),
+    ("cli/small_tools.py", "cli/small_tools.py", ["load_ctab"]),
     ("pipeline/map_read.py", "pipeline/map_read.py",
      ["Alignment", "LazyCigar", "unpack_pairs", "pairs_to_cigar",
       "split_match_runs", "merge_adjacent_indels", "Mapper"]),
@@ -40,9 +61,9 @@ COPIES = [
 # methods of the copied Mapper that differ on purpose:
 ALLOWED = {
     # device seam: torch device + index upload, refuses the unported
-    # QV / affine / rescue-index / occ_block_sample paths
+    # affine / rescue-index / occ_block_sample paths
     "Mapper.__init__",
-    # no use_hp / use_qv / occ_block_sample kwargs
+    # no use_hp / occ_block_sample kwargs
     "Mapper._batch_call_args",
     # builds the CUDA kernels instead of compiling XLA executables
     "Mapper.warmup",
@@ -53,16 +74,18 @@ ALLOWED = {
     # type(self)(...), and long reads / --extend raise NotImplementedError
     "Mapper.map_reads",
 }
-# not copied: QV packing (QV mode not ported) and the --anchors/--clusters
-# debug dump
-SKIPPED = {"Mapper._TAG_CODE", "Mapper._tag_codes", "Mapper.pack_qv_rows",
-           "Mapper.dump_debug"}
+# not copied: the --anchors/--clusters debug dump
+SKIPPED = {"Mapper.dump_debug"}
+
+
+def _tree(path):
+    return ast.parse(open(path).read().replace("blasr_tpu_torch",
+                                               "blasr_tpu"))
 
 
 def _defs(path):
-    src = open(path).read().replace("blasr_tpu_torch", "blasr_tpu")
     out = {}
-    for node in ast.parse(src).body:
+    for node in _tree(path).body:
         if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
             out[node.name] = node
     return out
@@ -83,8 +106,13 @@ def _members(cls):
 @pytest.mark.parametrize("port,orig,names", COPIES,
                          ids=[c[0] for c in COPIES])
 def test_copied_code_has_not_drifted(port, orig, names):
-    p = _defs(os.path.join(ROOT, "blasr_tpu_torch", port))
-    o = _defs(os.path.join(ROOT, "blasr_tpu", orig))
+    pp = os.path.join(ROOT, "blasr_tpu_torch", port)
+    op = os.path.join(ROOT, "blasr_tpu", orig)
+    if names == "module":
+        assert ast.dump(_tree(pp)) == ast.dump(_tree(op)), \
+            f"{port} drifted from blasr_tpu"
+        return
+    p, o = _defs(pp), _defs(op)
     for name in (names or list(o)):
         assert name in p, f"{name} missing from the port's {port}"
         a, b = p[name], o[name]
@@ -102,12 +130,15 @@ def test_copied_code_has_not_drifted(port, orig, names):
 
 
 def test_port_runs_without_jax(tmp_path):
-    """Subprocess with ``sys.modules['jax'] = None``: import every port
-    module, then map a tiny world with the CLI on the CPU."""
+    """Subprocess with ``sys.modules['jax'] = sys.modules['blasr_tpu'] =
+    None``: import every port module, then map a tiny world with the CLI
+    on the CPU, FASTA and FASTQ ``--useQuality``."""
     code = textwrap.dedent(f"""
         import importlib, os, pkgutil, sys
         sys.modules["jax"] = None
+        sys.modules["blasr_tpu"] = None
         sys.path.insert(0, {ROOT!r})
+        import numpy as np
         import torch
         torch.set_num_threads(2)
         import blasr_tpu_torch
@@ -115,8 +146,11 @@ def test_port_runs_without_jax(tmp_path):
             blasr_tpu_torch.__path__, "blasr_tpu_torch.")]
         for name in names:
             importlib.import_module(name)
-        from blasr_tpu.io.fasta import FastaRecord, write_fasta
-        from blasr_tpu.sim import random_genome, simulate_reads
+        from blasr_tpu_torch import native
+        assert native.library_path().parent.name == "blasr_tpu_torch"
+        assert native.library_path().parent.parent.name == "build"
+        from blasr_tpu_torch.io.fasta import FastaRecord, decode, write_fasta
+        from blasr_tpu_torch.sim import random_genome, simulate_reads
         contigs = random_genome(20_000, seed=5)
         sims = simulate_reads(contigs, 3, read_len=(300, 450),
                               accuracy=0.9, seed=6)
@@ -125,26 +159,37 @@ def test_port_runs_without_jax(tmp_path):
         write_fasta(os.path.join(d, "r.fa"),
                     [FastaRecord(f"m/{{i}}/0_1", s.rec.seq)
                      for i, s in enumerate(sims)])
+        rng = np.random.default_rng(7)
+        with open(os.path.join(d, "r.fastq"), "w") as f:
+            for i, s in enumerate(sims):
+                q = rng.integers(8, 40, len(s.rec.seq))
+                f.write(f"@m/{{i}}/0_1\\n{{decode(s.rec.seq)}}\\n+\\n"
+                        + "".join(chr(int(x) + 33) for x in q) + "\\n")
         from blasr_tpu_torch.cli.blasr import run
-        rc = run([os.path.join(d, "r.fa"), os.path.join(d, "g.fa"),
-                  "-m", "4", "--out", os.path.join(d, "o.m4"),
-                  "--device", "cpu"])
-        assert rc == 0, rc
+        for reads, out, flags in (("r.fa", "o.m4", []),
+                                  ("r.fastq", "q.m4", ["--useQuality"])):
+            rc = run([os.path.join(d, reads), os.path.join(d, "g.fa"),
+                      "-m", "4", "--out", os.path.join(d, out),
+                      "--device", "cpu"] + flags)
+            assert rc == 0, rc
         assert "jax" not in sys.modules or sys.modules["jax"] is None
-        print(len(names), open(os.path.join(d, "o.m4")).read())
+        assert not [m for m in sys.modules if m.startswith("blasr_tpu.")]
+        print(len(names), open(os.path.join(d, "o.m4")).read()
+              + open(os.path.join(d, "q.m4")).read())
     """)
     env = dict(os.environ, JAX_PLATFORMS="cpu")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=env, timeout=600)
     assert res.returncode == 0, res.stderr[-3000:]
     lines = res.stdout.strip().splitlines()
-    assert int(lines[0].split()[0]) >= 15          # every module imported
-    assert len(lines) >= 3 and all(len(l.split()) == 13 for l in lines[1:])
+    assert int(lines[0].split()[0]) >= 30          # every module imported
+    assert len(lines) >= 5 and all(len(l.split()) == 13 for l in lines[1:])
 
 
 @pytest.mark.parametrize("flag", [
     ["--bam"], ["--concordant"], ["--useccs"], ["--onegap"], ["--extend"],
-    ["--useQuality"], ["--affineAlign"], ["--printDotPlots"],
+    ["--affineAlign", "--useQuality"], ["--affineAlign"],
+    ["--printDotPlots"],
 ])
 def test_unported_flags_are_refused(tmp_path, flag, capsys):
     from blasr_tpu_torch.cli.blasr import run
@@ -165,7 +210,18 @@ def test_mapper_refuses_unported_modes():
     from blasr_tpu.sim import random_genome
     from blasr_tpu_torch.pipeline.map_read import Mapper
     gi = build_genome_index(random_genome(5_000, seed=1), k=12)
-    for p in (MappingParams(ignore_qualities=False),
+    for p in (MappingParams(affine_align=True, ignore_qualities=False),
               MappingParams(affine_align=True)):
         with pytest.raises(NotImplementedError):
             Mapper(gi, p, device="cpu")
+
+
+def test_native_source_is_a_copy():
+    """The port builds its host library from its own copy of sais.cpp:
+    the original below a one-line header comment."""
+    port = open(os.path.join(ROOT, "blasr_tpu_torch", "native",
+                             "sais.cpp")).read()
+    orig = open(os.path.join(ROOT, "blasr_tpu", "native", "sais.cpp")).read()
+    head, body = port.split("\n", 1)
+    assert head.startswith("// Copied from blasr_tpu/native/sais.cpp")
+    assert body == orig

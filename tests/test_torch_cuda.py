@@ -1,5 +1,6 @@
-"""The hand-written CUDA kernels (K1 banded DP, K2 traceback walk) against
-their plain PyTorch versions, on a card.  Skipped without a CUDA device.
+"""The hand-written CUDA kernels (K1 banded DP in its distance and QV
+modes, K2 traceback walk) against their plain PyTorch versions, on a card.
+Skipped without a CUDA device.
 
 The GPU machine has no JAX, and tests/conftest.py imports it, so run this
 file there without the conftest:
@@ -12,7 +13,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from blasr_tpu.params import MappingParams  # noqa: E402
+from blasr_tpu_torch.params import MappingParams  # noqa: E402
 from blasr_tpu_torch.kernels import banded as tb  # noqa: E402
 from blasr_tpu_torch.kernels import cuda_ops  # noqa: E402
 from blasr_tpu_torch.kernels import pallas_banded as tpb  # noqa: E402
@@ -91,6 +92,63 @@ def test_kernels_match_plain(cuda):
     assert cuda_ops.LAUNCHES["banded_dp"] == before["banded_dp"] + 1
     assert cuda_ops.LAUNCHES["banded_traceback"] == \
         before["banded_traceback"] + 2
+
+
+def qv_words(rng, N, L, flavours=("ids", "qv", "none")):
+    """Packed QV words (kernels/banded.py::unpack_qv layout), item i in
+    flavour ``flavours[i % len(flavours)]``, the three that
+    Mapper.pack_qv_rows makes: "ids" (random IDS costs, tags 0-3 and 7,
+    the global priors), "qv" (plain base qualities 8-39 as the mismatch
+    prior, flat indels) and "none" (the flat costs)."""
+    p = MappingParams().make_sane()
+    mm = int(_submat()[1])
+    q1 = np.zeros((N, L), np.int64)
+    q2 = np.zeros((N, L), np.int64)
+    z, seven = np.zeros(L, np.int64), np.full(L, 7, np.int64)
+    for i in range(N):
+        f = flavours[i % len(flavours)]
+        if f == "ids":
+            insq, delq, subq = (rng.integers(1, 30, L) for _ in range(3))
+            dtag, stag = (rng.choice([0, 1, 2, 3, 7], L) for _ in range(2))
+            dpri = np.full(L, p.global_deletion_prior)
+            spri = np.full(L, p.substitution_prior)
+        elif f == "qv":
+            insq, delq, subq, dtag, stag = (np.full(L, p.indel), z, z,
+                                            seven, seven)
+            dpri, spri = np.full(L, p.indel), rng.integers(8, 40, L)
+        else:
+            insq, delq, subq, dtag, stag = (np.full(L, p.insertion), z, z,
+                                            seven, seven)
+            dpri, spri = np.full(L, p.deletion), np.full(L, mm)
+        q1[i] = insq | (delq << 8) | (subq << 16) | (dtag << 24) | (stag << 27)
+        q2[i] = dpri | (spri << 8)
+    return q1.astype(np.int32), q2.astype(np.int32)
+
+
+def test_qv_kernel_matches_plain(cuda):
+    """K1-QV against the plain QV DP, exactly, on every output."""
+    rng = np.random.default_rng(29)
+    args = [t.to(cuda) for t in _case(rng, 14, 256, 640, steep=(4,))]
+    q1, q2 = (torch.from_numpy(q).to(cuda)
+              for q in qv_words(rng, 14, 256))
+    sm = _submat()
+    before = dict(cuda_ops.LAUNCHES)
+    k1 = tpb.banded_align_cuda(*args, sm, 4.0, 4.0, 5.0, 5.0, qv1=q1, qv2=q2)
+    p1 = tb.banded_align(*args, sm, 4.0, 4.0, 5.0, 5.0, qv1=q1, qv2=q2)
+    assert k1.valid.sum() >= 12
+    for name, a, b in zip(k1._fields, k1, p1):
+        assert torch.equal(a, b), name
+    assert cuda_ops.LAUNCHES["banded_dp_qv"] == before["banded_dp_qv"] + 1
+    assert cuda_ops.LAUNCHES["banded_dp"] == before["banded_dp"]
+    with pytest.raises(ValueError):
+        cuda_ops.banded_dp_launch(*args, match=-5.0, mismatch=6.0,
+                                  ins_open=4.0, ins_ext=4.0, del_open=5.0,
+                                  del_ext=5.0, qv1=q1)
+    with pytest.raises(TypeError):
+        cuda_ops.banded_dp_launch(*args, match=-5.0, mismatch=6.0,
+                                  ins_open=4.0, ins_ext=4.0, del_open=5.0,
+                                  del_ext=5.0, qv1=q1.to(torch.int64),
+                                  qv2=q2)
 
 
 def test_wrappers_check_their_inputs(cuda):
