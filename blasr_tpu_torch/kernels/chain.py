@@ -1,13 +1,17 @@
 """Anchor chaining and candidate-interval selection (port of
-``blasr_tpu/kernels/chain.py``), plain PyTorch.
+``blasr_tpu/kernels/chain.py``).
 
-``chain_anchors`` is the same O(A^2) chain DP as the JAX scan, one Python
-step per anchor over full ``[B, A]`` carries (the JAX package's 8-anchor
-blocks and padded windows only amortize loop overhead; the per-anchor op
-order is identical), followed by the greedy top-``n_cand`` selection.
-Ties resolve to the first index exactly as ``jnp.argmax`` does.  The two
-float expressions XLA contracts into fused multiply-adds (the drift bound
-and the significance sum) are rounded once here too.
+``chain_anchors`` dispatches on the device of its inputs: CUDA tensors go
+to K3 (``csrc/chain_scan.cu``, one launch for the scan and the
+selection), CPU tensors to ``chain_anchors_plain``.
+
+``chain_anchors_plain`` is the same O(A^2) chain DP as the JAX scan, one
+Python step per anchor over full ``[B, A]`` carries (the JAX package's
+8-anchor blocks and padded windows only amortize loop overhead; the
+per-anchor op order is identical), followed by the greedy top-``n_cand``
+selection.  Ties resolve to the first index exactly as ``jnp.argmax``
+does.  The two float expressions XLA contracts into fused multiply-adds
+(the drift bound and the significance sum) are rounded once here too.
 """
 
 from __future__ import annotations
@@ -44,6 +48,45 @@ def chain_anchors(anchors: Anchors, read_len: torch.Tensor, *, n_cand: int,
                   p_value_type: int = 0, lookback: int = 0,
                   global_chain: bool = False,
                   drift_penalty: float = 0.0) -> Candidates:
+    """Chain DP and top-``n_cand`` selection: K3 on CUDA tensors, the
+    plain version on CPU tensors (same contract as
+    :func:`chain_anchors_plain`)."""
+    dev = anchors.q.device
+    if dev.type == "cpu":
+        return chain_anchors_plain(
+            anchors, read_len, n_cand=n_cand, indel_rate=indel_rate,
+            drift_frac=drift_frac, drift_slack=drift_slack,
+            rank_by_pvalue=rank_by_pvalue, p_value_type=p_value_type,
+            lookback=lookback, global_chain=global_chain,
+            drift_penalty=drift_penalty)
+    if dev.type != "cuda":
+        raise NotImplementedError(f"chain_anchors on {dev.type}")
+    from blasr_tpu_torch.kernels import cuda_ops
+    A = anchors.q.shape[1]
+    if global_chain:
+        drift_frac, drift_slack = 0.1, 0
+    rank_mode = ({1: 2, 2: 3}.get(p_value_type, 1) if rank_by_pvalue
+                 else 0)
+
+    def i32(x):
+        return x.to(torch.int32).contiguous()
+
+    return cuda_ops.chain_scan_launch(
+        i32(anchors.q), i32(anchors.t), i32(anchors.l),
+        anchors.valid.contiguous(), anchors.nlogp.contiguous(),
+        i32(read_len), n_cand=n_cand,
+        lookback=A if lookback <= 0 or lookback > A else lookback,
+        rate=1.0 + indel_rate, drift_frac=drift_frac,
+        drift_slack=float(drift_slack), drift_penalty=drift_penalty,
+        global_chain=global_chain, rank_mode=rank_mode)
+
+
+def chain_anchors_plain(anchors: Anchors, read_len: torch.Tensor, *,
+                        n_cand: int, indel_rate: float = 0.3,
+                        drift_frac: float = 0.35, drift_slack: int = 50,
+                        rank_by_pvalue: bool = False, p_value_type: int = 0,
+                        lookback: int = 0, global_chain: bool = False,
+                        drift_penalty: float = 0.0) -> Candidates:
     """See ``blasr_tpu.kernels.chain.chain_anchors`` for the weightors,
     the transition window (``lookback``), ``global_chain`` and
     ``drift_penalty``."""

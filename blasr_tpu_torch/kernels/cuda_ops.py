@@ -1,11 +1,11 @@
 """Build, load and launch the hand-written CUDA kernels (``csrc/*.cu``).
 
-The sources compile with ``nvcc`` into one shared library with a plain C
-interface, loaded through ``ctypes`` (no PyTorch headers, so the build
-takes seconds).  The library is built at first use, from the package's
-own sources, into ``build/blasr_tpu_torch/`` beside the package; its file
-name carries a hash of the sources and flags, so an edited source
-rebuilds.
+The sources compile with ``nvcc``, one process per source, all at once,
+and link into one shared library with a plain C interface, loaded through
+``ctypes`` (no PyTorch headers, so the build takes seconds).  The library
+is built at first use, from the package's own sources, into
+``build/blasr_tpu_torch/`` beside the package; its file name carries a
+hash of the sources and flags, so an edited source rebuilds.
 
 Every wrapper checks device, dtype, shape and contiguity, launches on
 ``torch.cuda.current_stream()``, raises if ``cudaGetLastError()`` is not 0
@@ -27,16 +27,26 @@ import torch
 
 from blasr_tpu_torch.kernels.banded import (BandedResult, TracebackResult,
                                             pair_capacity)
+from blasr_tpu_torch.kernels.chain import Candidates
 
 _PKG_DIR = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG_DIR / "csrc"
-SOURCES = ("banded_dp.cu", "banded_traceback.cu")
+SOURCES = ("banded_dp.cu", "banded_traceback.cu", "chain_scan.cu",
+           "sdp_window.cu")
 BUILD_DIR = _PKG_DIR.parent / "build" / "blasr_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # kernel launches since the last reset, one entry per wrapper
-LAUNCHES = {"banded_dp": 0, "banded_dp_qv": 0, "banded_traceback": 0}
+LAUNCHES = {"banded_dp": 0, "banded_dp_qv": 0, "banded_traceback": 0,
+            "chain_scan": 0, "sdp_window": 0}
+
+# shared memory a block may opt into on sm_90 (227 KB), less a margin for
+# the kernels' static arrays; K3 keeps 42 bytes per anchor there, K4 one
+# uint32 key per slab position
+SMEM_OPTIN = 232448 - 1024
+CHAIN_SMEM_PER_ANCHOR = 42
+CHAIN_MAX_ANCHORS = SMEM_OPTIN // CHAIN_SMEM_PER_ANCHOR
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -69,21 +79,38 @@ def library_path() -> Path:
 
 def build() -> Path:
     """Compile the kernels if the library for the current sources is
-    missing; return its path.  The compiler's register/spill report is kept
-    next to it as ``<lib>.log``."""
+    missing; return its path.  Each source compiles in its own ``nvcc``
+    process, all started together, then one ``nvcc -shared`` links them.
+    The compilers' register/spill reports are kept next to the library as
+    ``<lib>.log``."""
     lib = library_path()
     if lib.exists():
         return lib
     lib.parent.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
     tmp = lib.with_suffix(f".tmp{os.getpid()}.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(SRC_DIR / s) for s in SOURCES)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    Path(str(lib) + ".log").write_text(
-        " ".join(cmd) + "\n" + res.stdout + res.stderr)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                           f"{res.stdout}{res.stderr}")
+    objs = [tmp.with_suffix(f".{Path(s).stem}.o") for s in SOURCES]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", str(SRC_DIR / s), "-o", str(o)]
+            for s, o in zip(SOURCES, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    runs = []
+    for c, p in zip(cmds, procs):
+        out, err = p.communicate()
+        runs.append((c, p.returncode, out, err))
+    if all(rc == 0 for _, rc, _, _ in runs):
+        link = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+        res = subprocess.run(link, capture_output=True, text=True)
+        runs.append((link, res.returncode, res.stdout, res.stderr))
+    for o in objs:
+        o.unlink(missing_ok=True)
+    text = "".join(" ".join(c) + "\n" + out + err for c, _, out, err in runs)
+    Path(str(lib) + ".log").write_text(text)
+    failed = [rc for _, rc, _, _ in runs if rc != 0]
+    if failed:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed ({failed[0]}):\n{text}")
     os.replace(tmp, lib)
     return lib
 
@@ -108,6 +135,12 @@ def _load() -> ctypes.CDLL:
             lib.blasr_banded_traceback.restype = I
             lib.blasr_banded_traceback.argtypes = (
                 [P] * 8 + [I] * 3 + [P] * 7 + [P])
+            lib.blasr_chain_scan.restype = I
+            lib.blasr_chain_scan.argtypes = (
+                [P] * 6 + [I] * 4 + [F] * 3 + [I, F, I, I] + [P] * 10 + [P])
+            lib.blasr_sdp_window.restype = I
+            lib.blasr_sdp_window.argtypes = (
+                [P] * 3 + [I] * 5 + [P] * 2 + [P])
             _lib = lib
         return _lib
 
@@ -219,3 +252,88 @@ def banded_traceback_cuda(result: BandedResult, offsets, qa, qb, ta, tb, *,
                            n_match=counts[1], n_mismatch=counts[2],
                            n_ins=counts[3], n_del=counts[4],
                            overflow=overflow)
+
+
+def chain_scan_launch(q, t, l, valid, nlogp, read_len, *, n_cand: int,
+                      lookback: int, rate: float, drift_frac: float,
+                      drift_slack: float, drift_penalty: float,
+                      global_chain: bool, rank_mode: int) -> Candidates:
+    """K3 on CUDA tensors: anchors q/t/l int32 [B, A], valid bool [B, A],
+    nlogp float32 [B, A], read_len int32 [B]; ``lookback`` is the
+    predecessor window D (1..A), ``rank_mode`` the selection key (0 best,
+    1 sump, 2 best * log 4, 3 sumr).  Returns the Candidates of
+    ``chain_anchors_plain``, the kernel's int32 results widened to int64."""
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError("chain_scan_launch needs CUDA tensors")
+    B, A = q.shape
+    for name, x, dt in (("q", q, torch.int32), ("t", t, torch.int32),
+                        ("l", l, torch.int32), ("valid", valid, torch.bool),
+                        ("nlogp", nlogp, torch.float32)):
+        _check(x, name, dt, (B, A), dev)
+    _check(read_len, "read_len", torch.int32, (B,), dev)
+    if not 1 <= A <= CHAIN_MAX_ANCHORS:
+        raise ValueError(
+            f"K3 holds a row's anchors in shared memory: A = {A} is outside "
+            f"1..{CHAIN_MAX_ANCHORS} ({CHAIN_SMEM_PER_ANCHOR} bytes each)")
+    if not 1 <= lookback <= A or n_cand < 1 or rank_mode not in range(4):
+        raise ValueError(f"K3 arguments out of range: lookback={lookback}, "
+                         f"n_cand={n_cand}, rank_mode={rank_mode}")
+    C = n_cand
+    i32 = torch.int32
+    outs = [torch.empty((B, C), dtype=dt, device=dev)
+            for dt in (i32, i32, i32, i32, torch.float32, i32,
+                       torch.float32, torch.bool, i32)]
+    parent = torch.empty((B, A), dtype=i32, device=dev)
+    if B > 0:
+        lib = _load()
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            rc = lib.blasr_chain_scan(
+                q.data_ptr(), t.data_ptr(), l.data_ptr(), valid.data_ptr(),
+                nlogp.data_ptr(), read_len.data_ptr(), B, A, lookback, C,
+                float(rate), float(drift_frac), float(drift_slack),
+                int(drift_penalty > 0.0), -float(drift_penalty),
+                int(bool(global_chain)), rank_mode,
+                *(o.data_ptr() for o in outs), parent.data_ptr(), stream)
+        _launched(rc, "chain_scan")
+        LAUNCHES["chain_scan"] += 1
+    qs, qe, ts, te, score, n_anch, cnlogp, cvalid, end = outs
+    i64 = torch.int64
+    return Candidates(
+        q_start=qs.to(i64), q_end=qe.to(i64), t_start=ts.to(i64),
+        t_end=te.to(i64), score=score, n_anchors=n_anch.to(i64),
+        nlogp=cnlogp, valid=cvalid, end_idx=end.to(i64),
+        parent=parent.to(i64))
+
+
+def sdp_window_launch(rkeys, wkeys, dlo, *, D: int, occ: int):
+    """K4 on CUDA tensors: masked read keys int32 [N, L] and window keys
+    int32 [N, W] (uint32 bit patterns, ``sdp.kernel_inputs``), slab starts
+    dlo int32 [N].  Returns (diag int64, valid bool), each [N, L, occ], as
+    ``window_fragment_diags_banded_plain`` does."""
+    dev = rkeys.device
+    if dev.type != "cuda":
+        raise ValueError("sdp_window_launch needs CUDA tensors")
+    N, L = rkeys.shape
+    W = wkeys.shape[1]
+    _check(rkeys, "rkeys", torch.int32, (N, L), dev)
+    _check(wkeys, "wkeys", torch.int32, (N, W), dev)
+    _check(dlo, "dlo", torch.int32, (N,), dev)
+    if occ not in (1, 2) or D < 1:
+        raise ValueError(f"K4 takes occ 1 or 2 and D >= 1 (occ={occ}, D={D})")
+    if 4 * (L + D) > SMEM_OPTIN:
+        raise ValueError(f"K4 holds a row's L + D = {L + D} slab keys in "
+                         "shared memory, more than a block can hold")
+    diag = torch.empty((N, L, occ), dtype=torch.int32, device=dev)
+    valid = torch.empty((N, L, occ), dtype=torch.bool, device=dev)
+    if N > 0 and L > 0:
+        lib = _load()
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            rc = lib.blasr_sdp_window(
+                rkeys.data_ptr(), wkeys.data_ptr(), dlo.data_ptr(), N, L, W,
+                D, occ, diag.data_ptr(), valid.data_ptr(), stream)
+        _launched(rc, "sdp_window")
+        LAUNCHES["sdp_window"] += 1
+    return diag.to(torch.int64), valid

@@ -1,7 +1,11 @@
 """Short-tuple SDP fragment search for the band guide (port of
-``blasr_tpu/kernels/sdp.py::window_fragment_diags_banded``), plain
-PyTorch.  The sort-based ``window_fragment_diags`` and ``sdp_align``
-(``sdpMatcher``) are not ported."""
+``blasr_tpu/kernels/sdp.py::window_fragment_diags_banded``).
+
+``window_fragment_diags_banded`` dispatches on the device of its inputs:
+CUDA tensors go to K4 (``csrc/sdp_window.cu``), CPU tensors to
+``window_fragment_diags_banded_plain``.  The sort-based
+``window_fragment_diags`` and ``sdp_align`` (``sdpMatcher``) are not
+ported."""
 
 from __future__ import annotations
 
@@ -10,11 +14,56 @@ import torch
 from blasr_tpu_torch.kernels.anchor import read_kmer_keys
 
 _CHUNK = 32  # diagonals compared per vectorized step
+INVALID_WINDOW = 0xFFFFFFFF   # key of a window position without a k-mer
+INVALID_READ = 0xFFFFFFFE     # key of a read position without a k-mer
+
+
+def _diag_lo(offs, L: int, W: int, D: int, w_b: int) -> torch.Tensor:
+    """First diagonal of each row's D-diagonal slab (int64 [N]), centred
+    on the guide path and clamped to [-(L + D), W]."""
+    q = torch.arange(L, dtype=torch.int64, device=offs.device)[None, :]
+    diag_c = offs.to(torch.int64) + (w_b // 2) - q
+    dmin = diag_c.amin(dim=1)
+    dmax = diag_c.amax(dim=1)
+    return ((dmin + dmax) // 2 - D // 2).clamp(-(L + D), W)
 
 
 def window_fragment_diags_banded(rkeys, rvalid, windows, wlens, offs, *,
                                  k: int, occ: int, D: int = 512,
                                  w_b: int = 128):
+    """The D-diagonal fragment search: K4 on CUDA tensors, the plain
+    version on CPU tensors (same contract as
+    :func:`window_fragment_diags_banded_plain`)."""
+    dev = rkeys.device
+    if dev.type == "cpu":
+        return window_fragment_diags_banded_plain(
+            rkeys, rvalid, windows, wlens, offs, k=k, occ=occ, D=D, w_b=w_b)
+    if dev.type != "cuda":
+        raise NotImplementedError(
+            f"window_fragment_diags_banded on {dev.type}")
+    from blasr_tpu_torch.kernels import cuda_ops
+    return cuda_ops.sdp_window_launch(
+        *kernel_inputs(rkeys, rvalid, windows, wlens, offs, k=k, D=D,
+                       w_b=w_b), D=D, occ=occ)
+
+
+def kernel_inputs(rkeys, rvalid, windows, wlens, offs, *, k: int, D: int,
+                  w_b: int):
+    """What K4 takes: the masked read keys [N, L] and window keys [N, W]
+    as int32 holding their uint32 bits, and the slab starts int32 [N]."""
+    def u32_bits(x):
+        return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
+
+    wkeys, wval = read_kmer_keys(windows, wlens, k)
+    dlo = _diag_lo(offs, rkeys.shape[1], windows.shape[1], D, w_b)
+    return (u32_bits(torch.where(rvalid, rkeys, INVALID_READ)),
+            u32_bits(torch.where(wval, wkeys, INVALID_WINDOW)),
+            dlo.to(torch.int32))
+
+
+def window_fragment_diags_banded_plain(rkeys, rvalid, windows, wlens, offs,
+                                       *, k: int, occ: int, D: int = 512,
+                                       w_b: int = 128):
     """For every query position, the first ``occ`` (1 or 2) diagonals of a
     D-diagonal slab centred on the guide path whose window k-mer equals the
     read's.  Returns (diag = w_pos - q_pos in window coords, valid), each
@@ -28,23 +77,17 @@ def window_fragment_diags_banded(rkeys, rvalid, windows, wlens, offs, *,
     i64 = torch.int64
     N, L = rkeys.shape
     W = windows.shape[1]
-    INVALID = 0xFFFFFFFF
     wkeys, wval = read_kmer_keys(windows, wlens, k)
-    wkey_m = torch.where(wval, wkeys, INVALID)
-
-    q = torch.arange(L, dtype=i64, device=dev)[None, :]
-    diag_c = offs.to(i64) + (w_b // 2) - q
-    dmin = diag_c.amin(dim=1)
-    dmax = diag_c.amax(dim=1)
-    dlo = ((dmin + dmax) // 2 - D // 2).clamp(-(L + D), W)
+    wkey_m = torch.where(wval, wkeys, INVALID_WINDOW)
+    dlo = _diag_lo(offs, L, W, D, w_b)
 
     PAD = L + D
-    pad = torch.full((N, PAD), INVALID, dtype=i64, device=dev)
+    pad = torch.full((N, PAD), INVALID_WINDOW, dtype=i64, device=dev)
     wpad = torch.cat([pad, wkey_m, pad], dim=1)
     start = (dlo + PAD).clamp(0, wpad.shape[1] - (L + D))
     wslice = wpad.gather(
         1, start[:, None] + torch.arange(L + D, device=dev)[None, :])
-    rk_m = torch.where(rvalid, rkeys, 0xFFFFFFFE)
+    rk_m = torch.where(rvalid, rkeys, INVALID_READ)
 
     hits = torch.zeros((N, L), dtype=torch.int32, device=dev)
     d0 = torch.zeros((N, L), dtype=i64, device=dev)

@@ -7,12 +7,18 @@ Run from the repository root on a machine with a CUDA card:
 
 Phases (any failed check exits nonzero):
   1. header: torch / CUDA / nvcc versions, the card's name and power limit;
-     build the hand-written kernels K1 (banded DP, distance and QV modes)
-     and K2 (traceback walk) from ``blasr_tpu_torch/csrc``;
+     build the hand-written kernels K1 (banded DP, distance and QV modes),
+     K2 (traceback walk), K3 (chain scan) and K4 (SDP window pass) from
+     ``blasr_tpu_torch/csrc``, one nvcc per source, all at once;
   2. each kernel against its plain PyTorch version at the main path's
-     shapes (N=640 items, L=2048 rows, W=3072 window), exact equality,
-     timed with CUDA events: K1, K1-QV (random QV words in the three
-     flavours: IDS tracks, plain base qualities, none) and K2;
+     shapes, exact equality, timed with CUDA events: K1, K1-QV (random QV
+     words in the three flavours: IDS tracks, plain base qualities, none)
+     and K2 at N=640 items, L=2048 rows, W=3072 window; K3 on the anchors
+     of the bench workload's first batch (2B=64 strand-rows, A=512) in its
+     candidate and guide passes, a lookback-64 global chain and the edge
+     inputs of tests/torch_edge_cases.py; K4 at N=192, L=2048, W=3072,
+     D=512, occ 2 and 1, on bench-genome windows with planted read
+     k-mers, and on the edge inputs;
   3. the golden worlds of tests/test_golden.py through the port's CLI with
      ``--device cuda``, byte for byte against tests/golden/: the main path
      (small: 60 kb, 12 reads; big: 4.6 Mbp, 11 reads; golden.{m4,sam,
@@ -26,7 +32,10 @@ Phases (any failed check exits nonzero):
      ``--useQuality`` with per-base qualities 8-39: reads/s, per-stage
      device times, and the share of reads placed on their simulated
      interval (>= 95%).  Launch counts are zeroed just before each of the
-     two runs and read just after it.
+     two runs and read just after it: K3 launches twice per batch dispatch
+     (candidate and guide passes), K4 once;
+  5. torch.profiler over one more distance pass: launches per read, the
+     device's busy share, the kernels with the most device time.
 The second-to-last lines are a JSON kernel table and the card's name and
 power limit; the last line is ``{"ok": true, "device": {...}}``.
 Exits nonzero without a result when no CUDA device is present or when
@@ -50,6 +59,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(HERE, "tests", "golden")
 DP_SRC = "blasr_tpu_torch/csrc/banded_dp.cu"
 TB_SRC = "blasr_tpu_torch/csrc/banded_traceback.cu"
+CHAIN_SRC = "blasr_tpu_torch/csrc/chain_scan.cu"
+SDP_SRC = "blasr_tpu_torch/csrc/sdp_window.cu"
 # published H100 SXM peaks: HBM bytes/s, float32 (non-tensor-core) ops/s
 HBM_BPS = 3.35e12
 F32_OPS = 67e12
@@ -61,6 +72,12 @@ K1_OPS_PER_CELL = 25
 K1QV_OPS_PER_CELL = 27
 # a dependent 4-byte gather still moves one 32-byte DRAM sector
 SECTOR = 32
+# K3: float32/int operations per predecessor test (two differences, the
+# drift and span conversions, the fused bound, five compares, the gain's
+# min and conversion, the add and the running max, ~20) and per anchor
+# per selection round (the rank key, the overlap test, ~12)
+K3_OPS_PER_PAIR = 20
+K3_OPS_PER_SELECT = 12
 
 
 def log(msg: str) -> None:
@@ -287,6 +304,250 @@ def phase_kernels(card):
     }
 
 
+def bench_batch(gi, sims):
+    """The bench workload's first batch in bucket 2048 as
+    Mapper._run_bucket forms it, its anchors as map_batch finds them, the
+    chain arguments map_batch passes and the device index."""
+    from blasr_tpu_torch.kernels.anchor import find_anchors
+    from blasr_tpu_torch.params import MappingParams, ShapeConfig
+    from blasr_tpu_torch.pipeline.map_read import Mapper, _revcomp_batch
+    L = 2048
+    cfg = ShapeConfig(buckets=(1024, 2048), batch_size=32, max_anchors=512)
+    mapper = Mapper(gi, MappingParams().make_sane(), cfg, device="cuda")
+    batch = mapper.batch_size_for(L)
+    recs = [s.rec for s in sims if cfg.bucket_for(len(s.rec.seq)) == L]
+    arr = np.full((batch, L), 4, np.int8)
+    lens = np.zeros(batch, np.int32)
+    for i, r in enumerate(recs[:batch]):
+        n = min(len(r.seq), L)
+        arr[i, :n] = r.seq[:n]
+        lens[i] = n
+    dev = torch.device("cuda")
+    reads = torch.from_numpy(arr).to(dev)
+    rl = torch.from_numpy(lens).to(dev)
+    reads2 = torch.cat([reads, _revcomp_batch(reads, rl)])
+    rlen2 = torch.cat([rl, rl])
+    _, kw = mapper._batch_call_args(L)
+    ix = mapper.dev
+
+    def anchor_call():
+        return find_anchors(
+            ix.genome, ix.keys_sorted, ix.pos_sorted, reads2, rlen2,
+            k=kw["cfg_k"], occ_per_pos=kw["O"], max_anchors=kw["A"],
+            anchor_ext=kw["E"], min_match=kw["min_match"],
+            max_anchors_per_pos=kw["max_anchors_per_pos"],
+            max_lcp=kw["max_lcp"], advance_exact=kw["advance_exact"],
+            bucket_starts=ix.bucket_starts, bucket_pairs=ix.bucket_pairs,
+            gwords=ix.gwords, gnwords=ix.gnwords,
+            pos_records=ix.pos_records)
+
+    anchors = anchor_call()
+    torch.cuda.synchronize()
+    t_ms = cuda_ms(anchor_call, 3)
+    log(f"# anchors (find_anchors, plain torch) on this batch: {t_ms:.3f} "
+        f"ms, bound {anchors_bound(anchors, rlen2, kw)[0]:.4f} ms (bytes)")
+    pvt = kw["p_value_type"]
+    chain_kw = dict(n_cand=max(2 * kw["C"], 16),
+                    indel_rate=kw["indel_rate"],
+                    rank_by_pvalue=pvt in (0, 1, 2), p_value_type=pvt,
+                    lookback=kw["lookback"],
+                    global_chain=kw["global_chain"],
+                    drift_penalty=kw["cand_drift"])
+    return anchors, rlen2, reads2, chain_kw, ix
+
+
+def anchors_bound(anchors, rlen2, kw):
+    """Bound of one find_anchors call (kernels/anchor.py) on the fused
+    records path: the reads read once; one 32-byte sector per LUT pair
+    gather (one per read position with a k-mer) and 1.5 sectors on average
+    per 24-byte occurrence record gathered (counting only the hits that
+    survive, so a lower bound); the anchors (q, t, l int64, valid, nlogp),
+    the raw hits (int64 position and flag per [B, L, O] slot) and two
+    int32 counts per row written once.  Its sorts and compares are under
+    a microsecond of the float32 peak."""
+    B, L, O = anchors.hits_t.shape
+    A = anchors.q.shape[1]
+    kmers = float((rlen2.to(torch.int64) - kw["cfg_k"] + 1).clamp(min=0)
+                  .sum())
+    hits = float(anchors.hits_valid.sum())
+    nbytes = (B * L + SECTOR * kmers + 1.5 * SECTOR * hits
+              + B * A * 29 + B * L * O * 9 + 8 * B)
+    return bound(nbytes, 0.0)
+
+
+def check_equal(out, ref, fields, name: str) -> float:
+    for f, a, b in zip(fields, out, ref):
+        assert a.dtype == b.dtype and torch.equal(a, b), \
+            f"{name}: {f} differs from the plain version"
+    return max_abs(list(out), list(ref))
+
+
+def k3_bound(anchors, n_cand: int, lookback: int):
+    """Bound of one chain_anchors call: the anchors (q, t, l int64, valid,
+    nlogp) and read lengths read once, the candidates (six int64, two
+    float32, one bool field) and the int64 parent pointers written once;
+    the predecessor tests this call's valid anchors need, and the
+    selection rounds."""
+    v = anchors.valid.cpu().numpy()
+    B, A = v.shape
+    D = A if lookback <= 0 or lookback > A else lookback
+    c = np.concatenate([np.zeros((B, 1), np.int64),
+                        np.cumsum(v, axis=1, dtype=np.int64)], axis=1)
+    i = np.arange(A)
+    pairs = float((v * (c[:, i] - c[:, np.maximum(i - D, 0)])).sum())
+    nbytes = B * A * (24 + 1 + 4 + 8) + 4 * B + B * n_cand * 57
+    ops = K3_OPS_PER_PAIR * pairs + K3_OPS_PER_SELECT * n_cand * B * A
+    return bound(nbytes, ops), pairs
+
+
+def sdp_bench_case(gi, reads2, rlen2, rng, N=192, L=2048, W=3072):
+    """K4 inputs at the main path's shapes, as
+    tests/test_torch_stages.py::test_window_fragment_diags_matches_jax
+    builds them: bench-genome windows with read k-mers planted on
+    diagonal 260, and a second copy of read positions 900-1200 on
+    diagonal 450 (second hits), guide offsets along diagonal 260."""
+    from blasr_tpu_torch.kernels.anchor import read_kmer_keys
+    g = np.asarray(gi.genome)
+    r2 = reads2.cpu().numpy()
+    l2 = rlen2.cpu().numpy()
+    rows = rng.integers(0, len(r2), N)
+    starts = rng.integers(0, len(g) - W, N)
+    windows = np.stack([g[s:s + W] for s in starts]).astype(np.int8)
+    reads = r2[rows].copy()
+    windows[:, 300:1300] = reads[:, 40:1040]
+    windows[:, 1350:1650] = reads[:, 900:1200]
+    offs = np.clip(np.arange(L)[None, :] + 260 - 64
+                   + rng.integers(-30, 30, (N, 1)), 0, W - 128)
+    offs = np.maximum.accumulate(offs, axis=1)
+    dev = torch.device("cuda")
+    rk, rv = read_kmer_keys(torch.from_numpy(reads).to(dev),
+                            torch.from_numpy(l2[rows]).to(dev), 11)
+    return (rk, rv, torch.from_numpy(windows).to(dev),
+            torch.full((N,), W, dtype=torch.int64, device=dev),
+            torch.from_numpy(offs).to(dev))
+
+
+def k4_bound(args, diag, valid, occ: int, D: int, k: int):
+    """Bound of one window_fragment_diags_banded call: the read keys
+    (int64) and flags, the windows, window lengths and int64 offsets read
+    once, the int64 diagonals and flags written once; the window k-mer
+    keys (~4 ops per base of k per position) and the compares this call's
+    data needs (each position walks its slab up to its occ-th hit, or all
+    of it)."""
+    from blasr_tpu_torch.kernels.sdp import _diag_lo
+    rk, rv, windows, wlens, offs = args
+    N, L = rk.shape
+    W = windows.shape[1]
+    dlo = _diag_lo(offs, L, W, D, 128)
+    last = diag[:, :, occ - 1] - dlo[:, None]
+    walked = torch.where(valid[:, :, occ - 1], last + 1, D)
+    compares = float(walked.sum())
+    nbytes = N * L * (8 + 1 + 8) + N * W + 8 * N + N * L * occ * 9
+    return bound(nbytes, compares + 4 * k * N * W), compares
+
+
+def phase_chain_sdp(card, gi, sims):
+    """K3 and K4 against their plain versions on the same CUDA tensors."""
+    from blasr_tpu_torch.kernels import chain, cuda_ops, sdp
+    from blasr_tpu_torch.kernels.anchor import Anchors
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from torch_edge_cases import (CHAIN_CASES, K_SDP, SDP_CASES,
+                                  chain_case, sdp_case)
+    from blasr_tpu_torch.kernels.anchor import read_kmer_keys
+    dev = torch.device("cuda")
+    t0 = time.time()
+    anchors, rlen2, reads2, ckw, ix = bench_batch(gi, sims)
+    B, A = anchors.q.shape
+    log(f"# phase 2 K3: bench batch B={B} A={A}, "
+        f"{int(anchors.valid.sum())} valid anchors "
+        f"({time.time() - t0:.1f}s)")
+    fields = chain.Candidates._fields
+    res = {}
+    k3_err = 0.0
+    for label, kw in (("candidate", ckw),
+                      ("guide", dict(ckw, n_cand=1, drift_penalty=1.0)),
+                      ("lookback64-global",
+                       dict(ckw, lookback=64, global_chain=True))):
+        out = chain.chain_anchors(anchors, rlen2, **kw)
+        torch.cuda.synchronize()
+        ref = chain.chain_anchors_plain(anchors, rlen2, **kw)
+        torch.cuda.synchronize()
+        k3_err = max(k3_err, check_equal(out, ref, fields, f"K3 {label}"))
+        kms = cuda_ms(lambda: chain.chain_anchors(anchors, rlen2, **kw), 20)
+        pms = cuda_ms(lambda: chain.chain_anchors_plain(anchors, rlen2,
+                                                        **kw), 1)
+        kb, pairs = k3_bound(anchors, kw["n_cand"], kw["lookback"])
+        res[label] = (kms, pms, kb)
+        log(f"# K3 == plain ({label}: n_cand={kw['n_cand']}, "
+            f"lookback={kw['lookback']}, global={kw['global_chain']}, "
+            f"drift_penalty={kw['drift_penalty']}): exact, "
+            f"{int(out.valid.sum())} valid candidates; kernel {kms:.3f} ms "
+            f"({1e3 * kms / (A + kw['n_cand']):.3f} us per dependent step), "
+            f"plain {pms:.1f} ms, bound {kb[0]:.4f} ms ({kb[1]}; "
+            f"{pairs:.0f} predecessor tests) on {card}")
+    for name in CHAIN_CASES:
+        c, kw = chain_case(name)
+        an = Anchors(**{f: torch.from_numpy(c[f]).to(dev)
+                        for f in ("q", "t", "l", "valid", "nlogp")},
+                     n_total=torch.from_numpy(
+                         c["valid"].sum(1).astype(np.int32)).to(dev))
+        rl = torch.from_numpy(c["read_len"]).to(dev)
+        out = chain.chain_anchors(an, rl, **kw)
+        ref = chain.chain_anchors_plain(an, rl, **kw)
+        k3_err = max(k3_err, check_equal(out, ref, fields, f"K3 {name}"))
+    log(f"# K3 == plain on the {len(CHAIN_CASES)} edge inputs: exact")
+
+    rng = np.random.default_rng(31)
+    args = sdp_bench_case(gi, reads2, rlen2, rng)
+    N, L = args[0].shape
+    k4 = {}
+    k4_err = 0.0
+    for occ in (2, 1):
+        kw = dict(k=K_SDP, occ=occ)
+        out = sdp.window_fragment_diags_banded(*args, **kw)
+        torch.cuda.synchronize()
+        ref = sdp.window_fragment_diags_banded_plain(*args, **kw)
+        torch.cuda.synchronize()
+        k4_err = max(k4_err, check_equal(out, ref, ("diag", "valid"),
+                                         f"K4 occ={occ}"))
+        assert out[1][..., 0].sum() > N * 500, "too few planted hits"
+        if occ == 2:
+            assert out[1][..., 1].any(), "no second hits"
+        kms = cuda_ms(lambda: sdp.window_fragment_diags_banded(*args, **kw),
+                      20)
+        pms = cuda_ms(lambda: sdp.window_fragment_diags_banded_plain(
+            *args, **kw), 1)
+        kb, compares = k4_bound(args, *out, occ, 512, K_SDP)
+        k4[occ] = (kms, pms, kb)
+        log(f"# K4 == plain (N={N}, L={L}, W={args[2].shape[1]}, D=512, "
+            f"occ={occ}): exact, {int(out[1].sum())} hits; "
+            f"window_fragment_diags_banded {kms:.3f} ms, plain {pms:.1f} ms,"
+            f" bound {kb[0]:.4f} ms ({kb[1]}; {compares:.0f} compares) on "
+            f"{card}")
+        prepared = sdp.kernel_inputs(*args, k=K_SDP, D=512, w_b=128)
+        launch_ms = cuda_ms(lambda: cuda_ops.sdp_window_launch(
+            *prepared, D=512, occ=occ), 20)
+        log(f"# K4 occ={occ}: the launch alone (sdp_window_launch on the "
+            f"prepared keys) {launch_ms:.3f} ms on {card}")
+    for name in SDP_CASES:
+        reads, rlen, windows, wlens, offs, occ = sdp_case(name)
+        rk, rv = read_kmer_keys(torch.from_numpy(reads).to(dev),
+                                torch.from_numpy(rlen).to(dev), K_SDP)
+        a = (rk, rv, *(torch.from_numpy(x).to(dev)
+                       for x in (windows, wlens, offs)))
+        out = sdp.window_fragment_diags_banded(*a, k=K_SDP, occ=occ)
+        ref = sdp.window_fragment_diags_banded_plain(*a, k=K_SDP, occ=occ)
+        k4_err = max(k4_err, check_equal(out, ref, ("diag", "valid"),
+                                         f"K4 {name}"))
+    log(f"# K4 == plain on the {len(SDP_CASES)} edge inputs: exact")
+    kms, pms, kb = res["candidate"]
+    return ix, {
+        "chain_scan": dict(err=k3_err, ms=kms, plain_ms=pms, bound=kb),
+        "sdp_window": dict(err=k4_err, ms=k4[2][0], plain_ms=k4[2][1],
+                           bound=k4[2][2]),
+    }
+
+
 # ---------------------------------------------------------------- phase 3
 
 def make_small(d):
@@ -447,7 +708,8 @@ def phase_goldens(d, cuda_ops):
                            ("m4.big", "big", ["-m", "4"]),
                            ("sam.big", "big",
                             ["--sam", "--clipping", "soft"])],
-             ("banded_dp", "banded_traceback"), "banded_dp_qv"),
+             ("banded_dp", "banded_traceback", "chain_scan", "sdp_window"),
+             "banded_dp_qv"),
             ("--useQuality", [("m4.fastq", "fastq",
                                ["-m", "4", "--useQuality"]),
                               ("sam.fastq", "fastq",
@@ -456,7 +718,8 @@ def phase_goldens(d, cuda_ops):
                               ("sam.hpstr.qv", "hpstr",
                                ["--sam", "--clipping", "soft",
                                 "--useQuality"])],
-             ("banded_dp_qv", "banded_traceback"), "banded_dp")):
+             ("banded_dp_qv", "banded_traceback", "chain_scan",
+              "sdp_window"), "banded_dp")):
         cuda_ops.reset_launch_counts()
         n_ok = run_goldens(d, cases, worlds)
         launches = dict(cuda_ops.LAUNCHES)
@@ -520,7 +783,8 @@ def bench_world():
 
 def phase_bench(card, cuda_ops, gi, sims, use_qv: bool, dev=None):
     """One bench pass (warm, then timed with launch counts zeroed just
-    before and read just after); returns (launches, device index)."""
+    before and read just after) on the device index ``dev``; returns the
+    launch counts."""
     from blasr_tpu_torch.io.fasta import FastaRecord
     from blasr_tpu_torch.params import MappingParams, ShapeConfig
     from blasr_tpu_torch.pipeline import map_read
@@ -596,7 +860,54 @@ def phase_bench(card, cuda_ops, gi, sims, use_qv: bool, dev=None):
     assert launches[dp] > 0 and launches["banded_traceback"] > 0, \
         f"a kernel of the {label} path was not launched: {launches}"
     assert launches[other] == 0, f"the {label} path launched {other}"
-    return launches, mapper.dev
+    dispatches = calls["batches"] + calls["dense_reruns"]
+    assert launches["chain_scan"] == 2 * dispatches, \
+        f"K3 launches {launches['chain_scan']} != 2 x {dispatches} dispatches"
+    assert launches["sdp_window"] == dispatches, \
+        f"K4 launches {launches['sdp_window']} != {dispatches} dispatches"
+    return launches
+
+
+def phase_profile(card, gi, sims, dev):
+    """torch.profiler over one more distance bench pass (after a short
+    warm pass): kernel launches per read, device time against the traced
+    wall (the device's busy share) and the kernels that take the most
+    device time.  Measurement only: no check depends on it."""
+    from torch.profiler import ProfilerActivity, profile
+    from blasr_tpu_torch.params import MappingParams, ShapeConfig
+    from blasr_tpu_torch.pipeline.map_read import Mapper
+    cfg = ShapeConfig(buckets=(1024, 2048), batch_size=32, max_anchors=512)
+    mapper = Mapper(gi, MappingParams().make_sane(), cfg, device="cuda",
+                    dev=dev)
+    recs = [s.rec for s in sims]
+    mapper.map_reads(recs[:64])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        mapper.map_reads(recs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev_events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not dev_events:
+        log("# profile (distance): torch.profiler recorded no device "
+            "events; device busy share not measured")
+        return
+    by_name = {}
+    for e in dev_events:
+        n, us = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    total_ms = sum(us for _, us in by_name.values()) / 1e3
+    launches = sum(n for name, (n, _) in by_name.items()
+                   if not name.startswith(("Memcpy", "Memset")))
+    log(f"# profile (distance, {len(recs)} reads, traced): {launches} kernel "
+        f"launches ({launches / len(recs):.1f} per read), {total_ms:.3f} ms "
+        f"of device time in a {1e3 * wall:.3f} ms pass: busy share "
+        f"{total_ms / (1e3 * wall):.4f} on {card}")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
+    for name, (n, us) in top:
+        log(f"#   {us / 1e3:9.3f} ms {n:7d} x  {name[:90]}")
 
 
 def main() -> int:
@@ -638,7 +949,12 @@ def main() -> int:
             log(f"#   ptxas: {line.strip()}")
 
     t0 = time.time()
+    gi, sims = bench_world()
+    log(f"# bench world: genome + index {time.time() - t0:.1f}s")
+    t0 = time.time()
     kres = phase_kernels(card)
+    dev, kres2 = phase_chain_sdp(card, gi, sims)
+    kres.update(kres2)
     log(f"# phase 2 done in {time.time() - t0:.1f}s")
     with tempfile.TemporaryDirectory() as d:
         t0 = time.time()
@@ -646,23 +962,26 @@ def main() -> int:
         phase_ids(cuda_ops)
         log(f"# phase 3 done in {time.time() - t0:.1f}s")
     t0 = time.time()
-    gi, sims = bench_world()
-    log(f"# phase 4: genome + index {time.time()-t0:.1f}s")
-    dist, dev = phase_bench(card, cuda_ops, gi, sims, use_qv=False)
-    qvl, _ = phase_bench(card, cuda_ops, gi, sims, use_qv=True, dev=dev)
+    dist = phase_bench(card, cuda_ops, gi, sims, use_qv=False, dev=dev)
+    qvl = phase_bench(card, cuda_ops, gi, sims, use_qv=True, dev=dev)
     log(f"# phase 4 done in {time.time() - t0:.1f}s")
+    t0 = time.time()
+    phase_profile(card, gi, sims, dev)
+    log(f"# phase 5 done in {time.time() - t0:.1f}s")
     assert "jax" not in sys.modules or sys.modules["jax"] is None
     loaded = [m for m in sys.modules if m.startswith("blasr_tpu.")]
     assert not loaded, f"JAX-package modules were loaded: {loaded}"
 
     launches = {"banded_dp": dist["banded_dp"],
-                "banded_dp_qv": qvl["banded_dp_qv"],
-                "banded_traceback": (dist["banded_traceback"]
-                                     + qvl["banded_traceback"])}
+                "banded_dp_qv": qvl["banded_dp_qv"]}
+    for k in ("banded_traceback", "chain_scan", "sdp_window"):
+        launches[k] = dist[k] + qvl[k]
     rows = [("banded_dp", DP_SRC, "blasr_tpu/kernels/pallas_banded.py:388"),
             ("banded_dp_qv", DP_SRC,
              "blasr_tpu/kernels/pallas_banded.py:388"),
-            ("banded_traceback", TB_SRC, "blasr_tpu/kernels/banded.py:424")]
+            ("banded_traceback", TB_SRC, "blasr_tpu/kernels/banded.py:424"),
+            ("chain_scan", CHAIN_SRC, "blasr_tpu/kernels/chain.py:54"),
+            ("sdp_window", SDP_SRC, "blasr_tpu/kernels/sdp.py:142")]
     table = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "max_abs_err": kres[name]["err"],

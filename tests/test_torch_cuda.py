@@ -1,6 +1,8 @@
 """The hand-written CUDA kernels (K1 banded DP in its distance and QV
-modes, K2 traceback walk) against their plain PyTorch versions, on a card.
-Skipped without a CUDA device.
+modes, K2 traceback walk, K3 chain scan, K4 SDP window pass) against their
+plain PyTorch versions, on a card.  Skipped without a CUDA device.  K3
+and K4 take the edge inputs of ``tests/torch_edge_cases.py``, on which
+``tests/test_torch_chain_sdp_edges.py`` holds the plain versions to JAX.
 
 The GPU machine has no JAX, and tests/conftest.py imports it, so run this
 file there without the conftest:
@@ -17,6 +19,11 @@ from blasr_tpu_torch.params import MappingParams  # noqa: E402
 from blasr_tpu_torch.kernels import banded as tb  # noqa: E402
 from blasr_tpu_torch.kernels import cuda_ops  # noqa: E402
 from blasr_tpu_torch.kernels import pallas_banded as tpb  # noqa: E402
+from blasr_tpu_torch.kernels import anchor as tanchor  # noqa: E402
+from blasr_tpu_torch.kernels import chain as tchain  # noqa: E402
+from blasr_tpu_torch.kernels import sdp as tsdp  # noqa: E402
+from torch_edge_cases import (CHAIN_CASES, K_SDP, SDP_CASES,  # noqa: E402
+                              chain_case, sdp_case)
 
 pytestmark = pytest.mark.cuda
 
@@ -164,3 +171,82 @@ def test_wrappers_check_their_inputs(cuda):
                                   **kw)
     with pytest.raises(ValueError):
         cuda_ops.banded_dp_launch(args[0].cpu(), *args[1:], **kw)
+
+
+def _anchors(c, dev):
+    return tanchor.Anchors(
+        q=torch.from_numpy(c["q"]).to(dev), t=torch.from_numpy(c["t"]).to(dev),
+        l=torch.from_numpy(c["l"]).to(dev),
+        valid=torch.from_numpy(c["valid"]).to(dev),
+        n_total=torch.from_numpy(c["valid"].sum(1).astype(np.int32)).to(dev),
+        nlogp=torch.from_numpy(c["nlogp"]).to(dev))
+
+
+@pytest.mark.parametrize("name", list(CHAIN_CASES))
+def test_chain_kernel_matches_plain(cuda, name):
+    """K3 against chain_anchors_plain on the same CUDA tensors, every
+    Candidates field exactly, one launch per call."""
+    c, kw = chain_case(name)
+    anchors = _anchors(c, cuda)
+    rlen = torch.from_numpy(c["read_len"]).to(cuda)
+    before = cuda_ops.LAUNCHES["chain_scan"]
+    k3 = tchain.chain_anchors(anchors, rlen, **kw)
+    torch.cuda.synchronize()
+    assert cuda_ops.LAUNCHES["chain_scan"] == before + 1
+    plain = tchain.chain_anchors_plain(anchors, rlen, **kw)
+    for f, a, b in zip(tchain.Candidates._fields, k3, plain):
+        assert a.dtype == b.dtype and torch.equal(a, b), f
+
+
+@pytest.mark.parametrize("name", SDP_CASES)
+def test_sdp_kernel_matches_plain(cuda, name):
+    """K4 against window_fragment_diags_banded_plain on the same CUDA
+    tensors, exactly, one launch per call."""
+    reads, rlen, windows, wlens, offs, occ = sdp_case(name)
+    rk, rv = tanchor.read_kmer_keys(torch.from_numpy(reads).to(cuda),
+                                    torch.from_numpy(rlen).to(cuda), K_SDP)
+    args = (rk, rv, torch.from_numpy(windows).to(cuda),
+            torch.from_numpy(wlens).to(cuda), torch.from_numpy(offs).to(cuda))
+    before = cuda_ops.LAUNCHES["sdp_window"]
+    k4 = tsdp.window_fragment_diags_banded(*args, k=K_SDP, occ=occ)
+    torch.cuda.synchronize()
+    assert cuda_ops.LAUNCHES["sdp_window"] == before + 1
+    plain = tsdp.window_fragment_diags_banded_plain(*args, k=K_SDP, occ=occ)
+    for a, b in zip(k4, plain):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def test_chain_and_sdp_wrappers_check_their_inputs(cuda):
+    c, _ = chain_case("A100-pvt1")
+    i32 = torch.int32
+    B, A = c["q"].shape
+    args = [torch.from_numpy(c[f]).to(cuda).to(i32) for f in ("q", "t", "l")]
+    args += [torch.from_numpy(c["valid"]).to(cuda),
+             torch.from_numpy(c["nlogp"]).to(cuda),
+             torch.from_numpy(c["read_len"]).to(cuda)]
+    kw = dict(n_cand=4, lookback=A, rate=1.3, drift_frac=0.35,
+              drift_slack=50.0, drift_penalty=0.0, global_chain=False,
+              rank_mode=1)
+    before = dict(cuda_ops.LAUNCHES)
+    with pytest.raises(TypeError):          # int64 positions
+        cuda_ops.chain_scan_launch(args[0].long(), *args[1:], **kw)
+    with pytest.raises(ValueError):         # one tensor on the CPU
+        cuda_ops.chain_scan_launch(*args[:5], args[5].cpu(), **kw)
+    with pytest.raises(ValueError):         # a row short
+        cuda_ops.chain_scan_launch(args[0][1:].contiguous(), *args[1:], **kw)
+    big = cuda_ops.CHAIN_MAX_ANCHORS + 8    # beyond one block's memory
+    wide = [torch.zeros((1, big), dtype=x.dtype, device=cuda)
+            for x in args[:5]] + [args[5][:1].contiguous()]
+    with pytest.raises(ValueError, match="shared memory"):
+        cuda_ops.chain_scan_launch(*wide, **dict(kw, lookback=big))
+    rk = torch.zeros((4, 256), dtype=i32, device=cuda)
+    wk = torch.zeros((4, 896), dtype=i32, device=cuda)
+    dlo = torch.zeros(4, dtype=i32, device=cuda)
+    with pytest.raises(TypeError):
+        cuda_ops.sdp_window_launch(rk.long(), wk, dlo, D=512, occ=2)
+    with pytest.raises(ValueError):
+        cuda_ops.sdp_window_launch(rk, wk, dlo[:3].contiguous(), D=512,
+                                   occ=2)
+    with pytest.raises(ValueError):
+        cuda_ops.sdp_window_launch(rk, wk, dlo, D=512, occ=3)
+    assert cuda_ops.LAUNCHES == before
