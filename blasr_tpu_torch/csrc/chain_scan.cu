@@ -28,8 +28,11 @@
 //
 // Layout: one CTA of 256 threads per strand-row.  The row's anchors
 // (q, t, l, valid, nlogp) and its six carries (best, sq, st, cnt, sump,
-// sumr) sit in shared memory, 42 bytes per anchor (A <= 5,500 in the
-// 227 KB a block may opt into).  Thread tid owns anchors j = tid mod 256:
+// sumr) sit in shared memory, 42 bytes per anchor (A <= 5,510 in the
+// 227 KB a block may opt into); above that (--maxExpand doubles A per
+// retry) the same arrays live in a per-row slice of a global scratch
+// buffer, read through L1/L2, with the same code and the same order of
+// operations (template <bool GLOBAL>).  Thread tid owns anchors j = tid mod 256:
 // it alone evaluates them as predecessors, writes their carries and clears
 // their selection flags, so each anchor step and each selection needs one
 // __syncthreads (inside the block argmax; its per-warp partials are
@@ -109,6 +112,7 @@ __device__ __forceinline__ bool transition(const Params& p, int wlen, int qi,
   return ok;
 }
 
+template <bool GLOBAL>
 __global__ void __launch_bounds__(THREADS) chain_scan_kernel(
     const int32_t* __restrict__ q_in, const int32_t* __restrict__ t_in,
     const int32_t* __restrict__ l_in, const uint8_t* __restrict__ v_in,
@@ -117,12 +121,15 @@ __global__ void __launch_bounds__(THREADS) chain_scan_kernel(
     int32_t* __restrict__ o_ts, int32_t* __restrict__ o_te,
     float* __restrict__ o_score, int32_t* __restrict__ o_nanch,
     float* __restrict__ o_nlogp, uint8_t* __restrict__ o_valid,
-    int32_t* __restrict__ o_end, int32_t* __restrict__ o_parent) {
+    int32_t* __restrict__ o_end, int32_t* __restrict__ o_parent,
+    char* scratch, size_t row_bytes) {
   extern __shared__ int32_t smem[];
   __shared__ float rv[2][WARPS];
   __shared__ int rj[2][WARPS];
   const int A = p.A;
-  int32_t* s_q = smem;
+  int32_t* s_q = GLOBAL ? reinterpret_cast<int32_t*>(
+                              scratch + (size_t)blockIdx.x * row_bytes)
+                        : smem;
   int32_t* s_t = s_q + A;
   int32_t* s_l = s_t + A;
   float* s_p = reinterpret_cast<float*>(s_l + A);
@@ -261,16 +268,24 @@ extern "C" int blasr_chain_scan(
     float neg_pen, int global_chain, int rank_mode, int32_t* q_start,
     int32_t* q_end, int32_t* t_start, int32_t* t_end, float* score,
     int32_t* n_anchors, float* out_nlogp, uint8_t* out_valid,
-    int32_t* end_idx, int32_t* parent, void* stream) {
-  const size_t smem = (size_t)A * 42;  // cuda_ops.CHAIN_SMEM_PER_ANCHOR
-  cudaError_t err = cudaFuncSetAttribute(
-      chain_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
+    int32_t* end_idx, int32_t* parent, char* scratch, long long row_bytes,
+    void* stream) {
   const Params p{A, D, C, rate, drift_frac, drift_slack, neg_pen,
                  use_pen, global_chain, rank_mode};
-  chain_scan_kernel<<<B, THREADS, smem, (cudaStream_t)stream>>>(
+  if (scratch != nullptr) {  // the row's arrays in global memory
+    chain_scan_kernel<true><<<B, THREADS, 0, (cudaStream_t)stream>>>(
+        q, t, l, valid, nlogp, read_len, p, q_start, q_end, t_start, t_end,
+        score, n_anchors, out_nlogp, out_valid, end_idx, parent, scratch,
+        (size_t)row_bytes);
+    return (int)cudaGetLastError();
+  }
+  const size_t smem = (size_t)A * 42;  // cuda_ops.CHAIN_SMEM_PER_ANCHOR
+  cudaError_t err = cudaFuncSetAttribute(
+      chain_scan_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  chain_scan_kernel<false><<<B, THREADS, smem, (cudaStream_t)stream>>>(
       q, t, l, valid, nlogp, read_len, p, q_start, q_end, t_start, t_end,
-      score, n_anchors, out_nlogp, out_valid, end_idx, parent);
+      score, n_anchors, out_nlogp, out_valid, end_idx, parent, nullptr, 0);
   return (int)cudaGetLastError();
 }

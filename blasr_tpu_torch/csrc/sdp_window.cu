@@ -17,7 +17,10 @@
 // staged in shared memory once (10 KB at L = 2048, D = 512); each thread
 // owns q = tid, tid + 256, ... and walks s upward from 0, stopping at its
 // occ-th hit.  Neighbouring lanes read neighbouring words, so the slab
-// reads are free of bank conflicts.
+// reads are free of bank conflicts.  Where L + D keys exceed what a block
+// can hold (bucket 65536: 264 KB), the query positions go in tiles of TQ
+// and each tile stages its own TQ + D slab keys; with TQ = L it is the
+// single stage above, so the result does not depend on the tiling.
 //
 // What bounds it on an H100: the compares, at most N * L * D of them (one
 // shared-memory load and one integer compare each), are ~3 us of the
@@ -36,36 +39,41 @@ constexpr uint32_t INVALID_WINDOW = 0xFFFFFFFFu;
 __global__ void __launch_bounds__(THREADS) sdp_window_kernel(
     const uint32_t* __restrict__ rk, const uint32_t* __restrict__ wk,
     const int32_t* __restrict__ dlo_in, int L, int W, int D, int occ,
-    int32_t* __restrict__ diag, uint8_t* __restrict__ valid) {
+    int TQ, int32_t* __restrict__ diag, uint8_t* __restrict__ valid) {
   extern __shared__ uint32_t s_w[];
   const int n = blockIdx.x;
   const int dlo = dlo_in[n];
   const uint32_t* wrow = wk + (size_t)n * W;
-  for (int j = threadIdx.x; j < L + D; j += THREADS) {
-    const int pos = dlo + j;
-    s_w[j] = (pos >= 0 && pos < W) ? wrow[pos] : INVALID_WINDOW;
-  }
-  __syncthreads();
   const uint32_t* rrow = rk + (size_t)n * L;
-  for (int q = threadIdx.x; q < L; q += THREADS) {
-    const uint32_t key = rrow[q];
-    int d0 = 0, d1 = 0, hits = 0;
-    for (int s = 0; s < D; ++s) {
-      if (s_w[q + s] == key) {
-        if (hits == 0) {
-          d0 = dlo + s;
-        } else {
-          d1 = dlo + s;
-        }
-        if (++hits == occ) break;
-      }
+  for (int q0 = 0; q0 < L; q0 += TQ) {
+    const int nq = min(TQ, L - q0);
+    __syncthreads();  // the previous tile's slab is no longer read
+    for (int j = threadIdx.x; j < nq + D; j += THREADS) {
+      const int pos = dlo + q0 + j;
+      s_w[j] = (pos >= 0 && pos < W) ? wrow[pos] : INVALID_WINDOW;
     }
-    const size_t o = ((size_t)n * L + q) * occ;
-    diag[o] = d0;
-    valid[o] = hits >= 1;
-    if (occ == 2) {
-      diag[o + 1] = d1;
-      valid[o + 1] = hits >= 2;
+    __syncthreads();
+    for (int q = q0 + threadIdx.x; q < q0 + nq; q += THREADS) {
+      const uint32_t key = rrow[q];
+      const uint32_t* slab = s_w + (q - q0);
+      int d0 = 0, d1 = 0, hits = 0;
+      for (int s = 0; s < D; ++s) {
+        if (slab[s] == key) {
+          if (hits == 0) {
+            d0 = dlo + s;
+          } else {
+            d1 = dlo + s;
+          }
+          if (++hits == occ) break;
+        }
+      }
+      const size_t o = ((size_t)n * L + q) * occ;
+      diag[o] = d0;
+      valid[o] = hits >= 1;
+      if (occ == 2) {
+        diag[o + 1] = d1;
+        valid[o + 1] = hits >= 2;
+      }
     }
   }
 }
@@ -76,12 +84,17 @@ extern "C" int blasr_sdp_window(const uint32_t* rkeys, const uint32_t* wkeys,
                                 const int32_t* dlo, int N, int L, int W,
                                 int D, int occ, int32_t* diag, uint8_t* valid,
                                 void* stream) {
-  const size_t smem = (size_t)(L + D) * sizeof(uint32_t);
+  // query positions per tile: all L where the slab fits in the shared
+  // memory a block may opt into (less a margin), else as many as fit
+  const int max_keys = (232448 - 1024) / (int)sizeof(uint32_t);
+  if (D + THREADS > max_keys) return (int)cudaErrorInvalidValue;
+  const int TQ = L + D <= max_keys ? L : (max_keys - D) / THREADS * THREADS;
+  const size_t smem = (size_t)(TQ + D) * sizeof(uint32_t);
   cudaError_t err = cudaFuncSetAttribute(
       sdp_window_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   sdp_window_kernel<<<N, THREADS, smem, (cudaStream_t)stream>>>(
-      rkeys, wkeys, dlo, L, W, D, occ, diag, valid);
+      rkeys, wkeys, dlo, L, W, D, occ, TQ, diag, valid);
   return (int)cudaGetLastError();
 }

@@ -1,6 +1,11 @@
 """Batched anchor search (port of ``blasr_tpu/kernels/anchor.py``).
 
-Plain PyTorch on the default branch of ``find_anchors``: the paired LUT
+``find_anchors`` dispatches on the device of its inputs: CUDA tensors go
+to K5 (``csrc/anchor_search.cu``, one call of two kernels), CPU tensors
+to ``find_anchors_plain``.
+
+``find_anchors_plain`` is plain PyTorch on the default branch of the JAX
+``find_anchors``: the paired LUT
 rows (or the LUT / a sorted-key search), strided rotating occurrence
 sampling, the fused 24-byte per-slot records (or separate word gathers),
 the containment prune, the 16-base XOR extension, top-A selection and the
@@ -20,6 +25,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from blasr_tpu_torch.kernels.dispatch import on_device
 from blasr_tpu_torch.kernels.xla_math import fma_f32, log_f32
 
 BIG = 0x3FFFFFFF
@@ -89,6 +95,30 @@ def find_anchors(genome, keys_sorted, pos_sorted, reads, read_len, *,
                  advance_exact: int = 0, bucket_starts=None,
                  bucket_pairs=None, gwords=None, gnwords=None,
                  pos_records=None) -> Anchors:
+    """The anchor search: K5 on CUDA tensors, the plain version on CPU
+    tensors (same contract as :func:`find_anchors_plain`)."""
+    kw = dict(k=k, occ_per_pos=occ_per_pos, max_anchors=max_anchors,
+              anchor_ext=anchor_ext, min_match=min_match,
+              max_anchors_per_pos=max_anchors_per_pos, max_lcp=max_lcp,
+              advance_exact=advance_exact, bucket_starts=bucket_starts,
+              bucket_pairs=bucket_pairs, gwords=gwords, gnwords=gnwords,
+              pos_records=pos_records)
+    return on_device(
+        "find_anchors", reads.device,
+        lambda: find_anchors_plain(genome, keys_sorted, pos_sorted, reads,
+                                   read_len, **kw),
+        lambda ops: ops.anchor_search_launch(
+            genome, keys_sorted, pos_sorted, reads.contiguous(),
+            read_len.to(torch.int32).contiguous(), **kw))
+
+
+def find_anchors_plain(genome, keys_sorted, pos_sorted, reads, read_len, *,
+                       k: int, occ_per_pos: int, max_anchors: int,
+                       anchor_ext: int, min_match: int,
+                       max_anchors_per_pos: int, max_lcp: int = 0,
+                       advance_exact: int = 0, bucket_starts=None,
+                       bucket_pairs=None, gwords=None, gnwords=None,
+                       pos_records=None) -> Anchors:
     """See ``blasr_tpu.kernels.anchor.find_anchors``: anchor significance
     is -log P = log(M/n) + (l-k)*log(4) for a seed occurring n times in an
     M-slot index and extending to length l."""

@@ -24,6 +24,8 @@ from typing import NamedTuple
 
 import torch
 
+from blasr_tpu_torch.kernels.dispatch import on_device
+
 INF = 1e30
 
 # traceback cell word layout (int32 per banded cell)
@@ -415,12 +417,9 @@ def banded_traceback(result: BandedResult, offsets, qa, qb, ta, tb, *,
                      t_max: int, w_b: int = 128) -> TracebackResult:
     """Run-length traceback: the CUDA walk (K2) on CUDA tensors, the plain
     version on CPU tensors."""
-    dev = result.tbbits.device
-    if dev.type == "cpu":
-        return banded_traceback_plain(result, offsets, qa, qb, ta, tb,
-                                      t_max=t_max, w_b=w_b)
-    if dev.type != "cuda":
-        raise NotImplementedError(f"banded_traceback on {dev.type}")
-    from blasr_tpu_torch.kernels import cuda_ops
-    return cuda_ops.banded_traceback_cuda(result, offsets, qa, qb, ta, tb,
-                                          t_max=t_max, w_b=w_b)
+    return on_device(
+        "banded_traceback", result.tbbits.device,
+        lambda: banded_traceback_plain(result, offsets, qa, qb, ta, tb,
+                                       t_max=t_max, w_b=w_b),
+        lambda ops: ops.banded_traceback_cuda(result, offsets, qa, qb, ta,
+                                              tb, t_max=t_max, w_b=w_b))

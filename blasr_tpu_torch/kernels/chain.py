@@ -21,6 +21,7 @@ from typing import NamedTuple
 import torch
 
 from blasr_tpu_torch.kernels.anchor import Anchors
+from blasr_tpu_torch.kernels.dispatch import on_device
 from blasr_tpu_torch.kernels.xla_math import fma_f32
 
 NEG = -1e30
@@ -51,34 +52,33 @@ def chain_anchors(anchors: Anchors, read_len: torch.Tensor, *, n_cand: int,
     """Chain DP and top-``n_cand`` selection: K3 on CUDA tensors, the
     plain version on CPU tensors (same contract as
     :func:`chain_anchors_plain`)."""
-    dev = anchors.q.device
-    if dev.type == "cpu":
+    def plain():
         return chain_anchors_plain(
             anchors, read_len, n_cand=n_cand, indel_rate=indel_rate,
             drift_frac=drift_frac, drift_slack=drift_slack,
             rank_by_pvalue=rank_by_pvalue, p_value_type=p_value_type,
             lookback=lookback, global_chain=global_chain,
             drift_penalty=drift_penalty)
-    if dev.type != "cuda":
-        raise NotImplementedError(f"chain_anchors on {dev.type}")
-    from blasr_tpu_torch.kernels import cuda_ops
-    A = anchors.q.shape[1]
-    if global_chain:
-        drift_frac, drift_slack = 0.1, 0
-    rank_mode = ({1: 2, 2: 3}.get(p_value_type, 1) if rank_by_pvalue
-                 else 0)
 
-    def i32(x):
-        return x.to(torch.int32).contiguous()
+    def launch(ops):
+        A = anchors.q.shape[1]
+        frac, slack = (0.1, 0) if global_chain else (drift_frac, drift_slack)
+        rank_mode = ({1: 2, 2: 3}.get(p_value_type, 1) if rank_by_pvalue
+                     else 0)
 
-    return cuda_ops.chain_scan_launch(
-        i32(anchors.q), i32(anchors.t), i32(anchors.l),
-        anchors.valid.contiguous(), anchors.nlogp.contiguous(),
-        i32(read_len), n_cand=n_cand,
-        lookback=A if lookback <= 0 or lookback > A else lookback,
-        rate=1.0 + indel_rate, drift_frac=drift_frac,
-        drift_slack=float(drift_slack), drift_penalty=drift_penalty,
-        global_chain=global_chain, rank_mode=rank_mode)
+        def i32(x):
+            return x.to(torch.int32).contiguous()
+
+        return ops.chain_scan_launch(
+            i32(anchors.q), i32(anchors.t), i32(anchors.l),
+            anchors.valid.contiguous(), anchors.nlogp.contiguous(),
+            i32(read_len), n_cand=n_cand,
+            lookback=A if lookback <= 0 or lookback > A else lookback,
+            rate=1.0 + indel_rate, drift_frac=frac,
+            drift_slack=float(slack), drift_penalty=drift_penalty,
+            global_chain=global_chain, rank_mode=rank_mode)
+
+    return on_device("chain_anchors", anchors.q.device, plain, launch)
 
 
 def chain_anchors_plain(anchors: Anchors, read_len: torch.Tensor, *,

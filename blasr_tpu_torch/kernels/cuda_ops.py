@@ -5,7 +5,8 @@ and link into one shared library with a plain C interface, loaded through
 ``ctypes`` (no PyTorch headers, so the build takes seconds).  The library
 is built at first use, from the package's own sources, into
 ``build/blasr_tpu_torch/`` beside the package; its file name carries a
-hash of the sources and flags, so an edited source rebuilds.
+hash of the sources, the headers they share and the flags, so an edited
+source rebuilds.
 
 Every wrapper checks device, dtype, shape and contiguity, launches on
 ``torch.cuda.current_stream()``, raises if ``cudaGetLastError()`` is not 0
@@ -25,6 +26,7 @@ from typing import Optional
 
 import torch
 
+from blasr_tpu_torch.kernels.anchor import Anchors
 from blasr_tpu_torch.kernels.banded import (BandedResult, TracebackResult,
                                             pair_capacity)
 from blasr_tpu_torch.kernels.chain import Candidates
@@ -32,21 +34,28 @@ from blasr_tpu_torch.kernels.chain import Candidates
 _PKG_DIR = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG_DIR / "csrc"
 SOURCES = ("banded_dp.cu", "banded_traceback.cu", "chain_scan.cu",
-           "sdp_window.cu")
+           "sdp_window.cu", "anchor_search.cu", "band_offsets.cu")
+HEADERS = ("block_scan.cuh",)
 BUILD_DIR = _PKG_DIR.parent / "build" / "blasr_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # kernel launches since the last reset, one entry per wrapper
 LAUNCHES = {"banded_dp": 0, "banded_dp_qv": 0, "banded_traceback": 0,
-            "chain_scan": 0, "sdp_window": 0}
+            "chain_scan": 0, "sdp_window": 0, "anchor_search": 0,
+            "band_offsets": 0}
 
 # shared memory a block may opt into on sm_90 (227 KB), less a margin for
-# the kernels' static arrays; K3 keeps 42 bytes per anchor there, K4 one
-# uint32 key per slab position
+# the kernels' static arrays; K3 keeps 42 bytes per anchor there (above
+# CHAIN_MAX_ANCHORS in a global scratch row instead), K4 one uint32 key
+# per slab position (tiled above that)
 SMEM_OPTIN = 232448 - 1024
 CHAIN_SMEM_PER_ANCHOR = 42
 CHAIN_MAX_ANCHORS = SMEM_OPTIN // CHAIN_SMEM_PER_ANCHOR
+SDP_THREADS = 256
+# K5's selection CTA: its static shared arrays, and the largest A it sorts
+ANCHOR_SELECT_STATIC = 8 * 1024 + 8 * 32 + 4 * 256 + 64
+ANCHOR_MAX_SELECT = 16384
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -70,7 +79,7 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256()
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((SRC_DIR / name).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -126,6 +135,7 @@ def _load() -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+            LL = ctypes.c_longlong
             lib.blasr_banded_dp.restype = I
             lib.blasr_banded_dp.argtypes = (
                 [P] * 7 + [I] * 3 + [F] * 6 + [P] * 4 + [P])
@@ -137,10 +147,18 @@ def _load() -> ctypes.CDLL:
                 [P] * 8 + [I] * 3 + [P] * 7 + [P])
             lib.blasr_chain_scan.restype = I
             lib.blasr_chain_scan.argtypes = (
-                [P] * 6 + [I] * 4 + [F] * 3 + [I, F, I, I] + [P] * 10 + [P])
+                [P] * 6 + [I] * 4 + [F] * 3 + [I, F, I, I] + [P] * 10
+                + [P, LL] + [P])
             lib.blasr_sdp_window.restype = I
             lib.blasr_sdp_window.argtypes = (
                 [P] * 3 + [I] * 5 + [P] * 2 + [P])
+            lib.blasr_anchor_search.restype = I
+            lib.blasr_anchor_search.argtypes = (
+                [P] * 10 + [LL] * 2 + [I] * 8 + [LL] + [I] * 5 + [F]
+                + [P] * 12 + [P])
+            lib.blasr_band_offsets.restype = I
+            lib.blasr_band_offsets.argtypes = (
+                [P] * 5 + [I] * 7 + [P] * 2 + [P])
             _lib = lib
         return _lib
 
@@ -272,11 +290,8 @@ def chain_scan_launch(q, t, l, valid, nlogp, read_len, *, n_cand: int,
                         ("nlogp", nlogp, torch.float32)):
         _check(x, name, dt, (B, A), dev)
     _check(read_len, "read_len", torch.int32, (B,), dev)
-    if not 1 <= A <= CHAIN_MAX_ANCHORS:
-        raise ValueError(
-            f"K3 holds a row's anchors in shared memory: A = {A} is outside "
-            f"1..{CHAIN_MAX_ANCHORS} ({CHAIN_SMEM_PER_ANCHOR} bytes each)")
-    if not 1 <= lookback <= A or n_cand < 1 or rank_mode not in range(4):
+    if A < 1 or not 1 <= lookback <= A or n_cand < 1 \
+            or rank_mode not in range(4):
         raise ValueError(f"K3 arguments out of range: lookback={lookback}, "
                          f"n_cand={n_cand}, rank_mode={rank_mode}")
     C = n_cand
@@ -285,6 +300,13 @@ def chain_scan_launch(q, t, l, valid, nlogp, read_len, *, n_cand: int,
             for dt in (i32, i32, i32, i32, torch.float32, i32,
                        torch.float32, torch.bool, i32)]
     parent = torch.empty((B, A), dtype=i32, device=dev)
+    # beyond one block's shared memory the rows' arrays go to a scratch
+    # buffer in global memory, one 16-byte aligned slice per row
+    row_bytes = 0
+    scratch = None
+    if A > CHAIN_MAX_ANCHORS:
+        row_bytes = -(-A * CHAIN_SMEM_PER_ANCHOR // 16) * 16
+        scratch = torch.empty(B * row_bytes, dtype=torch.uint8, device=dev)
     if B > 0:
         lib = _load()
         with torch.cuda.device(dev):
@@ -295,7 +317,9 @@ def chain_scan_launch(q, t, l, valid, nlogp, read_len, *, n_cand: int,
                 float(rate), float(drift_frac), float(drift_slack),
                 int(drift_penalty > 0.0), -float(drift_penalty),
                 int(bool(global_chain)), rank_mode,
-                *(o.data_ptr() for o in outs), parent.data_ptr(), stream)
+                *(o.data_ptr() for o in outs), parent.data_ptr(),
+                None if scratch is None else scratch.data_ptr(), row_bytes,
+                stream)
         _launched(rc, "chain_scan")
         LAUNCHES["chain_scan"] += 1
     qs, qe, ts, te, score, n_anch, cnlogp, cvalid, end = outs
@@ -322,9 +346,9 @@ def sdp_window_launch(rkeys, wkeys, dlo, *, D: int, occ: int):
     _check(dlo, "dlo", torch.int32, (N,), dev)
     if occ not in (1, 2) or D < 1:
         raise ValueError(f"K4 takes occ 1 or 2 and D >= 1 (occ={occ}, D={D})")
-    if 4 * (L + D) > SMEM_OPTIN:
-        raise ValueError(f"K4 holds a row's L + D = {L + D} slab keys in "
-                         "shared memory, more than a block can hold")
+    if 4 * (D + SDP_THREADS) > SMEM_OPTIN:
+        raise ValueError(f"K4 stages a tile's D = {D} slab keys past its "
+                         "query positions in shared memory: D is too large")
     diag = torch.empty((N, L, occ), dtype=torch.int32, device=dev)
     valid = torch.empty((N, L, occ), dtype=torch.bool, device=dev)
     if N > 0 and L > 0:
@@ -337,3 +361,151 @@ def sdp_window_launch(rkeys, wkeys, dlo, *, D: int, occ: int):
         _launched(rc, "sdp_window")
         LAUNCHES["sdp_window"] += 1
     return diag.to(torch.int64), valid
+
+
+def anchor_search_launch(genome, keys_sorted, pos_sorted, reads, read_len, *,
+                         k: int, occ_per_pos: int, max_anchors: int,
+                         anchor_ext: int, min_match: int,
+                         max_anchors_per_pos: int, max_lcp: int = 0,
+                         advance_exact: int = 0, bucket_starts=None,
+                         bucket_pairs=None, gwords=None, gnwords=None,
+                         pos_records=None) -> Anchors:
+    """K5 on CUDA tensors: reads int8 [B, L], read_len int32 [B] and the
+    DeviceIndex fields in their dtypes (genome int8 [G], keys_sorted and
+    pos_sorted int64 [M], bucket_starts int32 [4^k + 1], bucket_pairs int32
+    [4^k, 2], gwords/gnwords int64 [G], pos_records int32 [>= M, 6]).  The
+    lookup is the paired LUT rows if given, else the LUT, else the sorted
+    keys; the records serve the fetch when given and anchor_ext <= 32.
+    Returns the Anchors of ``find_anchors_plain``, every field in its
+    dtype."""
+    dev = reads.device
+    if dev.type != "cuda":
+        raise ValueError("anchor_search_launch needs CUDA tensors")
+    if gwords is None or gnwords is None:
+        raise ValueError("K5 extends seeds with the packed genome words")
+    B, L = reads.shape
+    G = genome.shape[0]
+    M = pos_sorted.shape[0]
+    O, E = occ_per_pos, anchor_ext
+    _check(reads, "reads", torch.int8, (B, L), dev)
+    _check(read_len, "read_len", torch.int32, (B,), dev)
+    _check(genome, "genome", torch.int8, (G,), dev)
+    _check(pos_sorted, "pos_sorted", torch.int64, (M,), dev)
+    _check(gwords, "gwords", torch.int64, (G,), dev)
+    _check(gnwords, "gnwords", torch.int64, (G,), dev)
+    if not 1 <= k <= 16 or O < 1 or E < 1 or max_anchors < 1 or L < 1:
+        raise ValueError(f"K5 arguments out of range: k={k}, O={O}, E={E}, "
+                         f"max_anchors={max_anchors}, L={L}")
+    if bucket_pairs is not None:
+        mode = 0
+        _check(bucket_pairs, "bucket_pairs", torch.int32, (4 ** k, 2), dev)
+    elif bucket_starts is not None:
+        mode = 1
+        _check(bucket_starts, "bucket_starts", torch.int32, (4 ** k + 1,),
+               dev)
+    else:
+        mode = 2
+        _check(keys_sorted, "keys_sorted", torch.int64, (M,), dev)
+    use_rec = pos_records is not None and E <= 32
+    if use_rec:
+        _check(pos_records, "pos_records", torch.int32,
+               (pos_records.shape[0], 6), dev)
+        if pos_records.shape[0] < M:
+            raise ValueError("pos_records has fewer rows than pos_sorted")
+    n = L * O
+    A_out = min(max_anchors, n)
+    nbits = max(1, (n - 1).bit_length())
+    lmax = k + E
+    P = 1 << (A_out - 1).bit_length()
+    smem = 8 * P + 4 * A_out + 4 * (lmax + 1)
+    if (n >= 1 << 31 or lmax >= 1 << 16 or lmax.bit_length() + nbits > 32
+            or A_out > ANCHOR_MAX_SELECT
+            or smem + ANCHOR_SELECT_STATIC > SMEM_OPTIN):
+        raise ValueError(f"K5 cannot rank L*O = {n} candidates of length "
+                         f"<= {lmax} into {A_out} anchors per row")
+    i64 = torch.int64
+    nblk = -(-L // 256)
+    hits_t = torch.empty((B, L, O), dtype=i64, device=dev)
+    hits_valid = torch.empty((B, L, O), dtype=torch.bool, device=dev)
+    meta = torch.empty((B, n), dtype=torch.int32, device=dev)
+    cnlogp = torch.empty((B, n), dtype=torch.float32, device=dev)
+    clip_part = torch.empty((B, nblk), dtype=torch.int32, device=dev)
+    q, t, l = (torch.empty((B, A_out), dtype=i64, device=dev)
+               for _ in range(3))
+    valid = torch.empty((B, A_out), dtype=torch.bool, device=dev)
+    nlogp = torch.empty((B, A_out), dtype=torch.float32, device=dev)
+    n_total = torch.empty(B, dtype=torch.int32, device=dev)
+    n_clipped = torch.empty(B, dtype=torch.int32, device=dev)
+    if B > 0:
+        def ptr(x):
+            return None if x is None else x.data_ptr()
+
+        def clamp30(x):
+            # lengths stay below 2^16: wider values compare the same
+            return max(min(int(x), 1 << 30), -(1 << 30))
+
+        lib = _load()
+        big = (1 << 63) - 1
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            rc = lib.blasr_anchor_search(
+                reads.data_ptr(), read_len.data_ptr(), genome.data_ptr(),
+                ptr(keys_sorted if mode == 2 else None),
+                pos_sorted.data_ptr(),
+                ptr(bucket_starts if mode == 1 else None),
+                ptr(bucket_pairs if mode == 0 else None),
+                ptr(pos_records if use_rec else None), gwords.data_ptr(),
+                gnwords.data_ptr(), G, M, mode, int(use_rec), B, L, O, k, E,
+                clamp30(min_match), max(min(max_anchors_per_pos, big), -big),
+                clamp30(max_lcp), clamp30(advance_exact), A_out, nbits, lmax,
+                float(M),
+                hits_t.data_ptr(), hits_valid.data_ptr(), meta.data_ptr(),
+                cnlogp.data_ptr(), clip_part.data_ptr(), q.data_ptr(),
+                t.data_ptr(), l.data_ptr(), valid.data_ptr(),
+                nlogp.data_ptr(), n_total.data_ptr(), n_clipped.data_ptr(),
+                stream)
+        _launched(rc, "anchor_search")
+        LAUNCHES["anchor_search"] += 1
+    return Anchors(q=q, t=t, l=l, valid=valid, n_total=n_total,
+                   nlogp=nlogp, hits_t=hits_t, hits_valid=hits_valid,
+                   n_clipped=n_clipped)
+
+
+def band_offsets_launch(mq, mt, ws, *, L: int, W: int, w_b: int,
+                        frag_diag=None, frag_valid=None,
+                        between_only: bool = False) -> torch.Tensor:
+    """K6 on CUDA tensors: chain members mq/mt int64 [N, MC] (BIG32 where
+    invalid), window starts ws int64 [N], and optionally the fragments
+    frag_diag int64 / frag_valid bool [N, L, F].  Returns the int64 [N, L]
+    band offsets of ``_band_offsets_plain``."""
+    dev = mq.device
+    if dev.type != "cuda":
+        raise ValueError("band_offsets_launch needs CUDA tensors")
+    N, MC = mq.shape
+    _check(mq, "mq", torch.int64, (N, MC), dev)
+    _check(mt, "mt", torch.int64, (N, MC), dev)
+    _check(ws, "ws", torch.int64, (N,), dev)
+    if (frag_diag is None) != (frag_valid is None):
+        raise ValueError("K6 takes frag_diag and frag_valid together")
+    F = 0
+    if frag_diag is not None:
+        F = frag_diag.shape[-1]
+        _check(frag_diag, "frag_diag", torch.int64, (N, L, F), dev)
+        _check(frag_valid, "frag_valid", torch.bool, (N, L, F), dev)
+    if not 1 <= L <= 1 << 16 or w_b < 1:
+        raise ValueError(f"K6 packs rows in 16 bits: L = {L}, w_b = {w_b}")
+    out = torch.empty((N, L), dtype=torch.int64, device=dev)
+    if N > 0:
+        scratch = torch.empty((N, 2, L), dtype=torch.int32, device=dev)
+        lib = _load()
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            rc = lib.blasr_band_offsets(
+                mq.data_ptr(), mt.data_ptr(), ws.data_ptr(),
+                None if F == 0 else frag_diag.data_ptr(),
+                None if F == 0 else frag_valid.data_ptr(), N, MC, L, W, w_b,
+                F, int(bool(between_only)), scratch.data_ptr(),
+                out.data_ptr(), stream)
+        _launched(rc, "band_offsets")
+        LAUNCHES["band_offsets"] += 1
+    return out

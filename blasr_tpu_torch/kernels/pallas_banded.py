@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from blasr_tpu_torch.kernels.banded import BandedResult, banded_align
+from blasr_tpu_torch.kernels.dispatch import on_device
 
 
 def slope_limit_offsets(offs: torch.Tensor, w_b: int) -> torch.Tensor:
@@ -58,19 +59,19 @@ def banded_align_cuda(reads, windows, offsets, qa, qb, ta, tb, submat,
         raise ValueError(f"banded_align_cuda needs w_b == 128, got {w_b}")
     if not two_valued(submat):
         raise ValueError("banded_align_cuda needs a two-valued score matrix")
-    dev = reads.device
-    if dev.type == "cpu":
-        return banded_align(reads, windows, offsets, qa, qb, ta, tb, submat,
-                            ins_open, ins_ext, del_open, del_ext, w_b=w_b,
-                            qv1=qv1, qv2=qv2)
-    if dev.type != "cuda":
-        raise NotImplementedError(f"banded_align_cuda on {dev.type}")
-    from blasr_tpu_torch.kernels import cuda_ops
-    check_slope(offsets, qa, qb)
-    m = np.asarray(torch.as_tensor(submat).detach().cpu(),
-                   dtype=np.float32).reshape(25)
-    return cuda_ops.banded_dp_launch(
-        reads, windows, offsets, qa, qb, ta, tb,
-        match=float(m[0]), mismatch=float(m[1]), ins_open=float(ins_open),
-        ins_ext=float(ins_ext), del_open=float(del_open),
-        del_ext=float(del_ext), qv1=qv1, qv2=qv2)
+    def launch(ops):
+        check_slope(offsets, qa, qb)
+        m = np.asarray(torch.as_tensor(submat).detach().cpu(),
+                       dtype=np.float32).reshape(25)
+        return ops.banded_dp_launch(
+            reads, windows, offsets, qa, qb, ta, tb,
+            match=float(m[0]), mismatch=float(m[1]), ins_open=float(ins_open),
+            ins_ext=float(ins_ext), del_open=float(del_open),
+            del_ext=float(del_ext), qv1=qv1, qv2=qv2)
+
+    return on_device(
+        "banded_align_cuda", reads.device,
+        lambda: banded_align(reads, windows, offsets, qa, qb, ta, tb, submat,
+                             ins_open, ins_ext, del_open, del_ext, w_b=w_b,
+                             qv1=qv1, qv2=qv2),
+        launch)

@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from blasr_tpu_torch.kernels.anchor import read_kmer_keys
+from blasr_tpu_torch.kernels.dispatch import on_device
 
 _CHUNK = 32  # diagonals compared per vectorized step
 INVALID_WINDOW = 0xFFFFFFFF   # key of a window position without a k-mer
@@ -34,17 +35,13 @@ def window_fragment_diags_banded(rkeys, rvalid, windows, wlens, offs, *,
     """The D-diagonal fragment search: K4 on CUDA tensors, the plain
     version on CPU tensors (same contract as
     :func:`window_fragment_diags_banded_plain`)."""
-    dev = rkeys.device
-    if dev.type == "cpu":
-        return window_fragment_diags_banded_plain(
-            rkeys, rvalid, windows, wlens, offs, k=k, occ=occ, D=D, w_b=w_b)
-    if dev.type != "cuda":
-        raise NotImplementedError(
-            f"window_fragment_diags_banded on {dev.type}")
-    from blasr_tpu_torch.kernels import cuda_ops
-    return cuda_ops.sdp_window_launch(
-        *kernel_inputs(rkeys, rvalid, windows, wlens, offs, k=k, D=D,
-                       w_b=w_b), D=D, occ=occ)
+    return on_device(
+        "window_fragment_diags_banded", rkeys.device,
+        lambda: window_fragment_diags_banded_plain(
+            rkeys, rvalid, windows, wlens, offs, k=k, occ=occ, D=D, w_b=w_b),
+        lambda ops: ops.sdp_window_launch(
+            *kernel_inputs(rkeys, rvalid, windows, wlens, offs, k=k, D=D,
+                           w_b=w_b), D=D, occ=occ))
 
 
 def kernel_inputs(rkeys, rvalid, windows, wlens, offs, *, k: int, D: int,

@@ -2,9 +2,10 @@
 ``blasr_tpu/pipeline/map_read.py``).
 
 The device half (:class:`DeviceIndex`, :func:`map_batch`) is PyTorch on an
-explicit device: anchor search -> chain/cluster -> candidate windows ->
-guided banded affine DP (kernel K1 on CUDA) -> run-length traceback
-(kernel K2 on CUDA) -> one packed int32 result buffer, for both strands.
+explicit device: anchor search (K5 on CUDA) -> chain/cluster (K3) ->
+candidate windows -> band offsets (K6) and the SDP window pass (K4) ->
+guided banded affine DP (K1) -> run-length traceback (K2) -> one packed
+int32 result buffer, for both strands.
 The host half (:class:`Alignment`, the CIGAR helpers and :class:`Mapper`)
 is the JAX package's code with its device calls pointed here.
 """
@@ -25,6 +26,7 @@ from blasr_tpu_torch.params import MappingParams, ShapeConfig
 from blasr_tpu_torch.kernels.anchor import find_anchors, read_kmer_keys
 from blasr_tpu_torch.kernels.banded import banded_align, banded_traceback
 from blasr_tpu_torch.kernels.chain import chain_anchors, chain_members
+from blasr_tpu_torch.kernels.dispatch import on_device
 
 BIG32 = 0x3FFFFFFF
 MASK32 = 0xFFFFFFFF
@@ -249,6 +251,25 @@ def _revcomp_qv(qv: torch.Tensor, read_len: torch.Tensor,
 
 def _band_offsets(mq, mt, ws, L, W, w_b,
                   frag_diag=None, frag_valid=None, between_only=False):
+    """Band offsets: K6 (``csrc/band_offsets.cu``) on CUDA tensors, the
+    plain version on CPU tensors (same contract as
+    :func:`_band_offsets_plain`)."""
+    def i64(x):
+        return None if x is None else x.to(torch.int64).contiguous()
+
+    return on_device(
+        "_band_offsets", mq.device,
+        lambda: _band_offsets_plain(mq, mt, ws, L, W, w_b, frag_diag,
+                                    frag_valid, between_only),
+        lambda ops: ops.band_offsets_launch(
+            i64(mq), i64(mt), i64(ws), L=L, W=W, w_b=w_b,
+            frag_diag=i64(frag_diag),
+            frag_valid=None if frag_valid is None else frag_valid.contiguous(),
+            between_only=between_only))
+
+
+def _band_offsets_plain(mq, mt, ws, L, W, w_b,
+                        frag_diag=None, frag_valid=None, between_only=False):
     """Band start per query row from the chain guide path, densified by
     SDP fragments (see the JAX ``_band_offsets``).  Monotone, slope 0..2
     per row — the banded kernel's contract."""

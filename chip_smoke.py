@@ -8,8 +8,9 @@ Run from the repository root on a machine with a CUDA card:
 Phases (any failed check exits nonzero):
   1. header: torch / CUDA / nvcc versions, the card's name and power limit;
      build the hand-written kernels K1 (banded DP, distance and QV modes),
-     K2 (traceback walk), K3 (chain scan) and K4 (SDP window pass) from
-     ``blasr_tpu_torch/csrc``, one nvcc per source, all at once;
+     K2 (traceback walk), K3 (chain scan), K4 (SDP window pass), K5 (anchor
+     search) and K6 (band offsets) from ``blasr_tpu_torch/csrc``, one nvcc
+     per source, all at once;
   2. each kernel against its plain PyTorch version at the main path's
      shapes, exact equality, timed with CUDA events: K1, K1-QV (random QV
      words in the three flavours: IDS tracks, plain base qualities, none)
@@ -18,7 +19,11 @@ Phases (any failed check exits nonzero):
      candidate and guide passes, a lookback-64 global chain and the edge
      inputs of tests/torch_edge_cases.py; K4 at N=192, L=2048, W=3072,
      D=512, occ 2 and 1, on bench-genome windows with planted read
-     k-mers, and on the edge inputs;
+     k-mers, and on the edge inputs; the repaired shapes, K3 at A=8192 (past
+     one block's shared memory) and K4 at L=65536 (a tiled slab); K5 on
+     the bench batch (the find_anchors call of its map_batch) and K6 on the
+     two _band_offsets calls of that batch's map_batch, captured, both
+     also on the edge inputs;
   3. the golden worlds of tests/test_golden.py through the port's CLI with
      ``--device cuda``, byte for byte against tests/golden/: the main path
      (small: 60 kb, 12 reads; big: 4.6 Mbp, 11 reads; golden.{m4,sam,
@@ -26,14 +31,18 @@ Phases (any failed check exits nonzero):
      STR worlds; golden.{m4.fastq,sam.fastq,sam.hpstr.qv}); then the IDS
      world of make_qvsteer, built in memory (its bax.h5 needs h5py), mapped
      with the port's Mapper on ``cuda`` and on ``cpu``: identical
-     positions, CIGARs, scores and mapQV;
+     positions, CIGARs, scores and mapQV; then two simulated reads of
+     ~40 kb on a 1 Mbp genome (bucket 65536) mapped on the card, each on
+     its simulated interval, every K5 and K6 launch of that run captured
+     and held to the plain version (L = 65536);
   4. the bench.py workload (4.6 Mbp genome, k=12, 512 CLR reads of
      0.5-2 kb at 85% accuracy), once in distance mode and once under
      ``--useQuality`` with per-base qualities 8-39: reads/s, per-stage
      device times, and the share of reads placed on their simulated
      interval (>= 95%).  Launch counts are zeroed just before each of the
-     two runs and read just after it: K3 launches twice per batch dispatch
-     (candidate and guide passes), K4 once;
+     two runs and read just after it: K3 and K6 launch twice per batch
+     dispatch (candidate and guide passes; band offsets before and after
+     the SDP pass), K4 and K5 once;
   5. torch.profiler over one more distance pass: launches per read, the
      device's busy share, the kernels with the most device time.
 The second-to-last lines are a JSON kernel table and the card's name and
@@ -61,6 +70,8 @@ DP_SRC = "blasr_tpu_torch/csrc/banded_dp.cu"
 TB_SRC = "blasr_tpu_torch/csrc/banded_traceback.cu"
 CHAIN_SRC = "blasr_tpu_torch/csrc/chain_scan.cu"
 SDP_SRC = "blasr_tpu_torch/csrc/sdp_window.cu"
+ANCHOR_SRC = "blasr_tpu_torch/csrc/anchor_search.cu"
+BAND_SRC = "blasr_tpu_torch/csrc/band_offsets.cu"
 # published H100 SXM peaks: HBM bytes/s, float32 (non-tensor-core) ops/s
 HBM_BPS = 3.35e12
 F32_OPS = 67e12
@@ -78,6 +89,9 @@ SECTOR = 32
 # per selection round (the rank key, the overlap test, ~12)
 K3_OPS_PER_PAIR = 20
 K3_OPS_PER_SELECT = 12
+# float32 operations per active cell of the hp-band DP (K1's recurrence plus
+# the homopolymer open/extend terms, ~10 more)
+HP_OPS_PER_CELL = 35
 
 
 def log(msg: str) -> None:
@@ -173,6 +187,17 @@ def qv_words(rng, N, L, params, mismatch):
         q1[i] = insq | (delq << 8) | (subq << 16) | (dtag << 24) | (stag << 27)
         q2[i] = dpri | (spri << 8)
     return q1.astype(np.int32), q2.astype(np.int32)
+
+
+def timed(fn):
+    """(fn(), its device ms): one call between two CUDA events."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -295,6 +320,10 @@ def phase_kernels(card):
             f"({tb_times[t_max][2][1]}) on {card}")
     assert n_ovf[(3 * T) // 8] > 0, "the overflow path of K2 was not exercised"
     kms, pms, kb = tb_times[(3 * T) // 8]
+    hp_bound = bound(k1_bytes, cells * HP_OPS_PER_CELL)
+    log(f"# not ported: banded_align with the hp band at these shapes "
+        f"(N={N}, L={L}, W={W}, {cells:.0f} active cells): bound "
+        f"{hp_bound[0]:.4f} ms ({hp_bound[1]})")
     return {
         "banded_dp": dict(err=dp_err, ms=dp_ms, plain_ms=dp_plain_ms,
                           bound=dp_bound),
@@ -306,8 +335,9 @@ def phase_kernels(card):
 
 def bench_batch(gi, sims):
     """The bench workload's first batch in bucket 2048 as
-    Mapper._run_bucket forms it, its anchors as map_batch finds them, the
-    chain arguments map_batch passes and the device index."""
+    Mapper._run_bucket forms it: the arguments of its map_batch call and of
+    the find_anchors call inside it, its anchors (K5), the chain arguments
+    map_batch passes and the device index."""
     from blasr_tpu_torch.kernels.anchor import find_anchors
     from blasr_tpu_torch.params import MappingParams, ShapeConfig
     from blasr_tpu_torch.pipeline.map_read import Mapper, _revcomp_batch
@@ -327,25 +357,18 @@ def bench_batch(gi, sims):
     rl = torch.from_numpy(lens).to(dev)
     reads2 = torch.cat([reads, _revcomp_batch(reads, rl)])
     rlen2 = torch.cat([rl, rl])
-    _, kw = mapper._batch_call_args(L)
+    pos, kw = mapper._batch_call_args(L)
     ix = mapper.dev
-
-    def anchor_call():
-        return find_anchors(
-            ix.genome, ix.keys_sorted, ix.pos_sorted, reads2, rlen2,
-            k=kw["cfg_k"], occ_per_pos=kw["O"], max_anchors=kw["A"],
-            anchor_ext=kw["E"], min_match=kw["min_match"],
-            max_anchors_per_pos=kw["max_anchors_per_pos"],
-            max_lcp=kw["max_lcp"], advance_exact=kw["advance_exact"],
-            bucket_starts=ix.bucket_starts, bucket_pairs=ix.bucket_pairs,
-            gwords=ix.gwords, gnwords=ix.gnwords,
-            pos_records=ix.pos_records)
-
-    anchors = anchor_call()
+    anchor_args = (ix.genome, ix.keys_sorted, ix.pos_sorted, reads2, rlen2)
+    anchor_kw = dict(
+        k=kw["cfg_k"], occ_per_pos=kw["O"], max_anchors=kw["A"],
+        anchor_ext=kw["E"], min_match=kw["min_match"],
+        max_anchors_per_pos=kw["max_anchors_per_pos"],
+        max_lcp=kw["max_lcp"], advance_exact=kw["advance_exact"],
+        bucket_starts=ix.bucket_starts, bucket_pairs=ix.bucket_pairs,
+        gwords=ix.gwords, gnwords=ix.gnwords, pos_records=ix.pos_records)
+    anchors = find_anchors(*anchor_args, **anchor_kw)
     torch.cuda.synchronize()
-    t_ms = cuda_ms(anchor_call, 3)
-    log(f"# anchors (find_anchors, plain torch) on this batch: {t_ms:.3f} "
-        f"ms, bound {anchors_bound(anchors, rlen2, kw)[0]:.4f} ms (bytes)")
     pvt = kw["p_value_type"]
     chain_kw = dict(n_cand=max(2 * kw["C"], 16),
                     indel_rate=kw["indel_rate"],
@@ -353,7 +376,9 @@ def bench_batch(gi, sims):
                     lookback=kw["lookback"],
                     global_chain=kw["global_chain"],
                     drift_penalty=kw["cand_drift"])
-    return anchors, rlen2, reads2, chain_kw, ix
+    return dict(anchors=anchors, rlen2=rlen2, reads2=reads2,
+                chain_kw=chain_kw, ix=ix, reads=reads, rl=rl, pos=pos, kw=kw,
+                anchor_args=anchor_args, anchor_kw=anchor_kw)
 
 
 def anchors_bound(anchors, rlen2, kw):
@@ -380,6 +405,20 @@ def check_equal(out, ref, fields, name: str) -> float:
         assert a.dtype == b.dtype and torch.equal(a, b), \
             f"{name}: {f} differs from the plain version"
     return max_abs(list(out), list(ref))
+
+
+def capture_calls(module, name: str, calls: list):
+    """Wrap ``module.name`` so that each call appends (args, kwargs,
+    result) to ``calls``; returns the function to restore."""
+    inner = getattr(module, name)
+
+    def wrapper(*a, **kw):
+        out = inner(*a, **kw)
+        calls.append((a, kw, out))
+        return out
+
+    setattr(module, name, wrapper)
+    return inner
 
 
 def k3_bound(anchors, n_cand: int, lookback: int):
@@ -446,21 +485,147 @@ def k4_bound(args, diag, valid, occ: int, D: int, k: int):
     return bound(nbytes, compares + 4 * k * N * W), compares
 
 
-def phase_chain_sdp(card, gi, sims):
+def k6_bound(mq, mt, ws, L, W, w_b, frag_diag=None, frag_valid=None,
+             between_only=False):
+    """Bound of one _band_offsets call: the members (two int64 [N, MC]),
+    the window starts and the fragments (int64 diagonal and a flag per
+    slot) read once, the int64 offsets written once; ~30 integer
+    operations per row (three fills, the interpolation, two scans) and ~8
+    per fragment slot."""
+    N, MC = mq.shape
+    F = 0 if frag_diag is None else frag_diag.shape[-1]
+    nbytes = 16 * N * MC + 8 * N + 9 * N * L * F + 8 * N * L
+    return bound(nbytes, N * L * (30 + 8 * F))
+
+
+def unported_bounds(card, bb):
+    """Bounds of the two device programs of the JAX package that the port
+    runs as plain torch or not at all: chain_members on the bench batch
+    (its [2B*C, max_chain] member walk, timed as it runs, plain), and
+    sdp_align per pair at 2 kb reads (the sdpMatcher shapes: Lq = 2048,
+    Lt = round_up(2048 + 129, 128), 1024 fragments, 256 members)."""
+    from blasr_tpu_torch.kernels.chain import chain_anchors, chain_members
+    kw = bb["kw"]
+    cands = chain_anchors(bb["anchors"], bb["rlen2"],
+                          **dict(bb["chain_kw"], n_cand=kw["C"]))
+    B2, A = bb["anchors"].q.shape
+    C, MC = kw["C"], kw["max_chain"]
+    fn = lambda: chain_members(cands, bb["anchors"], max_chain=MC)  # noqa
+    fn()
+    pms = cuda_ms(fn, 5)
+    # end_idx and parent pointers, anchors q/t/l (int64) in; mq/mt/ml int64
+    # and the valid flags out
+    cm = bound(8 * B2 * C + 8 * B2 * A + 24 * B2 * A + 25 * B2 * C * MC, 0.0)
+    log(f"# not ported: chain_members at [{B2 * C}, {MC}] (A={A}): plain "
+        f"{pms:.3f} ms, bound {cm[0]:.5f} ms ({cm[1]}) on {card}")
+    Lq, Lt, F, M = 2048, 2304, 1024, 256
+    # per pair: the sequences and lengths in, the chain (7 scalars, three
+    # [M] member arrays) out; K3's 20 operations per fragment pair of the
+    # chain scan over F fragments
+    sa = bound(Lq + Lt + 8 + 28 + 12 * M, K3_OPS_PER_PAIR * F * (F - 1) / 2)
+    log(f"# not ported: sdp_align per pair (Lq={Lq}, Lt={Lt}, {F} "
+        f"fragments): bound {1e3 * sa[0]:.4f} us ({sa[1]})")
+
+
+def phase_anchor_band(card, bb):
+    """K5 and K6 against their plain versions on the same CUDA tensors: K5
+    on the bench batch's find_anchors call, K6 on the two _band_offsets
+    calls of that batch's map_batch (captured as it makes them), both on
+    the edge inputs."""
+    from blasr_tpu_torch.index.genome import build_genome_index
+    from blasr_tpu_torch.io.fasta import FastaRecord
+    from blasr_tpu_torch.kernels.anchor import (Anchors, find_anchors,
+                                                find_anchors_plain)
+    from blasr_tpu_torch.pipeline import map_read
+    from torch_edge_cases import (ANCHOR_CASES, BAND_CASES, anchor_case,
+                                  anchor_world, band_case)
+    dev = torch.device("cuda")
+    fields = Anchors._fields
+    args, akw = bb["anchor_args"], bb["anchor_kw"]
+    ref = find_anchors_plain(*args, **akw)
+    torch.cuda.synchronize()
+    k5_err = check_equal(bb["anchors"], ref, fields, "K5 bench batch")
+    k5_ms = cuda_ms(lambda: find_anchors(*args, **akw), 20)
+    k5_plain = cuda_ms(lambda: find_anchors_plain(*args, **akw), 3)
+    k5_bound = anchors_bound(bb["anchors"], bb["rlen2"], bb["kw"])
+    B, L, O = bb["anchors"].hits_t.shape
+    log(f"# K5 == plain on the bench batch (B={B}, L={L}, O={O}, "
+        f"A={bb['anchors'].q.shape[1]}): every field exact, "
+        f"{int(bb['anchors'].valid.sum())} valid anchors; kernel "
+        f"{k5_ms:.3f} ms, plain {k5_plain:.3f} ms, bound "
+        f"{k5_bound[0]:.4f} ms ({k5_bound[1]}) on {card}")
+
+    calls = []
+    inner = capture_calls(map_read, "_band_offsets", calls)
+    try:
+        map_read.map_batch(bb["ix"], bb["reads"], bb["rl"], *bb["pos"],
+                           **bb["kw"])
+        torch.cuda.synchronize()
+    finally:
+        map_read._band_offsets = inner
+    assert len(calls) == 2, f"map_batch made {len(calls)} band-offset calls"
+    k6_err = 0.0
+    k6 = []
+    for i, (a, kw, out) in enumerate(calls):
+        ref = map_read._band_offsets_plain(*a, **kw)
+        torch.cuda.synchronize()
+        k6_err = max(k6_err, check_equal([out], [ref], ("offsets",),
+                                         f"K6 call {i + 1}"))
+        kms = cuda_ms(lambda: map_read._band_offsets(*a, **kw), 20)
+        pms = cuda_ms(lambda: map_read._band_offsets_plain(*a, **kw), 3)
+        kb = k6_bound(*a, **kw)
+        k6.append((kms, pms, kb))
+        log(f"# K6 == plain on map_batch's call {i + 1} (N={a[0].shape[0]}, "
+            f"MC={a[0].shape[1]}, L={a[3]}, F={a[6].shape[-1]}): exact; "
+            f"kernel {kms:.3f} ms, plain {pms:.3f} ms, bound {kb[0]:.4f} ms "
+            f"({kb[1]}) on {card}")
+
+    gi = build_genome_index([FastaRecord("edge", anchor_world()[0])], k=12)
+    eix = map_read.DeviceIndex.from_host(gi, dev)
+    for name in ANCHOR_CASES:
+        _, reads, rlen, kw, drop = anchor_case(name)
+        ix = eix._replace(**{f: None for f in drop})
+        a = (ix.genome, ix.keys_sorted, ix.pos_sorted,
+             torch.from_numpy(reads).to(dev), torch.from_numpy(rlen).to(dev))
+        kw = dict(kw, bucket_starts=ix.bucket_starts,
+                  bucket_pairs=ix.bucket_pairs, gwords=ix.gwords,
+                  gnwords=ix.gnwords, pos_records=ix.pos_records)
+        k5_err = max(k5_err, check_equal(find_anchors(*a, **kw),
+                                         find_anchors_plain(*a, **kw),
+                                         fields, f"K5 {name}"))
+    log(f"# K5 == plain on the {len(ANCHOR_CASES)} edge inputs: exact")
+    for name in BAND_CASES:
+        c = band_case(name)
+        a = [None if c[f] is None else torch.from_numpy(c[f]).to(dev)
+             for f in ("mq", "mt", "ws", "frag_diag", "frag_valid")]
+        a = (*a[:3], c["L"], c["W"], c["w_b"], *a[3:], c["between_only"])
+        k6_err = max(k6_err, check_equal(
+            [map_read._band_offsets(*a)], [map_read._band_offsets_plain(*a)],
+            ("offsets",), f"K6 {name}"))
+    log(f"# K6 == plain on the {len(BAND_CASES)} edge inputs: exact")
+    unported_bounds(card, bb)
+    kms, pms, kb = k6[0]
+    return {
+        "anchor_search": dict(err=k5_err, ms=k5_ms, plain_ms=k5_plain,
+                              bound=k5_bound),
+        "band_offsets": dict(err=k6_err, ms=kms, plain_ms=pms, bound=kb),
+    }
+
+
+def phase_chain_sdp(card, gi, bb):
     """K3 and K4 against their plain versions on the same CUDA tensors."""
     from blasr_tpu_torch.kernels import chain, cuda_ops, sdp
     from blasr_tpu_torch.kernels.anchor import Anchors
-    sys.path.insert(0, os.path.join(HERE, "tests"))
     from torch_edge_cases import (CHAIN_CASES, K_SDP, SDP_CASES,
-                                  chain_case, sdp_case)
+                                  chain_case, chain_rows, long_sdp_case,
+                                  sdp_case)
     from blasr_tpu_torch.kernels.anchor import read_kmer_keys
     dev = torch.device("cuda")
-    t0 = time.time()
-    anchors, rlen2, reads2, ckw, ix = bench_batch(gi, sims)
+    anchors, rlen2, reads2, ckw = (bb[k] for k in ("anchors", "rlen2",
+                                                   "reads2", "chain_kw"))
     B, A = anchors.q.shape
     log(f"# phase 2 K3: bench batch B={B} A={A}, "
-        f"{int(anchors.valid.sum())} valid anchors "
-        f"({time.time() - t0:.1f}s)")
+        f"{int(anchors.valid.sum())} valid anchors")
     fields = chain.Candidates._fields
     res = {}
     k3_err = 0.0
@@ -540,8 +705,40 @@ def phase_chain_sdp(card, gi, sims):
         k4_err = max(k4_err, check_equal(out, ref, ("diag", "valid"),
                                          f"K4 {name}"))
     log(f"# K4 == plain on the {len(SDP_CASES)} edge inputs: exact")
+
+    # the repaired shapes: K3 past one block's shared memory (the rows'
+    # arrays in global scratch), K4 at bucket 65536 (the slab tiled)
+    c = chain_rows(np.random.default_rng(8192), 2, 8192, (8192, 6000),
+                   read_len=(20_000, 40_000))
+    an = Anchors(**{f: torch.from_numpy(c[f]).to(dev)
+                    for f in ("q", "t", "l", "valid", "nlogp")},
+                 n_total=torch.from_numpy(
+                     c["valid"].sum(1).astype(np.int32)).to(dev))
+    rl = torch.from_numpy(c["read_len"]).to(dev)
+    kw = dict(n_cand=20, rank_by_pvalue=True, p_value_type=0)
+    out, kms = timed(lambda: chain.chain_anchors(an, rl, **kw))
+    ref, pms = timed(lambda: chain.chain_anchors_plain(an, rl, **kw))
+    k3_err = max(k3_err, check_equal(out, ref, fields, "K3 A=8192"))
+    log(f"# K3 == plain at B=2, A=8192 (global scratch rows): exact; kernel "
+        f"{kms:.3f} ms, plain {pms:.1f} ms on {card}")
+    reads, rlen, windows, wlens, offs = long_sdp_case(
+        np.random.default_rng(65536))
+    rk, rv = read_kmer_keys(torch.from_numpy(reads).to(dev),
+                            torch.from_numpy(rlen).to(dev), K_SDP)
+    a = (rk, rv, *(torch.from_numpy(x).to(dev)
+                   for x in (windows, wlens, offs)))
+    for occ in (2, 1):
+        out, kms = timed(lambda: sdp.window_fragment_diags_banded(
+            *a, k=K_SDP, occ=occ))
+        ref, pms = timed(lambda: sdp.window_fragment_diags_banded_plain(
+            *a, k=K_SDP, occ=occ))
+        k4_err = max(k4_err, check_equal(out, ref, ("diag", "valid"),
+                                         f"K4 L=65536 occ={occ}"))
+        log(f"# K4 == plain at N=4, L=65536, W={windows.shape[1]}, D=512, "
+            f"occ={occ} (tiled slab): exact, {int(out[1].sum())} hits; "
+            f"function {kms:.3f} ms, plain {pms:.1f} ms on {card}")
     kms, pms, kb = res["candidate"]
-    return ix, {
+    return {
         "chain_scan": dict(err=k3_err, ms=kms, plain_ms=pms, bound=kb),
         "sdp_window": dict(err=k4_err, ms=k4[2][0], plain_ms=k4[2][1],
                            bound=k4[2][2]),
@@ -698,6 +895,11 @@ def run_goldens(d, cases, worlds):
     return n_ok
 
 
+# the kernels both DP modes' paths launch
+PATH_KERNELS = ("banded_traceback", "chain_scan", "sdp_window",
+                "anchor_search", "band_offsets")
+
+
 def phase_goldens(d, cuda_ops):
     worlds = {"small": make_small(d), "big": make_big(d),
               "fastq": make_fastq(d), "hpstr": make_hpstr(d)}
@@ -708,8 +910,7 @@ def phase_goldens(d, cuda_ops):
                            ("m4.big", "big", ["-m", "4"]),
                            ("sam.big", "big",
                             ["--sam", "--clipping", "soft"])],
-             ("banded_dp", "banded_traceback", "chain_scan", "sdp_window"),
-             "banded_dp_qv"),
+             PATH_KERNELS + ("banded_dp",), "banded_dp_qv"),
             ("--useQuality", [("m4.fastq", "fastq",
                                ["-m", "4", "--useQuality"]),
                               ("sam.fastq", "fastq",
@@ -718,8 +919,7 @@ def phase_goldens(d, cuda_ops):
                               ("sam.hpstr.qv", "hpstr",
                                ["--sam", "--clipping", "soft",
                                 "--useQuality"])],
-             ("banded_dp_qv", "banded_traceback", "chain_scan",
-              "sdp_window"), "banded_dp")):
+             PATH_KERNELS + ("banded_dp_qv",), "banded_dp")):
         cuda_ops.reset_launch_counts()
         n_ok = run_goldens(d, cases, worlds)
         launches = dict(cuda_ops.LAUNCHES)
@@ -767,6 +967,79 @@ def phase_ids(cuda_ops):
     log(f"# IDS world: QV steering moved {steered} CIGAR(s) against the "
         f"run without --useQuality")
     assert steered > 0, "QV steering changed no CIGAR"
+
+
+def phase_long_reads(card, cuda_ops):
+    """Two simulated reads of ~40 kb on a 1 Mbp genome mapped on the card
+    through the CLI's Mapper (bucket 65536: K4's tiled slab, K5 and K6 at
+    L = 65536): each read's best alignment lies on its simulated interval
+    and strand.  Every find_anchors and _band_offsets call of the run is
+    captured, and its kernel's result held to the plain version on the
+    same CUDA tensors (K6's scans cross 64 chunks of 1024 rows there)."""
+    from blasr_tpu_torch.index.genome import build_genome_index
+    from blasr_tpu_torch.kernels.anchor import Anchors, find_anchors_plain
+    from blasr_tpu_torch.params import MappingParams, ShapeConfig
+    from blasr_tpu_torch.pipeline import map_read
+    from blasr_tpu_torch.pipeline.map_read import Mapper
+    from blasr_tpu_torch.sim import random_genome, simulate_reads
+    t0 = time.time()
+    contigs = random_genome(1_000_000, seed=40)
+    gi = build_genome_index(contigs, k=12)
+    sims = simulate_reads(contigs, 2, read_len=(38_000, 42_000),
+                          accuracy=0.85, seed=41)
+    cfg = ShapeConfig()
+    assert all(cfg.bucket_for(len(s.rec.seq)) == 65536 for s in sims)
+    mapper = Mapper(gi, MappingParams().make_sane(), cfg, device="cuda")
+    log(f"# long reads: 1 Mbp genome + index, reads of "
+        f"{[len(s.rec.seq) for s in sims]} bases ({time.time() - t0:.1f}s)")
+    k5_calls, k6_calls = [], []
+    k5_inner = capture_calls(map_read, "find_anchors", k5_calls)
+    k6_inner = capture_calls(map_read, "_band_offsets", k6_calls)
+    try:
+        cuda_ops.reset_launch_counts()
+        t0 = time.time()
+        per_read = mapper.map_reads([s.rec for s in sims])
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = dict(cuda_ops.LAUNCHES)
+    finally:
+        map_read.find_anchors = k5_inner
+        map_read._band_offsets = k6_inner
+    assert k5_calls and k6_calls, "the long reads made no K5/K6 call"
+    # every launch of the run is one of the calls held to the plain version
+    assert launches["anchor_search"] == len(k5_calls), launches
+    assert launches["band_offsets"] == sum(a[0].shape[0] > 0
+                                           for a, _, _ in k6_calls), launches
+    for i, (a, kw, out) in enumerate(k5_calls):
+        assert a[3].is_cuda and a[3].shape[1] == 65536, \
+            f"long-read K5 call {i + 1} is not at L = 65536"
+        check_equal(out, find_anchors_plain(*a, **kw), Anchors._fields,
+                    f"K5 long-read call {i + 1}")
+    for i, (a, kw, out) in enumerate(k6_calls):
+        assert a[0].is_cuda and a[3] == 65536, \
+            f"long-read K6 call {i + 1} is not at L = 65536"
+        check_equal([out], [map_read._band_offsets_plain(*a, **kw)],
+                    ("offsets",), f"K6 long-read call {i + 1}")
+    torch.cuda.synchronize()
+    log(f"# K5 == plain on the long reads' {len(k5_calls)} find_anchors "
+        f"call(s) (B={k5_calls[0][0][3].shape[0]}, L=65536, "
+        f"O={sorted({kw['occ_per_pos'] for _, kw, _ in k5_calls})}, "
+        f"A={k5_calls[0][2].q.shape[1]}) and K6 == "
+        f"plain on their {len(k6_calls)} _band_offsets call(s) (L=65536): "
+        f"every field exact")
+    for s, alns in zip(sims, per_read):
+        assert alns, "a long read did not map"
+        best = min(alns, key=lambda a: a.score)
+        log(f"# long read {len(s.rec.seq)} b, simulated strand {s.strand} "
+            f"[{s.tstart}, {s.tend}): mapped strand {best.strand} "
+            f"[{best.tstart}, {best.tend}), q [{best.qstart}, {best.qend}), "
+            f"score {best.score}")
+        assert (best.strand == s.strand and best.tstart < s.tend
+                and best.tend > s.tstart), "a long read is misplaced"
+    log(f"# long reads placed 2/2 in {wall:.1f}s on {card}; launches "
+        f"{launches}")
+    assert all(launches[k] > 0 for k in PATH_KERNELS + ("banded_dp",)), \
+        f"kernels not launched (long reads): {launches}"
 
 
 # ---------------------------------------------------------------- phase 4
@@ -865,6 +1138,11 @@ def phase_bench(card, cuda_ops, gi, sims, use_qv: bool, dev=None):
         f"K3 launches {launches['chain_scan']} != 2 x {dispatches} dispatches"
     assert launches["sdp_window"] == dispatches, \
         f"K4 launches {launches['sdp_window']} != {dispatches} dispatches"
+    assert launches["anchor_search"] == dispatches, \
+        f"K5 launches {launches['anchor_search']} != {dispatches} dispatches"
+    assert launches["band_offsets"] == 2 * dispatches, \
+        f"K6 launches {launches['band_offsets']} != 2 x {dispatches} " \
+        "dispatches"
     return launches
 
 
@@ -951,16 +1229,22 @@ def main() -> int:
     t0 = time.time()
     gi, sims = bench_world()
     log(f"# bench world: genome + index {time.time() - t0:.1f}s")
+    sys.path.insert(0, os.path.join(HERE, "tests"))
     t0 = time.time()
     kres = phase_kernels(card)
-    dev, kres2 = phase_chain_sdp(card, gi, sims)
-    kres.update(kres2)
+    bb = bench_batch(gi, sims)
+    dev = bb["ix"]
+    kres.update(phase_chain_sdp(card, gi, bb))
+    kres.update(phase_anchor_band(card, bb))
     log(f"# phase 2 done in {time.time() - t0:.1f}s")
     with tempfile.TemporaryDirectory() as d:
         t0 = time.time()
         phase_goldens(d, cuda_ops)
         phase_ids(cuda_ops)
         log(f"# phase 3 done in {time.time() - t0:.1f}s")
+    t0 = time.time()
+    phase_long_reads(card, cuda_ops)
+    log(f"# long-read phase done in {time.time() - t0:.1f}s")
     t0 = time.time()
     dist = phase_bench(card, cuda_ops, gi, sims, use_qv=False, dev=dev)
     qvl = phase_bench(card, cuda_ops, gi, sims, use_qv=True, dev=dev)
@@ -974,14 +1258,17 @@ def main() -> int:
 
     launches = {"banded_dp": dist["banded_dp"],
                 "banded_dp_qv": qvl["banded_dp_qv"]}
-    for k in ("banded_traceback", "chain_scan", "sdp_window"):
+    for k in PATH_KERNELS:
         launches[k] = dist[k] + qvl[k]
     rows = [("banded_dp", DP_SRC, "blasr_tpu/kernels/pallas_banded.py:388"),
             ("banded_dp_qv", DP_SRC,
              "blasr_tpu/kernels/pallas_banded.py:388"),
             ("banded_traceback", TB_SRC, "blasr_tpu/kernels/banded.py:424"),
             ("chain_scan", CHAIN_SRC, "blasr_tpu/kernels/chain.py:54"),
-            ("sdp_window", SDP_SRC, "blasr_tpu/kernels/sdp.py:142")]
+            ("sdp_window", SDP_SRC, "blasr_tpu/kernels/sdp.py:142"),
+            ("anchor_search", ANCHOR_SRC, "blasr_tpu/kernels/anchor.py:74"),
+            ("band_offsets", BAND_SRC,
+             "blasr_tpu/pipeline/map_read.py:320")]
     table = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "max_abs_err": kres[name]["err"],

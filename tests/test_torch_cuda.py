@@ -1,8 +1,11 @@
 """The hand-written CUDA kernels (K1 banded DP in its distance and QV
-modes, K2 traceback walk, K3 chain scan, K4 SDP window pass) against their
-plain PyTorch versions, on a card.  Skipped without a CUDA device.  K3
-and K4 take the edge inputs of ``tests/torch_edge_cases.py``, on which
-``tests/test_torch_chain_sdp_edges.py`` holds the plain versions to JAX.
+modes, K2 traceback walk, K3 chain scan, K4 SDP window pass, K5 anchor
+search, K6 band offsets) against their plain PyTorch versions, on a card.
+Skipped without a CUDA device.  K3-K6 take the edge inputs of
+``tests/torch_edge_cases.py``, on which ``tests/test_torch_chain_sdp_edges.py``
+and ``tests/test_torch_anchor_band_edges.py`` hold the plain versions to
+JAX; K3 also at A = 8192 (beyond one block's shared memory) and K4 at
+L = 65536 (a slab tiled through shared memory).
 
 The GPU machine has no JAX, and tests/conftest.py imports it, so run this
 file there without the conftest:
@@ -22,8 +25,13 @@ from blasr_tpu_torch.kernels import pallas_banded as tpb  # noqa: E402
 from blasr_tpu_torch.kernels import anchor as tanchor  # noqa: E402
 from blasr_tpu_torch.kernels import chain as tchain  # noqa: E402
 from blasr_tpu_torch.kernels import sdp as tsdp  # noqa: E402
-from torch_edge_cases import (CHAIN_CASES, K_SDP, SDP_CASES,  # noqa: E402
-                              chain_case, sdp_case)
+from blasr_tpu_torch.index.genome import build_genome_index  # noqa: E402
+from blasr_tpu_torch.io.fasta import FastaRecord  # noqa: E402
+from blasr_tpu_torch.pipeline import map_read as tmr  # noqa: E402
+from torch_edge_cases import (ANCHOR_CASES, BAND_CASES,  # noqa: E402
+                              CHAIN_CASES, K_SDP, SDP_CASES, anchor_case,
+                              anchor_world, band_case, chain_case,
+                              chain_rows, long_sdp_case, sdp_case)
 
 pytestmark = pytest.mark.cuda
 
@@ -234,11 +242,8 @@ def test_chain_and_sdp_wrappers_check_their_inputs(cuda):
         cuda_ops.chain_scan_launch(*args[:5], args[5].cpu(), **kw)
     with pytest.raises(ValueError):         # a row short
         cuda_ops.chain_scan_launch(args[0][1:].contiguous(), *args[1:], **kw)
-    big = cuda_ops.CHAIN_MAX_ANCHORS + 8    # beyond one block's memory
-    wide = [torch.zeros((1, big), dtype=x.dtype, device=cuda)
-            for x in args[:5]] + [args[5][:1].contiguous()]
-    with pytest.raises(ValueError, match="shared memory"):
-        cuda_ops.chain_scan_launch(*wide, **dict(kw, lookback=big))
+    with pytest.raises(ValueError):         # a lookback beyond the row
+        cuda_ops.chain_scan_launch(*args, **dict(kw, lookback=A + 1))
     rk = torch.zeros((4, 256), dtype=i32, device=cuda)
     wk = torch.zeros((4, 896), dtype=i32, device=cuda)
     dlo = torch.zeros(4, dtype=i32, device=cuda)
@@ -249,4 +254,133 @@ def test_chain_and_sdp_wrappers_check_their_inputs(cuda):
                                    occ=2)
     with pytest.raises(ValueError):
         cuda_ops.sdp_window_launch(rk, wk, dlo, D=512, occ=3)
+    with pytest.raises(ValueError):         # a slab wider than a block holds
+        cuda_ops.sdp_window_launch(rk, wk, dlo, D=60_000, occ=2)
+    assert cuda_ops.LAUNCHES == before
+
+
+def test_chain_kernel_wide_rows(cuda):
+    """K3 at A = 8192, past CHAIN_MAX_ANCHORS: the rows' arrays sit in
+    global scratch; every Candidates field equals the plain version's."""
+    rng = np.random.default_rng(8192)
+    A = 8192
+    assert A > cuda_ops.CHAIN_MAX_ANCHORS
+    c = chain_rows(rng, 2, A, (A, 6000), read_len=(20_000, 40_000))
+    anchors = _anchors(c, cuda)
+    rlen = torch.from_numpy(c["read_len"]).to(cuda)
+    kw = dict(n_cand=20, rank_by_pvalue=True, p_value_type=0)
+    before = cuda_ops.LAUNCHES["chain_scan"]
+    k3 = tchain.chain_anchors(anchors, rlen, **kw)
+    torch.cuda.synchronize()
+    assert cuda_ops.LAUNCHES["chain_scan"] == before + 1
+    plain = tchain.chain_anchors_plain(anchors, rlen, **kw)
+    for f, a, b in zip(tchain.Candidates._fields, k3, plain):
+        assert a.dtype == b.dtype and torch.equal(a, b), f
+    assert (k3.parent >= 0).sum() > 1000
+
+
+@pytest.mark.parametrize("occ", [2, 1])
+def test_sdp_kernel_long_bucket(cuda, occ):
+    """K4 at L = 65536, N = 4, D = 512: more slab keys than a block holds,
+    so the query positions go in tiles; equal to the plain version."""
+    reads, rlen, windows, wlens, offs = long_sdp_case(
+        np.random.default_rng(65536))
+    rk, rv = tanchor.read_kmer_keys(torch.from_numpy(reads).to(cuda),
+                                    torch.from_numpy(rlen).to(cuda), K_SDP)
+    args = (rk, rv, *(torch.from_numpy(x).to(cuda)
+                      for x in (windows, wlens, offs)))
+    assert 4 * (reads.shape[1] + 512) > cuda_ops.SMEM_OPTIN
+    k4 = tsdp.window_fragment_diags_banded(*args, k=K_SDP, occ=occ)
+    plain = tsdp.window_fragment_diags_banded_plain(*args, k=K_SDP, occ=occ)
+    for a, b in zip(k4, plain):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert int(k4[1][..., 0].sum()) > 4 * 50_000
+    if occ == 2:
+        assert k4[1][..., 1].any()
+
+
+@pytest.fixture(scope="module")
+def edge_index_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    gi = build_genome_index([FastaRecord("edge", anchor_world()[0])], k=12)
+    return tmr.DeviceIndex.from_host(gi, "cuda")
+
+
+def _find(fn, ix, reads, rlen, kw):
+    return fn(ix.genome, ix.keys_sorted, ix.pos_sorted, reads, rlen, **kw,
+              bucket_starts=ix.bucket_starts, bucket_pairs=ix.bucket_pairs,
+              gwords=ix.gwords, gnwords=ix.gnwords,
+              pos_records=ix.pos_records)
+
+
+@pytest.mark.parametrize("name", list(ANCHOR_CASES))
+def test_anchor_kernel_matches_plain(edge_index_cuda, name):
+    """K5 against find_anchors_plain on the same CUDA tensors, every
+    Anchors field exactly, one launch per call."""
+    _, reads, rlen, kw, drop = anchor_case(name)
+    ix = edge_index_cuda._replace(**{f: None for f in drop})
+    r = torch.from_numpy(reads).cuda()
+    rl = torch.from_numpy(rlen).cuda()
+    before = cuda_ops.LAUNCHES["anchor_search"]
+    k5 = _find(tanchor.find_anchors, ix, r, rl, kw)
+    torch.cuda.synchronize()
+    assert cuda_ops.LAUNCHES["anchor_search"] == before + 1
+    plain = _find(tanchor.find_anchors_plain, ix, r, rl, kw)
+    for f, a, b in zip(tanchor.Anchors._fields, k5, plain):
+        assert a.dtype == b.dtype and torch.equal(a, b), f
+
+
+@pytest.mark.parametrize("name", BAND_CASES)
+def test_band_kernel_matches_plain(cuda, name):
+    """K6 against _band_offsets_plain on the same CUDA tensors, exactly,
+    one launch per call."""
+    c = band_case(name)
+
+    def t(x):
+        return None if x is None else torch.from_numpy(x).to(cuda)
+
+    args = (t(c["mq"]), t(c["mt"]), t(c["ws"]), c["L"], c["W"], c["w_b"],
+            t(c["frag_diag"]), t(c["frag_valid"]), c["between_only"])
+    before = cuda_ops.LAUNCHES["band_offsets"]
+    k6 = tmr._band_offsets(*args)
+    torch.cuda.synchronize()
+    assert cuda_ops.LAUNCHES["band_offsets"] == before + 1
+    plain = tmr._band_offsets_plain(*args)
+    assert k6.dtype == plain.dtype and torch.equal(k6, plain)
+
+
+def test_anchor_and_band_wrappers_check_their_inputs(edge_index_cuda):
+    ix = edge_index_cuda
+    _, reads, rlen, kw, _ = anchor_case("default")
+    r = torch.from_numpy(reads).cuda()
+    rl = torch.from_numpy(rlen).cuda()
+    idx = dict(bucket_starts=ix.bucket_starts, bucket_pairs=ix.bucket_pairs,
+               gwords=ix.gwords, gnwords=ix.gnwords,
+               pos_records=ix.pos_records)
+    before = dict(cuda_ops.LAUNCHES)
+    base = (ix.genome, ix.keys_sorted, ix.pos_sorted)
+    with pytest.raises(TypeError):          # int64 read lengths
+        cuda_ops.anchor_search_launch(*base, r, rl.long(), **kw, **idx)
+    with pytest.raises(ValueError):         # reads on the CPU
+        cuda_ops.anchor_search_launch(*base, r.cpu(), rl, **kw, **idx)
+    with pytest.raises(ValueError):         # a LUT of the wrong k
+        cuda_ops.anchor_search_launch(*base, r, rl, **dict(kw, k=11), **idx)
+    with pytest.raises(ValueError):         # no packed genome words
+        cuda_ops.anchor_search_launch(*base, r, rl, **kw,
+                                      **dict(idx, gwords=None))
+    c = band_case("ends")
+    m = [torch.from_numpy(c[f]).cuda() for f in ("mq", "mt", "ws")]
+    fr = dict(frag_diag=torch.from_numpy(c["frag_diag"]).cuda(),
+              frag_valid=torch.from_numpy(c["frag_valid"]).cuda())
+    geo = dict(L=c["L"], W=c["W"], w_b=c["w_b"])
+    with pytest.raises(TypeError):          # int32 members
+        cuda_ops.band_offsets_launch(m[0].int(), *m[1:], **geo, **fr)
+    with pytest.raises(ValueError):         # fragments of another L
+        cuda_ops.band_offsets_launch(*m, **dict(geo, L=256), **fr)
+    with pytest.raises(ValueError):         # a flag tensor without diagonals
+        cuda_ops.band_offsets_launch(*m, **geo,
+                                     frag_valid=fr["frag_valid"])
+    with pytest.raises(ValueError):         # rows past 16 bits
+        cuda_ops.band_offsets_launch(*m, **dict(geo, L=1 << 17))
     assert cuda_ops.LAUNCHES == before

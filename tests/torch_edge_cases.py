@@ -1,8 +1,10 @@
-"""Edge inputs of the chain scan and the SDP window pass, built with numpy
-from a seed.  ``tests/test_torch_chain_sdp_edges.py`` holds the plain
-PyTorch versions to the JAX package on them; ``tests/test_torch_cuda.py``
-holds the CUDA kernels K3 and K4 to the plain versions on the same inputs
-(it runs where JAX is absent, so this module imports numpy only).
+"""Edge inputs of the anchor search, the chain scan, the band offsets and
+the SDP window pass, built with numpy from a seed.
+``tests/test_torch_chain_sdp_edges.py`` and
+``tests/test_torch_anchor_band_edges.py`` hold the plain PyTorch versions
+to the JAX package on them; ``tests/test_torch_cuda.py`` holds the CUDA
+kernels K3-K6 to the plain versions on the same inputs (it runs where JAX
+is absent, so this module imports numpy only).
 """
 
 import numpy as np
@@ -142,6 +144,166 @@ def sdp_case(name):
     return reads, rlen, windows, wlens, offs, int(occ)
 
 
+def long_sdp_case(rng, N=4, L=65536, D=512, w_b=128):
+    """(reads, read_len, windows, wlens, offs) for the SDP window pass at
+    bucket 65536: random windows of the main path's width with read
+    segments planted on a diagonal (twice in even rows), guide offsets
+    along it.  Its L + D slab keys exceed one block's shared memory."""
+    W = -(-(int(L * 1.35) + 2 * w_b) // 128) * 128
+    reads = rng.integers(0, 4, (N, L)).astype(np.int8)
+    windows = rng.integers(0, 4, (N, W)).astype(np.int8)
+    shift = rng.integers(100, 9000, N)
+    for i in range(N):
+        windows[i, shift[i]:shift[i] + L - 2000] = reads[i, 1000:L - 1000]
+        if i % 2 == 0:
+            windows[i, shift[i] + 300:shift[i] + 20300] = reads[i, 5000:25000]
+    offs = np.clip(np.arange(L)[None, :] + shift[:, None] - 1000 - w_b // 2,
+                   0, W - w_b)
+    offs = np.maximum.accumulate(offs, axis=1)
+    rlen = np.full(N, L, np.int32)
+    return reads, rlen, windows, np.full(N, W, np.int32), offs
+
+
 SDP_CASES = [f"{b}-occ{o}" for b in ("clamp-low", "clamp-high", "straddle",
                                      "short-windows", "empty-read")
              for o in (1, 2)]
+
+
+# ---------------------------------------------------------------- anchors
+
+ANCHOR_L = 256
+BIG32 = 0x3FFFFFFF
+
+
+def anchor_world(seed=41):
+    """(genome int8 [G], reads int8 [B, L], read_len int32 [B]).  The
+    genome is random with a 40-base unit planted 60 times (its k-mers occur
+    more often than O and than a small max_anchors_per_pos), a 300-base
+    block planted 6 times, and an N run.  Rows: two noisy reads, a read
+    shorter than k, a read with N runs, a row with no valid k-mer, a read
+    tiling the 60-copy unit (more valid candidates than A, nearly all of
+    one length) and the genome's last 200 bases (hits whose extension
+    runs past the genome's end)."""
+    rng = np.random.default_rng(seed)
+    G, L = 24_000, ANCHOR_L
+    g = rng.integers(0, 4, G).astype(np.int8)
+    unit = rng.integers(0, 4, 40).astype(np.int8)
+    for c in range(60):
+        s0 = 2_000 + 97 * c
+        g[s0:s0 + 40] = unit
+    block = rng.integers(0, 4, 300).astype(np.int8)
+    for c in range(6):
+        g[9_000 + 1_400 * c:9_300 + 1_400 * c] = block
+    g[17_000:17_050] = 4
+
+    def noisy(src):
+        out = src.copy()
+        hit = rng.random(len(out)) < 0.06
+        out[hit] = rng.integers(0, 4, int(hit.sum()))
+        return out
+
+    B = 7
+    reads = np.full((B, L), 4, np.int8)
+    rlen = np.zeros(B, np.int32)
+    s1 = 12_500
+    reads[0] = noisy(g[s1:s1 + L])
+    rlen[0] = L
+    reads[1, :200] = noisy(g[9_050:9_250])         # inside a 6-copy block
+    rlen[1] = 200
+    reads[2, :8] = g[5_000:5_008]                  # shorter than k
+    rlen[2] = 8
+    reads[3] = g[20_000:20_000 + L]
+    reads[3, 30:45] = 4                            # N runs
+    reads[3, 100:103] = 4
+    rlen[3] = L
+    rlen[4] = L                                    # all N: no valid k-mer
+    reads[5] = np.tile(unit, L // 40 + 1)[:L]      # the 60-copy unit
+    rlen[5] = L
+    reads[6, :200] = g[G - 200:]                   # the genome's end
+    rlen[6] = 200
+    return g, reads, rlen
+
+
+# name -> (find_anchors keyword arguments beyond the defaults, index fields
+#          withheld)
+_ANCHOR_DEFAULTS = dict(k=12, occ_per_pos=3, max_anchors=512, anchor_ext=20,
+                        min_match=12, max_anchors_per_pos=10000)
+ANCHOR_CASES = {
+    "default": ({}, ()),
+    "saturated-A64": (dict(max_anchors=64), ()),
+    "mapp40": (dict(max_anchors_per_pos=40), ()),
+    "occ6-A2048": (dict(occ_per_pos=6, max_anchors=2048), ()),
+    "occ48-A2048": (dict(occ_per_pos=48, max_anchors=2048), ()),
+    "advance8": (dict(advance_exact=8), ()),
+    "maxlcp20": (dict(max_lcp=20), ()),
+    "starts-only": ({}, ("bucket_pairs",)),
+    "sorted-keys": ({}, ("bucket_pairs", "bucket_starts")),
+    "words-E36": (dict(anchor_ext=36, min_match=14), ()),
+    "words-no-records": ({}, ("pos_records",)),
+}
+
+
+def anchor_case(name):
+    """(genome, reads, read_len, find_anchors keyword arguments without the
+    index arrays, index fields to withhold)."""
+    kw, drop = ANCHOR_CASES[name]
+    g, reads, rlen = anchor_world()
+    return g, reads, rlen, dict(_ANCHOR_DEFAULTS, **kw), drop
+
+
+# ---------------------------------------------------------------- band offsets
+
+BAND_CASES = ("no-members", "one-member", "ends", "duplicate-rows",
+              "frags-outside-band", "between-only", "negative-steps",
+              "no-frags", "five-fragments", "long-rows")
+
+
+def band_case(name):
+    """Inputs of ``_band_offsets`` as int64 / bool numpy arrays: chain
+    members mq/mt [N, MC] (BIG32 where invalid, q-ascending as
+    chain_members leaves them), window starts ws [N], fragments frag_diag /
+    frag_valid [N, L, F] near the members' diagonals (or None), plus L, W,
+    w_b and between_only.  "long-rows" spans four chunks of K6's 1024-row
+    scans, with so few members that the fills carry across chunks."""
+    rng = np.random.default_rng(sum(map(ord, name)))
+    N, L, W, w_b, MC = 6, 512, 1024, 128, 24
+    if name == "long-rows":
+        L, W = 4096, 8192
+    F = 5 if name == "five-fragments" else 3
+    ws = rng.integers(1_000, 50_000, N).astype(np.int64)
+    mq = np.full((N, MC), BIG32, np.int64)
+    mt = np.full((N, MC), BIG32, np.int64)
+    base = rng.integers(100, 400, N)
+    for i in range(N):
+        if name == "no-members":
+            break
+        if name == "one-member":
+            qs = rng.integers(0, L, 1)
+        elif name == "ends":
+            qs = np.array([0, 200, L - 1])
+        elif name == "duplicate-rows":
+            qs = np.repeat(rng.integers(0, L, 6), 3)
+        elif name == "long-rows":
+            # item i's members lie in its first 4 // (1 + i % 4) chunks
+            qs = rng.integers(0, L // (1 + i % 4), int(rng.integers(1, 4)))
+        else:
+            qs = rng.integers(0, L, int(rng.integers(4, MC)))
+        qs = np.sort(qs)
+        if name == "negative-steps":
+            diag = base[i] - 3 * np.arange(len(qs)) * rng.integers(5, 40)
+        else:
+            diag = base[i] + rng.integers(-40, 41, len(qs))
+        mq[i, :len(qs)] = qs
+        mt[i, :len(qs)] = ws[i] + qs + diag
+    frag_diag = frag_valid = None
+    if name != "no-frags":
+        centre = base[:, None, None] + rng.integers(-60, 61, (N, L, F))
+        if name == "frags-outside-band":
+            far = rng.random((N, L, F)) < 0.5
+            centre = np.where(far, centre + rng.choice([-1, 1], (N, L, F))
+                              * rng.integers(200, 40_000, (N, L, F)), centre)
+        frag_diag = centre.astype(np.int64)
+        # sparse on long rows, so the fills after the fold cross chunks too
+        frag_valid = rng.random((N, L, F)) < (0.001 if L > 1024 else 0.3)
+    return dict(mq=mq, mt=mt, ws=ws, L=L, W=W, w_b=w_b, frag_diag=frag_diag,
+                frag_valid=frag_valid, between_only=name == "between-only")
