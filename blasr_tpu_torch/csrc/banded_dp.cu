@@ -19,36 +19,52 @@
 //     D = S + excl_prefix_min(base - S).  Every cost is an integer below
 //     256 and S <= 128*255, so every float32 sum is exact in any order.
 //     At the first row the boundary deletion profile is the running sum
-//     of row qa's cd from ta (the Pallas kernel's bD; the XLA kernel's
-//     cumz form): the same scan with inputs masked to ta <= t < W, plus
-//     the sum over ta..o_r-1 when the band starts right of ta.
+//     of row qa's cd over the window from ta (the XLA kernel's cumz form):
+//     the sum over ta..o_r-1 plus the in-band scan of cd at the cells'
+//     own window positions t_abs < W.
 //
 // Contract (as the Pallas kernel's): band width 128, a two-valued score
 // matrix (match on the ACGT diagonal, one mismatch value elsewhere), and a
 // band offset that advances by 0, 1 or 2 per active row.  The wrapper
 // (kernels/cuda_ops.py) checks all three.
 //
-// Layout: one warp per item; lane l holds band cells 4l..4l+3.  The M/I/D
-// carries and the packed M-run counter (rexit | mrun<<2 | meq<<8 |
-// ssum<<14) stay in registers across the loop over rows.  Per row:
-//   * the diagonal / vertical predecessors for shift s in {0,1,2} are
-//     register moves plus one __shfl_up/__shfl_down from the neighbour lane;
-//   * the exclusive prefix-min of the in-row deletion closed form is a
-//     4-cell serial scan per lane, then a 5-step __shfl_up scan over lane
-//     totals; QV mode adds the same scheme once more for the prefix sum S;
-//   * target bases come from the window in global memory (__ldg at o_r+w);
-//     in QV mode the row's two QV words are one warp-uniform load each;
-//   * the row's 128 cell words leave as one 16-byte store per lane (512 B,
-//     coalesced).
-// Rows outside [qa, qb) are written as zeros, as both JAX kernels do.
+// Layout: one CTA of three warps per item, decoupled through shared
+// memory by double-buffered rings of R = 16-row tiles, each slot with a
+// "full" and an "empty" mbarrier.
+//   * Warp 0, the row-input stage, loads a tile's offsets, read bytes and
+//     QV words (lane i holds row r0 + i) and, per row, the window bytes
+//     under the band, and writes one 32-bit word per cell: eq, in_t,
+//     in_t_i, and in QV mode the substitution and deletion tag matches and
+//     the prefix sum S of cd (its own 5-step shuffle scan); plus the row's
+//     offset, shift s and QV costs, and at row qa the boundary deletion
+//     profile.
+//   * Warp 1, the recurrence, runs only what crosses rows: lane l holds
+//     band cells 4l..4l+3 and their M/I/D carries; per row one 16-byte
+//     shared load of its four cell words, the diagonal / vertical
+//     predecessors (eight shuffles a row, whatever the shift, then
+//     selects: no branch around a shuffle), M and I, the exclusive
+//     prefix-min of the deletion closed form (a 4-cell serial scan, then a
+//     5-step __shfl_up scan), D, and a byte per cell of what the cell word
+//     needs from them.
+//   * Warp 2 packs the cell words: it carries the M-run counter (a chain of
+//     its own, one integer add or select per cell and row), and each tile's
+//     words (R * 512 bytes) leave through shared memory in one
+//     cp.async.bulk store, so no store waits on the chain.
+// The row inputs arrive with plain loads: the window span under a tile
+// starts at any byte, which a 16-byte-aligned bulk copy cannot express,
+// and the stage runs a tile ahead of the recurrence, so their latency is
+// off the chain.  Rows outside [qa, qb) are written as zeros, as both JAX
+// kernels do.
 //
 // What bounds it on an H100: the per-row chain of dependent shuffles (the
-// prefix-min scan, in QV mode also the prefix-sum scan, and the neighbour
-// exchanges) -- one warp advances one item one row at a time -- and the
-// cell-word stream, N*L*512 bytes per call (671 MB at N=640, L=2048), plus
-// N*L*8 bytes of QV words in QV mode.  The design keeps every intermediate
-// in registers so the stream is the only device-memory traffic of size;
-// the latency chain is hidden only by running many items (warps) per SM.
+// neighbour exchange and the prefix-min scan) -- one warp advances one item
+// one row at a time -- and the cell-word stream, N*L*512 bytes per call
+// (671 MB at N=640, L=2048), plus N*L*8 bytes of QV words in QV mode.
+// Every intermediate stays on chip, so the stream is the only device-memory
+// traffic of size; the chain's latency is hidden only by running many items
+// (CTAs of 38 KB shared memory: five per SM), whose three warps each share
+// the SM's issue slots, so at N = 640 a row takes about twice the chain's
+// own latency: the instruction streams together set the pace.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -56,30 +72,89 @@
 namespace {
 
 constexpr int WB = 128;
+constexpr int R = 16;  // rows per tile
 constexpr float INF_F = 1e30f;
 constexpr float HALF_INF = 1e30f * 0.5f;
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int ST_M = 0, ST_I = 1, ST_D = 2;
 constexpr int RUN_CAP = 63;
 
-// out[j] = row[4*lane + j + k] (fill outside [0, 128)), k in {-1, 0, 1, 2}
-// (warp-uniform).  Every lane executes the three shuffles.
+// cell-word flags of the row-input stage
+constexpr unsigned F_EQ = 1u, F_IN_T = 2u, F_IN_TI = 4u, F_STAG = 8u,
+                   F_DTAG = 16u;
+
+// a row's scalars: offset, shift, QV costs
+struct RowScalars {
+  int o_r, s;
+  float insq, dpri, subq, spri, delq, pad;
+};
+
+// a double-buffered ring of R-row tiles between each pair of stages
+struct Smem {
+  int4 out[2][R][32];       // cell words, leaving by bulk store
+  uint4 flags[2][R][32];    // row inputs: one word per cell
+  RowScalars sc[2][R];
+  unsigned code[2][R][32];  // the recurrence's cell codes, a byte per cell
+  int shift[2][R];          // the row's shift s
+  float bd[WB];             // boundary deletion profile at row qa
+  unsigned long long full[2], empty[2];    // row inputs <-> recurrence
+  unsigned long long full2[2], empty2[2];  // recurrence <-> cell words
+};
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(unsigned long long* bar,
+                                          unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
+  asm volatile(
+      "{\n\t.reg .b64 st;\n\t"
+      "mbarrier.arrive.shared::cta.b64 st, [%0];\n\t}" ::"r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                          unsigned parity) {
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// The band of the previous row under this row's shift s in {0, 1, 2}:
+// d[j] = x[4*lane + j + s - 1] (the diagonal predecessor) and, with v,
+// v[j] = x[4*lane + j + s] (the vertical one), fill outside [0, 128).
+// The shuffles do not depend on s, and s picks among registers by selects,
+// so the row's code has no branch around a shuffle.
 template <typename T>
-__device__ __forceinline__ void band_shift(const T x[4], int k, T fill,
-                                           int lane, T out[4]) {
+__device__ __forceinline__ void band_shift(const T x[4], int s, T fill,
+                                           int lane, T d[4], T* v = nullptr) {
   T up3 = __shfl_up_sync(FULL, x[3], 1);
   T dn0 = __shfl_down_sync(FULL, x[0], 1);
-  T dn1 = __shfl_down_sync(FULL, x[1], 1);
   if (lane == 0) up3 = fill;
-  if (lane == 31) { dn0 = fill; dn1 = fill; }
-  if (k == -1) {
-    out[0] = up3; out[1] = x[0]; out[2] = x[1]; out[3] = x[2];
-  } else if (k == 0) {
-    out[0] = x[0]; out[1] = x[1]; out[2] = x[2]; out[3] = x[3];
-  } else if (k == 1) {
-    out[0] = x[1]; out[1] = x[2]; out[2] = x[3]; out[3] = dn0;
-  } else {
-    out[0] = x[2]; out[1] = x[3]; out[2] = dn0; out[3] = dn1;
+  if (lane == 31) dn0 = fill;
+  T dn1 = fill;
+  if (v != nullptr) {
+    dn1 = __shfl_down_sync(FULL, x[1], 1);
+    if (lane == 31) dn1 = fill;
+  }
+  const T e[7] = {up3, x[0], x[1], x[2], x[3], dn0, dn1};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    d[j] = s == 0 ? e[j] : (s == 1 ? e[j + 1] : e[j + 2]);
+    if (v != nullptr) v[j] = s == 0 ? e[j + 1] : (s == 1 ? e[j + 2] : e[j + 3]);
   }
 }
 
@@ -115,250 +190,389 @@ __device__ __forceinline__ void band_cumsum(const float x[4], int lane,
   for (int j = 0; j < 4; ++j) out[j] += excl;
 }
 
+struct Args {
+  const int8_t* reads;
+  const int8_t* windows;
+  const int32_t* offsets;
+  const int32_t *qa, *qb, *ta, *tb, *qv1, *qv2;
+  int N, L, W;
+  float match, mismatch, ins_open, ins_ext, del_open, del_ext;
+  float* score;
+  int32_t* tbbits;
+  int32_t* state;
+  uint8_t* valid;
+};
+
+// Warp 0: the row-input stage of item n.
 template <bool QV>
-__global__ void __launch_bounds__(128) banded_dp_kernel(
-    const int8_t* __restrict__ reads, const int8_t* __restrict__ windows,
-    const int32_t* __restrict__ offsets, const int32_t* __restrict__ qa_a,
-    const int32_t* __restrict__ qb_a, const int32_t* __restrict__ ta_a,
-    const int32_t* __restrict__ tb_a, const int32_t* __restrict__ qv1,
-    const int32_t* __restrict__ qv2, int N, int L, int W, float match,
-    float mismatch, float ins_open, float ins_ext, float del_open,
-    float del_ext, float* __restrict__ score_out,
-    int32_t* __restrict__ tbbits, int32_t* __restrict__ state_out,
-    uint8_t* __restrict__ valid_out) {
-  const int n = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (n >= N) return;  // uniform per warp
-  const int qa = qa_a[n], qb = qb_a[n], ta = ta_a[n], tb = tb_a[n];
-  const int8_t* rd = reads + (size_t)n * L;
-  const int8_t* win = windows + (size_t)n * W;
-  const int32_t* off = offsets + (size_t)n * L;
-  const int32_t* q1 = QV ? qv1 + (size_t)n * L : nullptr;
-  const int32_t* q2 = QV ? qv2 + (size_t)n * L : nullptr;
-  int4* out = reinterpret_cast<int4*>(tbbits + (size_t)n * L * WB) + lane;
+__device__ void row_inputs(const Args& a, Smem& sm, int n, int lane) {
+  const int L = a.L, W = a.W;
+  const int qa = a.qa[n], qb = a.qb[n], ta = a.ta[n], tb = a.tb[n];
+  const int8_t* rd = a.reads + (size_t)n * L;
+  const int8_t* win = a.windows + (size_t)n * W;
+  const int32_t* off = a.offsets + (size_t)n * L;
+  const int c0 = 4 * lane;
+  const int ntiles = (L + R - 1) / R;
+  for (int t = 0; t < ntiles; ++t) {
+    const int slot = t & 1, use = t >> 1;
+    if (use > 0) mbar_wait(&sm.empty[slot], (use - 1) & 1);
+    const int r0 = t * R, nr = min(R, L - r0);
+    int my_o = 0, my_prev = 0, my_rb = 4;
+    unsigned my_w1 = 0, my_w2 = 0;
+    if (lane < nr && r0 + lane >= qa && r0 + lane < qb) {
+      const int r = r0 + lane;
+      my_o = __ldg(off + r);
+      my_prev = r > 0 ? __ldg(off + r - 1) : 0;
+      my_rb = __ldg(rd + r);
+      if constexpr (QV) {
+        my_w1 = (unsigned)__ldg(a.qv1 + (size_t)n * L + r);
+        my_w2 = (unsigned)__ldg(a.qv2 + (size_t)n * L + r);
+      }
+    }
+    for (int i = 0; i < nr; ++i) {
+      const int r = r0 + i;
+      const int o_r = __shfl_sync(FULL, my_o, i);
+      const int prev = __shfl_sync(FULL, my_prev, i);
+      const int rb = __shfl_sync(FULL, my_rb, i);
+      if (r < qa || r >= qb) continue;  // uniform
+      const bool first = r == qa;
+      RowScalars sc{o_r, first ? 0 : o_r - prev, 0.f, 0.f, 0.f, 0.f, 0.f,
+                    0.f};
+      int dtag = 7, stag = 7;
+      if constexpr (QV) {
+        const unsigned w1 = __shfl_sync(FULL, my_w1, i);
+        const unsigned w2 = __shfl_sync(FULL, my_w2, i);
+        sc.insq = (float)(w1 & 255u);
+        sc.delq = (float)((w1 >> 8) & 255u);
+        sc.subq = (float)((w1 >> 16) & 255u);
+        dtag = (int)((w1 >> 24) & 7u);
+        stag = (int)((w1 >> 27) & 7u);
+        sc.dpri = (float)(w2 & 255u);
+        sc.spri = (float)((w2 >> 8) & 255u);
+      }
+      const int tstart = min(max(o_r, 0), W);
+      unsigned fl[4];
+      float cd[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int ti = tstart + c0 + j;
+        const int tgt = ti < W ? (int)__ldg(win + ti) : 4;
+        const int t_abs = o_r + c0 + j;
+        fl[j] = ((rb == tgt) && (rb < 4) ? F_EQ : 0u) |
+                ((t_abs >= ta) && (t_abs < tb) ? F_IN_T : 0u) |
+                ((t_abs >= ta - 1) && (t_abs < tb) ? F_IN_TI : 0u);
+        if constexpr (QV) {
+          fl[j] |= (tgt == stag ? F_STAG : 0u) | (tgt == dtag ? F_DTAG : 0u);
+          cd[j] = tgt == dtag ? sc.delq : sc.dpri;
+        }
+      }
+      if constexpr (QV) {
+        float S[4];
+        band_cumsum(cd, lane, S);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) fl[j] |= (unsigned)(int)S[j] << 16;
+      }
+      sm.flags[slot][i][lane] = make_uint4(fl[0], fl[1], fl[2], fl[3]);
+      if (lane == 0) sm.sc[slot][i] = sc;
+      if (first) {
+        // the boundary row qa-1: leading deletions from ta on
+        float bd[4];
+        if constexpr (QV) {
+          // running sum of row qa's cd at the window positions ta..t_abs
+          // (t < W): the cells ta..o_r-1 left of the band, then the band
+          const int t0 = max(ta, 0);
+          float pre = 0.0f;
+          for (int t = t0 + lane; t < min(o_r, W); t += 32)
+            pre += (int)__ldg(win + t) == dtag ? sc.delq : sc.dpri;
+#pragma unroll
+          for (int d = 16; d > 0; d >>= 1)
+            pre += __shfl_xor_sync(FULL, pre, d);
+          float m[4], prof[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int t_abs = o_r + c0 + j;
+            m[j] = (t_abs >= t0 && t_abs < W)
+                       ? ((int)__ldg(win + t_abs) == dtag ? sc.delq : sc.dpri)
+                       : 0.0f;
+          }
+          band_cumsum(m, lane, prof);
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            bd[j] = o_r + c0 + j >= ta ? pre + prof[j] : INF_F;
+        } else {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int t_abs = o_r + c0 + j;
+            bd[j] = t_abs >= ta ? a.del_open + a.del_ext * (float)(t_abs - ta)
+                                : INF_F;
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) sm.bd[c0 + j] = bd[j];
+      }
+    }
+    mbar_arrive(&sm.full[slot]);
+  }
+}
+
+// cell code of the recurrence, one byte per cell: the cell word's bits
+// 0-3 and 5 (msrc, iopen, d_open, eq) and, at bit 6, M <= I, which is the
+// next cell's d_from_m
+constexpr unsigned C_MLEI = 64u;
+
+// Warp 1: the recurrence of item n.  Only the M/I/D carries cross rows
+// here; the cell word's run counter and packing are warp 2's.
+template <bool QV>
+__device__ void recurrence(const Args& a, Smem& sm, int n, int lane) {
+  const int L = a.L;
+  const int qa = a.qa[n], qb = a.qb[n], ta = a.ta[n], tb = a.tb[n];
+  const float match = a.match, mismatch = a.mismatch;
+  const float ins_open = a.ins_open, ins_ext = a.ins_ext;
+  const float del_open = a.del_open, del_ext = a.del_ext;
   const int c0 = 4 * lane;
 
   float pM[4], pI[4], pD[4];
-  int pC[4];
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
-    pM[j] = INF_F; pI[j] = INF_F; pD[j] = INF_F; pC[j] = 0;
+    pM[j] = INF_F; pI[j] = INF_F; pD[j] = INF_F;
   }
-  int po = 0;
   float fin_score = INF_F;
   int fin_state = ST_M;
   bool fin_ok = false;
 
-  for (int r = 0; r < L; ++r) {
-    if (r < qa || r >= qb) {
-      out[(size_t)r * (WB / 4)] = make_int4(0, 0, 0, 0);
-      continue;
-    }
-    const int o_r = __ldg(off + r);
-    const bool first = (r == qa);
-    const int s = first ? 0 : o_r - po;
-    const int rb = __ldg(rd + r);
-
-    // QV mode: this row's costs (one warp-uniform load per track) and the
-    // per-cell deletion costs cd
-    float insq = 0.0f, subq = 0.0f, spri = 0.0f;
-    int stag = 7;
-    int tg[4];
-    float cd[4];
-    if constexpr (QV) {
-      const unsigned w1 = (unsigned)__ldg(q1 + r);
-      const unsigned w2 = (unsigned)__ldg(q2 + r);
-      insq = (float)(w1 & 255u);
-      const float delq = (float)((w1 >> 8) & 255u);
-      subq = (float)((w1 >> 16) & 255u);
-      const int dtag = (int)((w1 >> 24) & 7u);
-      stag = (int)((w1 >> 27) & 7u);
-      const float dpri = (float)(w2 & 255u);
-      spri = (float)((w2 >> 8) & 255u);
-      const int ts0 = min(max(o_r, 0), W);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int ti = ts0 + c0 + j;
-        tg[j] = ti < W ? (int)__ldg(win + ti) : 4;
-        cd[j] = tg[j] == dtag ? delq : dpri;
-      }
-      if (first) {
-        // boundary deletion profile: sum of cd over ta..t_abs (t < W)
-        float pre = 0.0f;  // cells ta..o_r-1 left of the band
-        for (int t = ta + lane; t < min(o_r, W); t += 32)
-          pre += (int)__ldg(win + t) == dtag ? delq : dpri;
-#pragma unroll
-        for (int d = 16; d > 0; d >>= 1)
-          pre += __shfl_xor_sync(FULL, pre, d);
-        float m[4], prof[4];
+  const int ntiles = (L + R - 1) / R;
+  for (int t = 0; t < ntiles; ++t) {
+    const int slot = t & 1, use = t >> 1;
+    const int r0 = t * R, nr = min(R, L - r0);
+    mbar_wait(&sm.full[slot], use & 1);
+    if (use > 0) mbar_wait(&sm.empty2[slot], (use - 1) & 1);
+    for (int i = 0; i < nr; ++i) {
+      const int r = r0 + i;
+      if (r < qa || r >= qb) continue;  // uniform
+      const RowScalars& sc = sm.sc[slot][i];
+      const int o_r = sc.o_r, s = sc.s;  // s in {0, 1, 2} (the wrapper checks)
+      const uint4 f4 = sm.flags[slot][i][lane];
+      const unsigned fl[4] = {f4.x, f4.y, f4.z, f4.w};
+      if (r == qa) {  // boundary row qa-1 replaces the carries
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          const int t_abs = o_r + c0 + j;
-          m[j] = (t_abs >= ta && t_abs < W) ? cd[j] : 0.0f;
-        }
-        band_cumsum(m, lane, prof);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int t_abs = o_r + c0 + j;
-          pM[j] = (t_abs == ta - 1) ? 0.0f : INF_F;
+          pM[j] = (o_r + c0 + j == ta - 1) ? 0.0f : INF_F;
           pI[j] = INF_F;
-          pD[j] = (t_abs >= ta) ? pre + prof[j] : INF_F;
+          pD[j] = sm.bd[c0 + j];
         }
       }
-    } else if (first) {  // boundary row qa-1 replaces the carries
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int t_abs = o_r + c0 + j;
-        pM[j] = (t_abs == ta - 1) ? 0.0f : INF_F;
-        pI[j] = INF_F;
-        pD[j] = (t_abs >= ta) ? del_open + del_ext * (float)(t_abs - ta)
-                              : INF_F;
-      }
-    }
-    float dM[4], dI[4], dD[4], vM[4], vI[4];
-    int dC[4];
-    band_shift(pM, s - 1, INF_F, lane, dM);
-    band_shift(pI, s - 1, INF_F, lane, dI);
-    band_shift(pD, s - 1, INF_F, lane, dD);
-    band_shift(pC, s - 1, 0, lane, dC);
-    band_shift(pM, s, INF_F, lane, vM);
-    band_shift(pI, s, INF_F, lane, vI);
+      {
+        float dM[4], dI[4], dD[4], vM[4], vI[4];
+        band_shift(pM, s, INF_F, lane, dM, vM);
+        band_shift(pI, s, INF_F, lane, dI, vI);
+        band_shift(pD, s, INF_F, lane, dD);
 
-    const int tstart = min(max(o_r, 0), W);
-    float M[4], I[4], base[4], g[4];
-    int msrc[4], eqv[4];
-    bool iopen[4];
+        float M[4], I[4], base[4], g[4], S[4], cd[4];
+        unsigned code[4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = c0 + j;
-      const int t_abs = o_r + c;
-      const int ti = tstart + c;
-      int tgt;
-      if constexpr (QV) {
-        tgt = tg[j];
-      } else {
-        tgt = ti < W ? (int)__ldg(win + ti) : 4;
-      }
-      const bool in_t = (t_abs >= ta) && (t_abs < tb);
-      const bool in_t_i = (t_abs >= ta - 1) && (t_abs < tb);
-      const bool eq = (rb == tgt) && (rb < 4);
-      float sub, ifm, ifi;
-      if constexpr (QV) {
-        sub = eq ? match : (tgt == stag ? subq : spri);
-      } else {
-        sub = eq ? match : mismatch;
-      }
-      const float db = fminf(dM[j], fminf(dI[j], dD[j]));
-      msrc[j] = dM[j] <= db ? ST_M : (dI[j] <= db ? ST_I : ST_D);
-      M[j] = in_t ? sub + db : INF_F;
-      if constexpr (QV) {
-        ifm = vM[j] + insq;
-        ifi = vI[j] + insq;
-      } else {
-        ifm = vM[j] + ins_open;
-        ifi = vI[j] + ins_ext;
-      }
-      I[j] = in_t_i ? fminf(ifm, ifi) : INF_F;
-      iopen[j] = ifm <= ifi;
-      base[j] = fminf(M[j], I[j]);
-      if constexpr (!QV)
-        g[j] = base[j] < HALF_INF ? base[j] - del_ext * (float)c : INF_F;
-      eqv[j] = eq ? 1 : 0;
-    }
-    float S[4];  // QV mode: in-row inclusive prefix sum of cd
-    if constexpr (QV) {
-      band_cumsum(cd, lane, S);
+        for (int j = 0; j < 4; ++j) {
+          const int c = c0 + j;
+          const bool in_t = fl[j] & F_IN_T;
+          const bool in_t_i = fl[j] & F_IN_TI;
+          const bool eq = fl[j] & F_EQ;
+          float sub, ifm, ifi;
+          if constexpr (QV) {
+            sub = eq ? match : ((fl[j] & F_STAG) ? sc.subq : sc.spri);
+          } else {
+            sub = eq ? match : mismatch;
+          }
+          const float db = fminf(dM[j], fminf(dI[j], dD[j]));
+          const int msrc = dM[j] <= db ? ST_M : (dI[j] <= db ? ST_I : ST_D);
+          M[j] = in_t ? sub + db : INF_F;
+          if constexpr (QV) {
+            ifm = vM[j] + sc.insq;
+            ifi = vI[j] + sc.insq;
+          } else {
+            ifm = vM[j] + ins_open;
+            ifi = vI[j] + ins_ext;
+          }
+          I[j] = in_t_i ? fminf(ifm, ifi) : INF_F;
+          base[j] = fminf(M[j], I[j]);
+          if constexpr (QV) {
+            S[j] = (float)(fl[j] >> 16);
+            cd[j] = (fl[j] & F_DTAG) ? sc.delq : sc.dpri;
+            g[j] = base[j] < HALF_INF ? base[j] - S[j] : INF_F;
+          } else {
+            g[j] = base[j] < HALF_INF ? base[j] - del_ext * (float)c : INF_F;
+          }
+          code[j] = (unsigned)msrc | (ifm <= ifi ? 4u : 0u) |
+                    (eq ? 32u : 0u) | (M[j] <= I[j] ? C_MLEI : 0u);
+        }
+        // exclusive prefix-min of g over the 128-cell band
+        float incl[4];
+        incl[0] = g[0];
+        incl[1] = fminf(incl[0], g[1]);
+        incl[2] = fminf(incl[1], g[2]);
+        incl[3] = fminf(incl[2], g[3]);
+        float scan = incl[3];
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        g[j] = base[j] < HALF_INF ? base[j] - S[j] : INF_F;
-    }
-    // exclusive prefix-min of g over the 128-cell band
-    float incl[4];
-    incl[0] = g[0];
-    incl[1] = fminf(incl[0], g[1]);
-    incl[2] = fminf(incl[1], g[2]);
-    incl[3] = fminf(incl[2], g[3]);
-    float scan = incl[3];
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const float y = __shfl_up_sync(FULL, scan, d);
-      if (lane >= d) scan = fminf(scan, y);
-    }
-    float excl = __shfl_up_sync(FULL, scan, 1);
-    if (lane == 0) excl = INF_F;
-    const float base_l = left_of(base[3], lane);
-    const float M_l = left_of(M[3], lane);
-    const float I_l = left_of(I[3], lane);
+        for (int d = 1; d < 32; d <<= 1) {
+          const float y = __shfl_up_sync(FULL, scan, d);
+          if (lane >= d) scan = fminf(scan, y);
+        }
+        float excl = __shfl_up_sync(FULL, scan, 1);
+        if (lane == 0) excl = INF_F;
+        const float base_l = left_of(base[3], lane);
 
-    int bits[4];
-    float Dn[4];
-    int Cn[4];
+        float Dn[4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = c0 + j;
-      const int t_abs = o_r + c;
-      const bool in_t = (t_abs >= ta) && (t_abs < tb);
-      const float run_prev = j == 0 ? excl : fminf(excl, incl[j - 1]);
-      float D;
-      if constexpr (QV) {
-        D = in_t ? S[j] + run_prev : INF_F;
-      } else {
-        D = in_t ? del_ext * (float)c + run_prev + (del_open - del_ext)
-                 : INF_F;
-      }
-      D = fminf(D, INF_F);
-      const float bprev = j == 0 ? base_l : base[j - 1];
-      const float mprev = j == 0 ? M_l : M[j - 1];
-      const float iprev = j == 0 ? I_l : I[j - 1];
-      const int d_open = D >= bprev + (QV ? cd[j] : del_open) ? 1 : 0;
-      const int d_from_m = mprev <= iprev ? 1 : 0;
+        for (int j = 0; j < 4; ++j) {
+          const int c = c0 + j;
+          const bool in_t = fl[j] & F_IN_T;
+          const float run_prev = j == 0 ? excl : fminf(excl, incl[j - 1]);
+          float D;
+          if constexpr (QV) {
+            D = in_t ? S[j] + run_prev : INF_F;
+          } else {
+            D = in_t ? del_ext * (float)c + run_prev + (del_open - del_ext)
+                     : INF_F;
+          }
+          D = fminf(D, INF_F);
+          const float bprev = j == 0 ? base_l : base[j - 1];
+          if (D >= bprev + (QV ? cd[j] : del_open)) code[j] |= 8u;
+          Dn[j] = D;
+        }
+        sm.code[slot][i][lane] =
+            code[0] | (code[1] << 8) | (code[2] << 16) | (code[3] << 24);
+        if (lane == 0) sm.shift[slot][i] = s;
 
-      const int dX = dC[j] & 3;
-      const int dR = (dC[j] >> 2) & 63;
-      const int dE = (dC[j] >> 8) & 63;
-      const int dS = (dC[j] >> 14) & 127;
-      const bool from_m = msrc[j] == ST_M;
-      const bool fresh = !from_m || first || dR >= RUN_CAP;
-      const int mrun = fresh ? 1 : dR + 1;
-      const int meq = (fresh ? 0 : dE) + eqv[j];
-      const int rexit = fresh ? (from_m ? ST_M : msrc[j]) : dX;
-      const int ssum = min(fresh ? s : dS + s, 127);
-      bits[j] = msrc[j] | ((iopen[j] ? 1 : 0) << 2) | (d_open << 3) |
-                (d_from_m << 4) | (eqv[j] << 5) | (rexit << 7) |
-                (mrun << 9) | (meq << 15) | (s << 21) | (ssum << 23);
-      Dn[j] = D;
-      Cn[j] = rexit | (mrun << 2) | (meq << 8) | (ssum << 14);
-    }
-    out[(size_t)r * (WB / 4)] = make_int4(bits[0], bits[1], bits[2], bits[3]);
-
-    if (r == qb - 1) {  // final (score, state) at cell t = tb-1
-      const int wf = tb - 1 - o_r;
-      if (wf >= 0 && wf < WB) {
-        const int jj = wf & 3;
-        const float cM0 = pick4(M, jj), cI0 = pick4(I, jj),
-                    cD0 = pick4(Dn, jj);
-        const float cM = __shfl_sync(FULL, cM0, wf >> 2);
-        const float cI = __shfl_sync(FULL, cI0, wf >> 2);
-        const float cD = __shfl_sync(FULL, cD0, wf >> 2);
-        const float cbest = fminf(cM, fminf(cI, cD));
-        if (cbest < HALF_INF) {
-          fin_score = cbest;
-          fin_state = cM <= cbest ? ST_M : (cI <= cbest ? ST_I : ST_D);
-          fin_ok = true;
+        if (r == qb - 1) {  // final (score, state) at cell t = tb-1
+          const int wf = tb - 1 - o_r;
+          if (wf >= 0 && wf < WB) {
+            const int jj = wf & 3;
+            const float cM0 = pick4(M, jj), cI0 = pick4(I, jj),
+                        cD0 = pick4(Dn, jj);
+            const float cM = __shfl_sync(FULL, cM0, wf >> 2);
+            const float cI = __shfl_sync(FULL, cI0, wf >> 2);
+            const float cD = __shfl_sync(FULL, cD0, wf >> 2);
+            const float cbest = fminf(cM, fminf(cI, cD));
+            if (cbest < HALF_INF) {
+              fin_score = cbest;
+              fin_state = cM <= cbest ? ST_M : (cI <= cbest ? ST_I : ST_D);
+              fin_ok = true;
+            }
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          pM[j] = M[j]; pI[j] = I[j]; pD[j] = Dn[j];
         }
       }
     }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      pM[j] = M[j]; pI[j] = I[j]; pD[j] = Dn[j]; pC[j] = Cn[j];
-    }
-    po = o_r;
+    mbar_arrive(&sm.empty[slot]);  // the row inputs of the slot are read
+    mbar_arrive(&sm.full2[slot]);  // its cell codes are written
   }
   if (lane == 0) {
-    score_out[n] = fin_score;
-    state_out[n] = fin_state;
-    valid_out[n] = fin_ok ? 1 : 0;
+    a.score[n] = fin_score;
+    a.state[n] = fin_state;
+    a.valid[n] = fin_ok ? 1 : 0;
   }
+}
+
+// Warp 2: the cell words of item n.  It carries the M-run counter, kept at
+// its cell-word bits (rexit 7-8, mrun 9-14, meq 15-20, ssum 23-29): a fresh
+// run starts at (msrc, 1, eq, s), a continued one adds (0, 1, eq, s) to
+// the diagonal predecessor's.  No field overflows: mrun <= RUN_CAP,
+// meq <= mrun and, with s <= 2, ssum <= 2 * mrun < 127, so the saturation
+// at 127 never applies.  Each tile's words leave in one bulk store.
+__device__ void cell_words(const Args& a, Smem& sm, int n, int lane) {
+  const int L = a.L;
+  const int qa = a.qa[n], qb = a.qb[n];
+  int pC[4] = {0, 0, 0, 0};
+  const int ntiles = (L + R - 1) / R;
+  for (int t = 0; t < ntiles; ++t) {
+    const int slot = t & 1, use = t >> 1;
+    const int r0 = t * R, nr = min(R, L - r0);
+    mbar_wait(&sm.full2[slot], use & 1);
+    if (t >= 2) {
+      // the bulk store of tile t-2 has read this out buffer
+      if (lane == 0)
+        asm volatile("cp.async.bulk.wait_group.read 1;" ::: "memory");
+      __syncwarp();
+    }
+    for (int i = 0; i < nr; ++i) {
+      const int r = r0 + i;
+      if (r < qa || r >= qb) {
+        sm.out[slot][i][lane] = make_int4(0, 0, 0, 0);
+        continue;
+      }
+      const bool first = r == qa;
+      const unsigned w = sm.code[slot][i][lane];
+      unsigned wl = __shfl_up_sync(FULL, w, 1);
+      if (lane == 0) wl = C_MLEI << 24;  // left of cell 0: INF <= INF
+      const int s = sm.shift[slot][i];
+      {
+        int dC[4], bits[4];
+        band_shift(pC, s, 0, lane, dC);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const unsigned code = (w >> (8 * j)) & 255u;
+          const unsigned left = j == 0 ? wl >> 24 : (w >> (8 * j - 8)) & 255u;
+          const int msrc = (int)(code & 3u);
+          const int add = (1 << 9) | (int)((code & 32u) << 10) | (s << 23);
+          const bool fresh =
+              msrc != ST_M || first || ((dC[j] >> 9) & 63) >= RUN_CAP;
+          pC[j] = fresh ? (msrc << 7) | add : dC[j] + add;
+          bits[j] = pC[j] | (int)(code & 47u) |
+                    ((left & C_MLEI) ? 16 : 0) | (s << 21);
+        }
+        sm.out[slot][i][lane] = make_int4(bits[0], bits[1], bits[2], bits[3]);
+      }
+    }
+    mbar_arrive(&sm.empty2[slot]);  // the slot's cell codes are read
+    // the tile's cell words leave in one bulk store
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    __syncwarp();
+    if (lane == 0) {
+      int32_t* dst = a.tbbits + ((size_t)n * L + r0) * WB;
+      asm volatile(
+          "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n\t"
+          "cp.async.bulk.commit_group;" ::"l"(dst),
+          "r"(smem_addr(&sm.out[slot][0][0])), "r"(nr * WB * 4)
+          : "memory");
+    }
+  }
+  if (lane == 0) asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+}
+
+template <bool QV>
+__global__ void __launch_bounds__(96) banded_dp_kernel(Args a) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
+  const int n = blockIdx.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (threadIdx.x == 0) {
+    for (int k = 0; k < 2; ++k) {
+      mbar_init(&sm.full[k], 32);
+      mbar_init(&sm.empty[k], 32);
+      mbar_init(&sm.full2[k], 32);
+      mbar_init(&sm.empty2[k], 32);
+    }
+  }
+  __syncthreads();
+  if (warp == 0) {
+    row_inputs<QV>(a, sm, n, lane);
+  } else if (warp == 1) {
+    recurrence<QV>(a, sm, n, lane);
+  } else {
+    cell_words(a, sm, n, lane);
+  }
+}
+
+template <bool QV>
+int launch(const Args& a, void* stream) {
+  const size_t smem = sizeof(Smem);
+  cudaError_t err = cudaFuncSetAttribute(
+      banded_dp_kernel<QV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  banded_dp_kernel<QV><<<a.N, 96, smem, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -370,13 +584,10 @@ extern "C" int blasr_banded_dp(
     float ins_open, float ins_ext, float del_open, float del_ext,
     float* score, int32_t* tbbits, int32_t* final_state, uint8_t* valid,
     void* stream) {
-  const int threads = 128;  // 4 warps = 4 items per block
-  const int blocks = (N + 3) / 4;
-  banded_dp_kernel<false><<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      reads, windows, offsets, qa, qb, ta, tb, nullptr, nullptr, N, L, W,
-      match, mismatch, ins_open, ins_ext, del_open, del_ext, score, tbbits,
-      final_state, valid);
-  return (int)cudaGetLastError();
+  const Args a{reads, windows, offsets, qa, qb, ta, tb, nullptr, nullptr,
+               N, L, W, match, mismatch, ins_open, ins_ext, del_open,
+               del_ext, score, tbbits, final_state, valid};
+  return launch<false>(a, stream);
 }
 
 // K1-QV: the QV-steered mode; the costs come from qv1/qv2, so of the
@@ -387,10 +598,8 @@ extern "C" int blasr_banded_dp_qv(
     const int32_t* tb, const int32_t* qv1, const int32_t* qv2, int N, int L,
     int W, float match, float* score, int32_t* tbbits, int32_t* final_state,
     uint8_t* valid, void* stream) {
-  const int threads = 128;
-  const int blocks = (N + 3) / 4;
-  banded_dp_kernel<true><<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      reads, windows, offsets, qa, qb, ta, tb, qv1, qv2, N, L, W, match,
-      0.0f, 0.0f, 0.0f, 0.0f, 0.0f, score, tbbits, final_state, valid);
-  return (int)cudaGetLastError();
+  const Args a{reads, windows, offsets, qa, qb, ta, tb, qv1, qv2, N, L, W,
+               match, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, score, tbbits,
+               final_state, valid};
+  return launch<true>(a, stream);
 }

@@ -1,4 +1,5 @@
-// Device helpers shared by K5 (anchor_search.cu) and K6 (band_offsets.cu).
+// Device helpers shared by K4 (sdp_window.cu), K5 (anchor_search.cu) and
+// K6 (band_offsets.cu).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -57,6 +58,24 @@ __device__ __forceinline__ T block_scan(T v, T& carry, T* s_warp, Op op) {
   __syncthreads();
   carry = op(carry, tot);
   return v;
+}
+
+// Block-wide reduction under `op` of one value per thread, for any block
+// of whole warps (at most 1024 threads): every thread gets the result.
+// s_warp holds 32 values.  Two barriers, every thread must call it.
+template <class T, class Op>
+__device__ __forceinline__ T block_reduce(T v, T* s_warp, Op op) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = op(v, __shfl_xor_sync(0xffffffffu, v, o));
+  if (lane == 0) s_warp[w] = v;
+  __syncthreads();
+  T x = s_warp[0];
+  for (int i = 1; i < nw; ++i) x = op(x, s_warp[i]);
+  __syncthreads();
+  return x;
 }
 
 // Python's // on integers: the quotient rounded toward minus infinity

@@ -47,12 +47,11 @@ LAUNCHES = {"banded_dp": 0, "banded_dp_qv": 0, "banded_traceback": 0,
 
 # shared memory a block may opt into on sm_90 (227 KB), less a margin for
 # the kernels' static arrays; K3 keeps 42 bytes per anchor there (above
-# CHAIN_MAX_ANCHORS in a global scratch row instead), K4 one uint32 key
-# per slab position (tiled above that)
+# CHAIN_MAX_ANCHORS in a global scratch row instead), K4 a tile's slab
+# keys and window bytes (csrc/sdp_window.cu sizes them)
 SMEM_OPTIN = 232448 - 1024
 CHAIN_SMEM_PER_ANCHOR = 42
 CHAIN_MAX_ANCHORS = SMEM_OPTIN // CHAIN_SMEM_PER_ANCHOR
-SDP_THREADS = 256
 # K5's selection CTA: its static shared arrays, and the largest A it sorts
 ANCHOR_SELECT_STATIC = 8 * 1024 + 8 * 32 + 4 * 256 + 64
 ANCHOR_MAX_SELECT = 16384
@@ -151,7 +150,9 @@ def _load() -> ctypes.CDLL:
                 + [P, LL] + [P])
             lib.blasr_sdp_window.restype = I
             lib.blasr_sdp_window.argtypes = (
-                [P] * 3 + [I] * 5 + [P] * 2 + [P])
+                [P] * 4 + [I, P] + [I] * 8 + [P] * 2 + [P])
+            lib.blasr_sdp_window_smem.restype = ctypes.c_size_t
+            lib.blasr_sdp_window_smem.argtypes = [I] * 3
             lib.blasr_anchor_search.restype = I
             lib.blasr_anchor_search.argtypes = (
                 [P] * 10 + [LL] * 2 + [I] * 8 + [LL] + [I] * 5 + [F]
@@ -331,36 +332,47 @@ def chain_scan_launch(q, t, l, valid, nlogp, read_len, *, n_cand: int,
         parent=parent.to(i64))
 
 
-def sdp_window_launch(rkeys, wkeys, dlo, *, D: int, occ: int):
-    """K4 on CUDA tensors: masked read keys int32 [N, L] and window keys
-    int32 [N, W] (uint32 bit patterns, ``sdp.kernel_inputs``), slab starts
-    dlo int32 [N].  Returns (diag int64, valid bool), each [N, L, occ], as
-    ``window_fragment_diags_banded_plain`` does."""
+def sdp_window_launch(rkeys, rvalid, windows, wlens, offs, *, k: int, occ: int,
+                      D: int, w_b: int):
+    """K4 on CUDA tensors, the whole of ``window_fragment_diags_banded`` in
+    one launch, on its own arguments: read keys int64 [N, L] holding uint32
+    and rvalid bool [N, L], windows int8 [N, W], wlens int32 or int64 [N],
+    guide offsets int32 or int64 [N, L].  The kernel builds the window keys
+    and the slab starts itself and writes (diag int64, valid bool), each
+    [N, L, occ], as ``window_fragment_diags_banded_plain`` returns them."""
     dev = rkeys.device
     if dev.type != "cuda":
         raise ValueError("sdp_window_launch needs CUDA tensors")
     N, L = rkeys.shape
-    W = wkeys.shape[1]
-    _check(rkeys, "rkeys", torch.int32, (N, L), dev)
-    _check(wkeys, "wkeys", torch.int32, (N, W), dev)
-    _check(dlo, "dlo", torch.int32, (N,), dev)
-    if occ not in (1, 2) or D < 1:
-        raise ValueError(f"K4 takes occ 1 or 2 and D >= 1 (occ={occ}, D={D})")
-    if 4 * (D + SDP_THREADS) > SMEM_OPTIN:
-        raise ValueError(f"K4 stages a tile's D = {D} slab keys past its "
-                         "query positions in shared memory: D is too large")
-    diag = torch.empty((N, L, occ), dtype=torch.int32, device=dev)
+    W = windows.shape[1]
+    _check(rkeys, "rkeys", torch.int64, (N, L), dev)
+    _check(rvalid, "rvalid", torch.bool, (N, L), dev)
+    _check(windows, "windows", torch.int8, (N, W), dev)
+    for name, x, shape in (("wlens", wlens, (N,)), ("offs", offs, (N, L))):
+        # the kernel reads either width; any other dtype is refused
+        wide = x.dtype != torch.int32
+        _check(x, name, torch.int64 if wide else torch.int32, shape, dev)
+    if occ not in (1, 2) or D < 1 or not 1 <= k <= 32 or w_b < 0:
+        raise ValueError(f"K4 takes occ 1 or 2, D >= 1 and 1 <= k <= 32 "
+                         f"(occ={occ}, D={D}, k={k}, w_b={w_b})")
+    diag = torch.empty((N, L, occ), dtype=torch.int64, device=dev)
     valid = torch.empty((N, L, occ), dtype=torch.bool, device=dev)
     if N > 0 and L > 0:
         lib = _load()
+        if lib.blasr_sdp_window_smem(L, D, k) > SMEM_OPTIN:
+            raise ValueError(f"K4 stages a tile's D = {D} slab keys past its "
+                             "query positions in shared memory: D is too "
+                             "large")
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             rc = lib.blasr_sdp_window(
-                rkeys.data_ptr(), wkeys.data_ptr(), dlo.data_ptr(), N, L, W,
-                D, occ, diag.data_ptr(), valid.data_ptr(), stream)
+                rkeys.data_ptr(), rvalid.data_ptr(), windows.data_ptr(),
+                wlens.data_ptr(), int(wlens.dtype == torch.int64),
+                offs.data_ptr(), int(offs.dtype == torch.int64), N, L, W, k,
+                D, occ, w_b // 2, diag.data_ptr(), valid.data_ptr(), stream)
         _launched(rc, "sdp_window")
         LAUNCHES["sdp_window"] += 1
-    return diag.to(torch.int64), valid
+    return diag, valid
 
 
 def anchor_search_launch(genome, keys_sorted, pos_sorted, reads, read_len, *,

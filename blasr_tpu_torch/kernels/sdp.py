@@ -2,8 +2,8 @@
 ``blasr_tpu/kernels/sdp.py::window_fragment_diags_banded``).
 
 ``window_fragment_diags_banded`` dispatches on the device of its inputs:
-CUDA tensors go to K4 (``csrc/sdp_window.cu``), CPU tensors to
-``window_fragment_diags_banded_plain``.  The sort-based
+CUDA tensors go to K4 (``csrc/sdp_window.cu``, the whole function in one
+launch), CPU tensors to ``window_fragment_diags_banded_plain``.  The sort-based
 ``window_fragment_diags`` and ``sdp_align`` (``sdpMatcher``) are not
 ported."""
 
@@ -32,30 +32,16 @@ def _diag_lo(offs, L: int, W: int, D: int, w_b: int) -> torch.Tensor:
 def window_fragment_diags_banded(rkeys, rvalid, windows, wlens, offs, *,
                                  k: int, occ: int, D: int = 512,
                                  w_b: int = 128):
-    """The D-diagonal fragment search: K4 on CUDA tensors, the plain
-    version on CPU tensors (same contract as
+    """The D-diagonal fragment search: on CUDA tensors one launch of K4,
+    which builds the window keys and slab starts itself; on CPU tensors
+    the plain version (same contract as
     :func:`window_fragment_diags_banded_plain`)."""
     return on_device(
         "window_fragment_diags_banded", rkeys.device,
         lambda: window_fragment_diags_banded_plain(
             rkeys, rvalid, windows, wlens, offs, k=k, occ=occ, D=D, w_b=w_b),
         lambda ops: ops.sdp_window_launch(
-            *kernel_inputs(rkeys, rvalid, windows, wlens, offs, k=k, D=D,
-                           w_b=w_b), D=D, occ=occ))
-
-
-def kernel_inputs(rkeys, rvalid, windows, wlens, offs, *, k: int, D: int,
-                  w_b: int):
-    """What K4 takes: the masked read keys [N, L] and window keys [N, W]
-    as int32 holding their uint32 bits, and the slab starts int32 [N]."""
-    def u32_bits(x):
-        return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
-
-    wkeys, wval = read_kmer_keys(windows, wlens, k)
-    dlo = _diag_lo(offs, rkeys.shape[1], windows.shape[1], D, w_b)
-    return (u32_bits(torch.where(rvalid, rkeys, INVALID_READ)),
-            u32_bits(torch.where(wval, wkeys, INVALID_WINDOW)),
-            dlo.to(torch.int32))
+            rkeys, rvalid, windows, wlens, offs, k=k, occ=occ, D=D, w_b=w_b))
 
 
 def window_fragment_diags_banded_plain(rkeys, rvalid, windows, wlens, offs,

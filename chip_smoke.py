@@ -4,6 +4,10 @@
 Run from the repository root on a machine with a CUDA card:
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --compare-k1 A/banded_dp.cu B/banded_dp.cu
+
+The second form only builds K1 from each given source and times them in
+turns on phase 2's inputs, outputs held equal (see ``compare_k1``).
 
 Phases (any failed check exits nonzero):
   1. header: torch / CUDA / nvcc versions, the card's name and power limit;
@@ -14,16 +18,19 @@ Phases (any failed check exits nonzero):
   2. each kernel against its plain PyTorch version at the main path's
      shapes, exact equality, timed with CUDA events: K1, K1-QV (random QV
      words in the three flavours: IDS tracks, plain base qualities, none)
-     and K2 at N=640 items, L=2048 rows, W=3072 window; K3 on the anchors
-     of the bench workload's first batch (2B=64 strand-rows, A=512) in its
+     and K2 at N=640 items, L=2048 rows, W=3072 window, K1 and K1-QV also
+     on the edge shapes of their 16-row tiles; K3 on the anchors of the
+     bench workload's first batch (2B=64 strand-rows, A=512) in its
      candidate and guide passes, a lookback-64 global chain and the edge
-     inputs of tests/torch_edge_cases.py; K4 at N=192, L=2048, W=3072,
-     D=512, occ 2 and 1, on bench-genome windows with planted read
-     k-mers, and on the edge inputs; the repaired shapes, K3 at A=8192 (past
-     one block's shared memory) and K4 at L=65536 (a tiled slab); K5 on
-     the bench batch (the find_anchors call of its map_batch) and K6 on the
-     two _band_offsets calls of that batch's map_batch, captured, both
-     also on the edge inputs;
+     inputs of tests/torch_edge_cases.py; K4 (the whole
+     window_fragment_diags_banded, one launch) at N=192, L=2048,
+     W=3072, D=512, occ 2 and 1, on bench-genome windows with planted
+     read k-mers, and on the edge inputs; K3 at A=8192 (past one
+     block's shared memory) and K4 at L=65536 (a row over 64 CTAs); K5
+     on the bench batch (the
+     find_anchors call of its map_batch) and K6 on the two _band_offsets
+     calls of that batch's map_batch, captured, both also on the edge
+     inputs;
   3. the golden worlds of tests/test_golden.py through the port's CLI with
      ``--device cuda``, byte for byte against tests/golden/: the main path
      (small: 60 kb, 12 reads; big: 4.6 Mbp, 11 reads; golden.{m4,sam,
@@ -33,8 +40,8 @@ Phases (any failed check exits nonzero):
      with the port's Mapper on ``cuda`` and on ``cpu``: identical
      positions, CIGARs, scores and mapQV; then two simulated reads of
      ~40 kb on a 1 Mbp genome (bucket 65536) mapped on the card, each on
-     its simulated interval, every K5 and K6 launch of that run captured
-     and held to the plain version (L = 65536);
+     its simulated interval, every K4, K5 and K6 launch of that run
+     captured and held to the plain version (L = 65536);
   4. the bench.py workload (4.6 Mbp genome, k=12, 512 CLR reads of
      0.5-2 kb at 85% accuracy), once in distance mode and once under
      ``--useQuality`` with per-base qualities 8-39: reads/s, per-stage
@@ -43,8 +50,13 @@ Phases (any failed check exits nonzero):
      two runs and read just after it: K3 and K6 launch twice per batch
      dispatch (candidate and guide passes; band offsets before and after
      the SDP pass), K4 and K5 once;
-  5. torch.profiler over one more distance pass: launches per read, the
-     device's busy share, the kernels with the most device time.
+  5. torch.profiler over one more pass in each mode: launches per read, the
+     device's busy share, the kernels with the most device time; over one
+     bench-shape call of K4's function, which must be one kernel (in a
+     child process, ``--k4-kernels``, with a profiler session of its
+     own); then
+     rule 2's measure for K1-K6: launches per pass pair x (kernel ms -
+     bound ms).
 The second-to-last lines are a JSON kernel table and the card's name and
 power limit; the last line is ``{"ok": true, "device": {...}}``.
 Exits nonzero without a result when no CUDA device is present or when
@@ -211,6 +223,22 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def profiled_kernels(fn) -> list:
+    """Names of the CUDA kernels one call of ``fn`` launches, as
+    torch.profiler records them (copies and memsets left out), after one
+    warm call."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.name.startswith(("Memcpy", "Memset"))]
+
+
 def max_abs(a_list, b_list) -> float:
     m = 0.0
     for a, b in zip(a_list, b_list):
@@ -265,12 +293,18 @@ def phase_kernels(card):
     dp_err = check_dp(out, ref, "K1")
     log(f"# K1 == plain: score/valid/final_state/tbbits exact "
         f"({int(out.valid.sum())}/{N} valid)")
-    dp_ms = cuda_ms(lambda: banded_align_cuda(*args), 5)
+    dist_kw = dict(match=float(sm[0]), mismatch=float(sm[1]),
+                   ins_open=gaps[0], ins_ext=gaps[1], del_open=gaps[2],
+                   del_ext=gaps[3])
+    launch = (reads, windows, offs, qa, qb, ta, tb)
+    dp_ms = cuda_ms(lambda: cuda_ops.banded_dp_launch(*launch, **dist_kw), 5)
+    dp_fn_ms = cuda_ms(lambda: banded_align_cuda(*args), 5)
     dp_plain_ms = cuda_ms(lambda: banded_align(*args), 1)
     dp_bound = bound(k1_bytes, cells * K1_OPS_PER_CELL)
-    log(f"# K1 banded_dp: kernel {dp_ms:.3f} ms, plain {dp_plain_ms:.1f} ms, "
-        f"bound {dp_bound[0]:.3f} ms ({dp_bound[1]}) per call "
-        f"(N={N}, L={L}) on {card}")
+    log(f"# K1 banded_dp: kernel {dp_ms:.4f} ms (banded_align_cuda with its "
+        f"slope check {dp_fn_ms:.4f} ms), plain {dp_plain_ms:.1f} ms, bound "
+        f"{dp_bound[0]:.3f} ms ({dp_bound[1]}) per call (N={N}, L={L}) on "
+        f"{card}")
 
     q1, q2 = qv_words(rng, N, L, params, int(sm[1]))
     qv = dict(qv1=torch.from_numpy(q1).to(dev),
@@ -282,12 +316,35 @@ def phase_kernels(card):
     qv_err = check_dp(outq, refq, "K1-QV")
     log(f"# K1-QV == plain: score/valid/final_state/tbbits exact "
         f"({int(outq.valid.sum())}/{N} valid; flavours IDS/QV/none)")
-    qv_ms = cuda_ms(lambda: banded_align_cuda(*args, **qv), 5)
+    qv_ms = cuda_ms(lambda: cuda_ops.banded_dp_launch(*launch, **dist_kw,
+                                                      **qv), 5)
+    qv_fn_ms = cuda_ms(lambda: banded_align_cuda(*args, **qv), 5)
     qv_plain_ms = cuda_ms(lambda: banded_align(*args, **qv), 1)
     qv_bound = bound(k1_bytes + 8 * N * L, cells * K1QV_OPS_PER_CELL)
-    log(f"# K1-QV banded_dp_qv: kernel {qv_ms:.3f} ms, plain "
-        f"{qv_plain_ms:.1f} ms, bound {qv_bound[0]:.3f} ms ({qv_bound[1]}) "
-        f"per call (N={N}, L={L}) on {card}")
+    log(f"# K1-QV banded_dp_qv: kernel {qv_ms:.4f} ms (banded_align_cuda "
+        f"with its slope check {qv_fn_ms:.4f} ms), plain {qv_plain_ms:.1f} "
+        f"ms, bound {qv_bound[0]:.3f} ms ({qv_bound[1]}) per call (N={N}, "
+        f"L={L}) on {card}")
+
+    from torch_edge_cases import BANDED_CASES, BANDED_QV_SEED, banded_case
+    for name in BANDED_CASES:
+        # the QV words of tests/test_torch_cuda.py::qv_words, same draws
+        e = [torch.from_numpy(x).to(dev) for x in banded_case(name)]
+        n_e, l_e = e[0].shape
+        q1e, q2e = qv_words(np.random.default_rng(BANDED_QV_SEED), n_e, l_e,
+                            params, int(sm[1]))
+        for label, qkw in (("K1", {}),
+                           ("K1-QV", dict(qv1=torch.from_numpy(q1e).to(dev),
+                                          qv2=torch.from_numpy(q2e).to(dev)))):
+            a_e = (*e, sm, *gaps)
+            err = check_dp(banded_align_cuda(*a_e, **qkw),
+                           banded_align(*a_e, **qkw), f"{label} {name}")
+            if label == "K1":
+                dp_err = max(dp_err, err)
+            else:
+                qv_err = max(qv_err, err)
+    log(f"# K1 and K1-QV == plain on the {len(BANDED_CASES)} edge shapes of "
+        f"their 16-row tiles: exact")
 
     tb_err = 0.0
     tb_times = {}
@@ -331,6 +388,74 @@ def phase_kernels(card):
                              bound=qv_bound),
         "banded_traceback": dict(err=tb_err, ms=kms, plain_ms=pms, bound=kb),
     }
+
+
+def compare_k1(card, sources, reps: int = 5) -> None:
+    """K1 and K1-QV built from each given banded_dp.cu (the C interface of
+    blasr_tpu_torch/csrc/banded_dp.cu, e.g. a parent commit's unpacked
+    beside this one), on phase 2's inputs (N=640, L=2048): every output
+    held to the first source's, then the kernels timed in turns, first to
+    last and back (A B B A)."""
+    import ctypes
+    import hashlib
+    from blasr_tpu_torch.kernels import cuda_ops
+    from blasr_tpu_torch.params import MappingParams
+    libs = []
+    for src in sources:
+        data = open(src, "rb").read()
+        so = (cuda_ops.BUILD_DIR
+              / f"k1_{hashlib.sha256(data).hexdigest()[:16]}.so")
+        so.parent.mkdir(parents=True, exist_ok=True)
+        subprocess.run([cuda_ops._nvcc(), *cuda_ops.NVCC_FLAGS, "-shared",
+                        "-I", str(cuda_ops.SRC_DIR), "-o", str(so), src],
+                       check=True, capture_output=True)
+        lib = ctypes.CDLL(str(so))
+        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.blasr_banded_dp.argtypes = [P] * 7 + [I] * 3 + [F] * 6 + [P] * 5
+        lib.blasr_banded_dp_qv.argtypes = [P] * 9 + [I] * 3 + [F] + [P] * 5
+        libs.append(lib)
+    N, L, W = 640, 2048, 3072
+    rng = np.random.default_rng(7)
+    dev = torch.device("cuda")
+    ins = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+           for a in random_case(rng, N, L, W)]
+    params = MappingParams().make_sane()
+    sm = np.asarray(params.score_matrix, np.float32).reshape(25)
+    q1, q2 = (torch.from_numpy(q).to(dev)
+              for q in qv_words(rng, N, L, params, int(sm[1])))
+
+    def run(lib, use_qv):
+        outs = (torch.empty(N, dtype=torch.float32, device=dev),
+                torch.empty((N, L, 128), dtype=torch.int32, device=dev),
+                torch.empty(N, dtype=torch.int32, device=dev),
+                torch.empty(N, dtype=torch.bool, device=dev))
+        stream = torch.cuda.current_stream().cuda_stream
+        p = [x.data_ptr() for x in ins]
+        o = [x.data_ptr() for x in outs]
+        if use_qv:
+            rc = lib.blasr_banded_dp_qv(*p, q1.data_ptr(), q2.data_ptr(), N,
+                                        L, W, float(sm[0]), *o, stream)
+        else:
+            rc = lib.blasr_banded_dp(*p, N, L, W, float(sm[0]), float(sm[1]),
+                                     4.0, 4.0, 5.0, 5.0, *o, stream)
+        assert rc == 0, f"launch failed: {rc}"
+        return outs
+
+    order = list(range(len(libs))) + list(reversed(range(len(libs))))
+    for use_qv in (False, True):
+        ref = run(libs[0], use_qv)
+        for i, lib in enumerate(libs[1:], 1):
+            for a, b in zip(run(lib, use_qv), ref):
+                assert torch.equal(a, b), f"{sources[i]} differs from " \
+                    f"{sources[0]} (qv={use_qv})"
+        times = {i: [] for i in range(len(libs))}
+        for i in order:
+            times[i].append(cuda_ms(lambda: run(libs[i], use_qv), reps))
+        for i, src in enumerate(sources):
+            log(f"# K1{'-QV' if use_qv else ''} from {src}: "
+                f"{', '.join(f'{t:.4f}' for t in times[i])} ms per call "
+                f"(N={N}, L={L}; outputs equal to the first source's) on "
+                f"{card}")
 
 
 def bench_batch(gi, sims):
@@ -614,7 +739,7 @@ def phase_anchor_band(card, bb):
 
 def phase_chain_sdp(card, gi, bb):
     """K3 and K4 against their plain versions on the same CUDA tensors."""
-    from blasr_tpu_torch.kernels import chain, cuda_ops, sdp
+    from blasr_tpu_torch.kernels import chain, sdp
     from blasr_tpu_torch.kernels.anchor import Anchors
     from torch_edge_cases import (CHAIN_CASES, K_SDP, SDP_CASES,
                                   chain_case, chain_rows, long_sdp_case,
@@ -686,22 +811,17 @@ def phase_chain_sdp(card, gi, bb):
         k4[occ] = (kms, pms, kb)
         log(f"# K4 == plain (N={N}, L={L}, W={args[2].shape[1]}, D=512, "
             f"occ={occ}): exact, {int(out[1].sum())} hits; "
-            f"window_fragment_diags_banded {kms:.3f} ms, plain {pms:.1f} ms,"
-            f" bound {kb[0]:.4f} ms ({kb[1]}; {compares:.0f} compares) on "
-            f"{card}")
-        prepared = sdp.kernel_inputs(*args, k=K_SDP, D=512, w_b=128)
-        launch_ms = cuda_ms(lambda: cuda_ops.sdp_window_launch(
-            *prepared, D=512, occ=occ), 20)
-        log(f"# K4 occ={occ}: the launch alone (sdp_window_launch on the "
-            f"prepared keys) {launch_ms:.3f} ms on {card}")
+            f"window_fragment_diags_banded (one launch) {kms:.4f} ms, plain "
+            f"{pms:.1f} ms, bound {kb[0]:.4f} ms ({kb[1]}; {compares:.0f} "
+            f"compares) on {card}")
     for name in SDP_CASES:
-        reads, rlen, windows, wlens, offs, occ = sdp_case(name)
+        reads, rlen, windows, wlens, offs, occ, k = sdp_case(name)
         rk, rv = read_kmer_keys(torch.from_numpy(reads).to(dev),
-                                torch.from_numpy(rlen).to(dev), K_SDP)
+                                torch.from_numpy(rlen).to(dev), k)
         a = (rk, rv, *(torch.from_numpy(x).to(dev)
                        for x in (windows, wlens, offs)))
-        out = sdp.window_fragment_diags_banded(*a, k=K_SDP, occ=occ)
-        ref = sdp.window_fragment_diags_banded_plain(*a, k=K_SDP, occ=occ)
+        out = sdp.window_fragment_diags_banded(*a, k=k, occ=occ)
+        ref = sdp.window_fragment_diags_banded_plain(*a, k=k, occ=occ)
         k4_err = max(k4_err, check_equal(out, ref, ("diag", "valid"),
                                          f"K4 {name}"))
     log(f"# K4 == plain on the {len(SDP_CASES)} edge inputs: exact")
@@ -728,21 +848,63 @@ def phase_chain_sdp(card, gi, bb):
     a = (rk, rv, *(torch.from_numpy(x).to(dev)
                    for x in (windows, wlens, offs)))
     for occ in (2, 1):
-        out, kms = timed(lambda: sdp.window_fragment_diags_banded(
-            *a, k=K_SDP, occ=occ))
+        out = sdp.window_fragment_diags_banded(*a, k=K_SDP, occ=occ)
+        torch.cuda.synchronize()
         ref, pms = timed(lambda: sdp.window_fragment_diags_banded_plain(
             *a, k=K_SDP, occ=occ))
         k4_err = max(k4_err, check_equal(out, ref, ("diag", "valid"),
                                          f"K4 L=65536 occ={occ}"))
+        kms = cuda_ms(lambda: sdp.window_fragment_diags_banded(
+            *a, k=K_SDP, occ=occ), 10)
+        kb, compares = k4_bound(a, *out, occ, 512, K_SDP)
         log(f"# K4 == plain at N=4, L=65536, W={windows.shape[1]}, D=512, "
-            f"occ={occ} (tiled slab): exact, {int(out[1].sum())} hits; "
-            f"function {kms:.3f} ms, plain {pms:.1f} ms on {card}")
+            f"occ={occ} (a row over {-(-65536 // 1024)} CTAs): exact, "
+            f"{int(out[1].sum())} hits; function (one launch) {kms:.4f} ms, "
+            f"plain {pms:.1f} ms, bound {kb[0]:.4f} ms ({kb[1]}) on {card}")
     kms, pms, kb = res["candidate"]
     return {
         "chain_scan": dict(err=k3_err, ms=kms, plain_ms=pms, bound=kb),
         "sdp_window": dict(err=k4_err, ms=k4[2][0], plain_ms=k4[2][1],
                            bound=k4[2][2]),
     }
+
+
+def count_k4_kernels(card) -> int:
+    """The ``--k4-kernels`` mode: torch.profiler over one call of K4's
+    function at the bench shape (N=192, L=2048, W=3072; sdp_bench_case's
+    windows and planted read k-mers on a random genome); 0 if it issued
+    exactly one CUDA kernel, K4."""
+    from types import SimpleNamespace
+    from blasr_tpu_torch.kernels import sdp
+    rng = np.random.default_rng(31)
+    genome = rng.integers(0, 4, 1_000_000).astype(np.int8)
+    reads2 = torch.from_numpy(
+        rng.integers(0, 4, (64, 2048)).astype(np.int8)).cuda()
+    rlen2 = torch.full((64,), 2048, dtype=torch.int32, device="cuda")
+    args = sdp_bench_case(SimpleNamespace(genome=genome), reads2, rlen2, rng)
+    kernels = profiled_kernels(
+        lambda: sdp.window_fragment_diags_banded(*args, k=11, occ=2))
+    N, L = args[0].shape
+    log(f"# K4: torch.profiler counts {len(kernels)} CUDA kernel(s) in one "
+        f"window_fragment_diags_banded call at N={N}, L={L}: {kernels} on "
+        f"{card}")
+    return 0 if len(kernels) == 1 and "sdp_window" in kernels[0] else 1
+
+
+def check_k4_one_kernel() -> None:
+    """K4's function must issue exactly one CUDA kernel: counted by
+    ``count_k4_kernels`` in a process of its own (a profiler session of its
+    own, unslowed and unaffected by this one's: here a third session
+    recorded no device events in one run), which this waits for."""
+    r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                        "--k4-kernels"], capture_output=True, text=True,
+                       timeout=600, cwd=HERE)
+    for line in r.stdout.splitlines():
+        if line.startswith("# K4:"):
+            log(line)
+    assert r.returncode == 0, \
+        f"K4's function did not issue one K4 launch:\n{r.stdout[-3000:]}" \
+        f"{r.stderr[-3000:]}"
 
 
 # ---------------------------------------------------------------- phase 3
@@ -992,7 +1154,9 @@ def phase_long_reads(card, cuda_ops):
     mapper = Mapper(gi, MappingParams().make_sane(), cfg, device="cuda")
     log(f"# long reads: 1 Mbp genome + index, reads of "
         f"{[len(s.rec.seq) for s in sims]} bases ({time.time() - t0:.1f}s)")
-    k5_calls, k6_calls = [], []
+    from blasr_tpu_torch.kernels import sdp
+    k4_calls, k5_calls, k6_calls = [], [], []
+    k4_inner = capture_calls(sdp, "window_fragment_diags_banded", k4_calls)
     k5_inner = capture_calls(map_read, "find_anchors", k5_calls)
     k6_inner = capture_calls(map_read, "_band_offsets", k6_calls)
     try:
@@ -1003,9 +1167,13 @@ def phase_long_reads(card, cuda_ops):
         wall = time.time() - t0
         launches = dict(cuda_ops.LAUNCHES)
     finally:
+        sdp.window_fragment_diags_banded = k4_inner
         map_read.find_anchors = k5_inner
         map_read._band_offsets = k6_inner
-    assert k5_calls and k6_calls, "the long reads made no K5/K6 call"
+    assert k4_calls and k5_calls and k6_calls, \
+        "the long reads made no K4/K5/K6 call"
+    assert launches["sdp_window"] == sum(a[0].shape[0] > 0
+                                         for a, _, _ in k4_calls), launches
     # every launch of the run is one of the calls held to the plain version
     assert launches["anchor_search"] == len(k5_calls), launches
     assert launches["band_offsets"] == sum(a[0].shape[0] > 0
@@ -1020,7 +1188,15 @@ def phase_long_reads(card, cuda_ops):
             f"long-read K6 call {i + 1} is not at L = 65536"
         check_equal([out], [map_read._band_offsets_plain(*a, **kw)],
                     ("offsets",), f"K6 long-read call {i + 1}")
+    for i, (a, kw, out) in enumerate(k4_calls):
+        assert a[0].is_cuda and a[0].shape[1] == 65536, \
+            f"long-read K4 call {i + 1} is not at L = 65536"
+        check_equal(out, sdp.window_fragment_diags_banded_plain(*a, **kw),
+                    ("diag", "valid"), f"K4 long-read call {i + 1}")
     torch.cuda.synchronize()
+    log(f"# K4 == plain on the long reads' {len(k4_calls)} "
+        f"window_fragment_diags_banded call(s) (N="
+        f"{[a[0].shape[0] for a, _, _ in k4_calls]}, L=65536): exact")
     log(f"# K5 == plain on the long reads' {len(k5_calls)} find_anchors "
         f"call(s) (B={k5_calls[0][0][3].shape[0]}, L=65536, "
         f"O={sorted({kw['occ_per_pos'] for _, kw, _ in k5_calls})}, "
@@ -1054,25 +1230,32 @@ def bench_world():
     return gi, sims
 
 
+def bench_inputs(sims, use_qv: bool):
+    """The bench pass's reads and parameters: as simulated, or under
+    ``--useQuality`` with per-base qualities 8-39, drawn as make_fastq
+    draws them."""
+    from blasr_tpu_torch.io.fasta import FastaRecord
+    from blasr_tpu_torch.params import MappingParams
+    recs = [s.rec for s in sims]
+    if not use_qv:
+        return recs, MappingParams().make_sane()
+    rng = np.random.default_rng(13)
+    recs = [FastaRecord(r.title, r.seq, rng.integers(8, 40, len(r.seq)))
+            for r in recs]
+    return recs, MappingParams(ignore_qualities=False).make_sane()
+
+
 def phase_bench(card, cuda_ops, gi, sims, use_qv: bool, dev=None):
     """One bench pass (warm, then timed with launch counts zeroed just
     before and read just after) on the device index ``dev``; returns the
     launch counts."""
-    from blasr_tpu_torch.io.fasta import FastaRecord
-    from blasr_tpu_torch.params import MappingParams, ShapeConfig
+    from blasr_tpu_torch.params import ShapeConfig
     from blasr_tpu_torch.pipeline import map_read
     from blasr_tpu_torch.pipeline.map_read import Mapper, StageTimer
     from blasr_tpu_torch.pipeline.metrics import MappingMetrics
 
     label = "--useQuality" if use_qv else "distance"
-    recs = [s.rec for s in sims]
-    params = MappingParams().make_sane()
-    if use_qv:
-        # per-base qualities 8-39, drawn as make_fastq draws them
-        rng = np.random.default_rng(13)
-        recs = [FastaRecord(r.title, r.seq,
-                            rng.integers(8, 40, len(r.seq))) for r in recs]
-        params = MappingParams(ignore_qualities=False).make_sane()
+    recs, params = bench_inputs(sims, use_qv)
     t0 = time.time()
     cfg = ShapeConfig(buckets=(1024, 2048), batch_size=32, max_anchors=512)
     mapper = Mapper(gi, params, cfg, device="cuda", dev=dev)
@@ -1146,18 +1329,18 @@ def phase_bench(card, cuda_ops, gi, sims, use_qv: bool, dev=None):
     return launches
 
 
-def phase_profile(card, gi, sims, dev):
-    """torch.profiler over one more distance bench pass (after a short
-    warm pass): kernel launches per read, device time against the traced
-    wall (the device's busy share) and the kernels that take the most
-    device time.  Measurement only: no check depends on it."""
+def phase_profile(card, gi, sims, dev, use_qv: bool = False):
+    """torch.profiler over one more bench pass (after a short warm pass):
+    kernel launches per read, device time against the traced wall (the
+    device's busy share) and the kernels that take the most device time.
+    Measurement only: no check depends on it."""
     from torch.profiler import ProfilerActivity, profile
-    from blasr_tpu_torch.params import MappingParams, ShapeConfig
+    from blasr_tpu_torch.params import ShapeConfig
     from blasr_tpu_torch.pipeline.map_read import Mapper
+    label = "--useQuality" if use_qv else "distance"
     cfg = ShapeConfig(buckets=(1024, 2048), batch_size=32, max_anchors=512)
-    mapper = Mapper(gi, MappingParams().make_sane(), cfg, device="cuda",
-                    dev=dev)
-    recs = [s.rec for s in sims]
+    recs, params = bench_inputs(sims, use_qv)
+    mapper = Mapper(gi, params, cfg, device="cuda", dev=dev)
     mapper.map_reads(recs[:64])
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1169,7 +1352,7 @@ def phase_profile(card, gi, sims, dev):
     dev_events = [e for e in prof.events()
                   if e.device_type == torch.autograd.DeviceType.CUDA]
     if not dev_events:
-        log("# profile (distance): torch.profiler recorded no device "
+        log(f"# profile ({label}): torch.profiler recorded no device "
             "events; device busy share not measured")
         return
     by_name = {}
@@ -1179,7 +1362,7 @@ def phase_profile(card, gi, sims, dev):
     total_ms = sum(us for _, us in by_name.values()) / 1e3
     launches = sum(n for name, (n, _) in by_name.items()
                    if not name.startswith(("Memcpy", "Memset")))
-    log(f"# profile (distance, {len(recs)} reads, traced): {launches} kernel "
+    log(f"# profile ({label}, {len(recs)} reads, traced): {launches} kernel "
         f"launches ({launches / len(recs):.1f} per read), {total_ms:.3f} ms "
         f"of device time in a {1e3 * wall:.3f} ms pass: busy share "
         f"{total_ms / (1e3 * wall):.4f} on {card}")
@@ -1216,6 +1399,11 @@ def main() -> int:
         f"{nvcc.strip().splitlines()[-1] if nvcc else 'not found'}")
     log(f"# card: {card}; devices: {torch.cuda.device_count()}")
 
+    if sys.argv[1:2] == ["--compare-k1"]:
+        compare_k1(card, sys.argv[2:])
+        return 0
+    if sys.argv[1:] == ["--k4-kernels"]:
+        return count_k4_kernels(card)
     from blasr_tpu_torch.kernels import cuda_ops
     t0 = time.time()
     cuda_ops.build()
@@ -1251,6 +1439,8 @@ def main() -> int:
     log(f"# phase 4 done in {time.time() - t0:.1f}s")
     t0 = time.time()
     phase_profile(card, gi, sims, dev)
+    phase_profile(card, gi, sims, dev, use_qv=True)
+    check_k4_one_kernel()
     log(f"# phase 5 done in {time.time() - t0:.1f}s")
     assert "jax" not in sys.modules or sys.modules["jax"] is None
     loaded = [m for m in sys.modules if m.startswith("blasr_tpu.")]
@@ -1269,6 +1459,12 @@ def main() -> int:
             ("anchor_search", ANCHOR_SRC, "blasr_tpu/kernels/anchor.py:74"),
             ("band_offsets", BAND_SRC,
              "blasr_tpu/pipeline/map_read.py:320")]
+    # rule 2's measure: launches per pass pair x (kernel ms - bound ms)
+    loss = {name: launches[name] * (kres[name]["ms"] - kres[name]["bound"][0])
+            for name, _, _ in rows}
+    log("# rule 2, launches per pass pair x (kernel ms - bound ms): "
+        + ", ".join(f"{name} {loss[name]:.3f}" for name in
+                    sorted(loss, key=lambda k: -loss[k])) + f" on {card}")
     table = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "max_abs_err": kres[name]["err"],

@@ -22,6 +22,8 @@ from blasr_tpu.params import MappingParams  # noqa: E402
 from blasr_tpu_torch.kernels import banded as tb  # noqa: E402
 from blasr_tpu_torch.kernels import pallas_banded as tpb  # noqa: E402
 from test_torch_cuda import qv_words  # noqa: E402
+from torch_edge_cases import (BANDED_CASES, BANDED_NOT_PALLAS,  # noqa: E402
+                              BANDED_QV_SEED, banded_case)
 
 torch.set_num_threads(2)
 
@@ -141,6 +143,39 @@ def test_plain_qv_dp_matches_jax(N, L, W, flavours):
     fast = tpb.banded_align_cuda(*_torch(arrs), sm, *gaps, **tq)
     for a, b in zip(out, fast):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("mode", ["distance", "qv"])
+@pytest.mark.parametrize("name", BANDED_CASES)
+def test_plain_dp_edges_match_jax(name, mode):
+    """The plain DP against JAX's XLA kernel on the edge shapes of K1's
+    row tiles (tests/torch_edge_cases.py::banded_case), in both modes, and
+    against the Pallas kernel (interpret mode) where its contract holds."""
+    arrs = banded_case(name)
+    N, L = arrs[0].shape
+    sm = _submat()
+    gaps = (4.0, 4.0, 5.0, 5.0)
+    ja = [jnp.asarray(a) for a in arrs]
+    jq, tq = {}, {}
+    if mode == "qv":
+        q1, q2 = qv_words(np.random.default_rng(BANDED_QV_SEED), N, L)
+        jq = dict(qv1=jnp.asarray(q1), qv2=jnp.asarray(q2))
+        tq = dict(qv1=torch.from_numpy(q1), qv2=torch.from_numpy(q2))
+    ref = jax_banded_align(*ja, jnp.asarray(sm), *gaps, w_b=128, **jq)
+    out = tb.banded_align(*_torch(arrs), torch.from_numpy(sm), *gaps, **tq)
+    fields = ("score", "tbbits", "final_state", "valid")
+    _assert_same(ref, out, fields)
+    if name not in BANDED_NOT_PALLAS:
+        pal = pb.pallas_banded_align(*ja, jnp.asarray(sm), *gaps, w_b=128,
+                                     **jq)
+        _assert_same(pal, out, fields)
+    assert out.valid.sum() >= N - 1
+    offs, qa, qb = arrs[2], arrs[3], arrs[4]
+    if name == "negative-offsets":
+        assert (offs[np.arange(N), qa] < 0).all()
+    if name == "band-past-window":
+        assert (offs.max(axis=1) + 128 > arrs[1].shape[1]).all()
+    tpb.check_slope(*_torch((offs, qa, qb)))
 
 
 def test_no_qv_flavour_equals_distance_mode():

@@ -3,9 +3,10 @@ package on the edge inputs of ``tests/torch_edge_cases.py``: exact ties,
 A = 100 (JAX pads to a multiple of 8) and A = 1024, a 32-anchor lookback,
 rows with no and one valid anchor, the global chain, the guide pass's
 drift penalty; slab starts clamped at -(L + D) and at W, slabs crossing
-the window's ends, short windows, a read with no valid k-mer, occ 1 and
-2.  Every comparison is exact.  The CUDA kernels (K3, K4) meet the same
-inputs in ``tests/test_torch_cuda.py``.
+the window's ends, short windows, a read with no valid k-mer, k = 16 keys
+using the top bit, all-N windows, hits on the edges of K4's 32-diagonal
+ballot steps, occ 1 and 2.  Every comparison is exact.  The CUDA kernels
+(K3, K4) meet the same inputs in ``tests/test_torch_cuda.py``.
 
 Also: on CPU tensors the public functions never reach ``cuda_ops``, and
 its launch wrappers refuse CPU tensors.
@@ -25,8 +26,8 @@ from blasr_tpu_torch.kernels import anchor as tanchor  # noqa: E402
 from blasr_tpu_torch.kernels import chain as tchain  # noqa: E402
 from blasr_tpu_torch.kernels import cuda_ops  # noqa: E402
 from blasr_tpu_torch.kernels import sdp as tsdp  # noqa: E402
-from torch_edge_cases import (CHAIN_CASES, K_SDP, SDP_CASES,  # noqa: E402
-                              chain_case, sdp_case)
+from torch_edge_cases import (BALLOT_DLO, CHAIN_CASES,  # noqa: E402
+                              SDP_CASES, SDP_D, chain_case, sdp_case)
 
 torch.set_num_threads(2)
 
@@ -82,24 +83,24 @@ def test_chain_edges_match_jax(name):
 
 @pytest.mark.parametrize("name", SDP_CASES)
 def test_sdp_window_edges_match_jax(name):
-    reads, rlen, windows, wlens, offs, occ = sdp_case(name)
-    rk, rv = janchor.read_kmer_keys(jnp.asarray(reads), jnp.asarray(rlen),
-                                    K_SDP)
+    reads, rlen, windows, wlens, offs, occ, k = sdp_case(name)
+    rk, rv = janchor.read_kmer_keys(jnp.asarray(reads), jnp.asarray(rlen), k)
     jd, jv = jsdp.window_fragment_diags_banded(
         rk, rv, jnp.asarray(windows), jnp.asarray(wlens), jnp.asarray(offs),
-        k=K_SDP, occ=occ)
+        k=k, occ=occ)
     trk, trv = tanchor.read_kmer_keys(torch.from_numpy(reads),
-                                      torch.from_numpy(rlen), K_SDP)
+                                      torch.from_numpy(rlen), k)
     td, tv = tsdp.window_fragment_diags_banded(
         trk, trv, torch.from_numpy(windows), torch.from_numpy(wlens),
-        torch.from_numpy(offs), k=K_SDP, occ=occ)
+        torch.from_numpy(offs), k=k, occ=occ)
     assert td.shape == (len(reads), reads.shape[1], occ)
+    assert td.dtype == torch.int64 and tv.dtype == torch.bool
     np.testing.assert_array_equal(np.asarray(jv), tv.numpy())
     np.testing.assert_array_equal(np.asarray(jd), td.numpy())
-    dlo = tsdp._diag_lo(torch.from_numpy(offs), reads.shape[1],
-                        windows.shape[1], 512, 128)
+    L, W, D = reads.shape[1], windows.shape[1], SDP_D
+    dlo = tsdp._diag_lo(torch.from_numpy(offs), L, W, D, 128)
     if name.startswith("clamp"):
-        want = -(reads.shape[1] + 512) if "low" in name else windows.shape[1]
+        want = -(L + D) if "low" in name else W
         assert (dlo == want).all() and not tv.any()
     else:
         assert int(tv[..., 0].sum()) > 100
@@ -107,9 +108,33 @@ def test_sdp_window_edges_match_jax(name):
             assert tv[..., 1].any()
     if name.startswith("straddle"):
         assert (dlo[::2] < 0).all()
-        assert (dlo[1::2] + reads.shape[1] + 512 > windows.shape[1]).all()
+        assert (dlo[1::2] + L + D > W).all()
     if name.startswith("empty-read"):
         assert not tv[1].any() and not tv[3].any()
+    if name.startswith("all-n"):
+        assert not tv[1].any() and not tv[4].any()
+    if name.startswith("k16"):
+        wk, wv = tanchor.read_kmer_keys(torch.from_numpy(windows),
+                                        torch.from_numpy(wlens), k)
+        assert (wk[wv] >= 1 << 31).any()          # keys use the top bit
+        assert (torch.from_numpy(wlens) < W).all()
+        # an all-T read key equals the invalid-window sentinel, so it hits
+        # window positions past wlens (JAX's semantics, kept)
+        allt = trv & (trk == tsdp.INVALID_WINDOW)
+        assert tv[..., 0][allt].any()
+    if name.startswith("ballot-edges"):
+        assert (dlo == BALLOT_DLO).all()
+        s0 = td[..., 0] - BALLOT_DLO
+        v0 = tv[..., 0]
+        for row, s in ((0, 31), (1, 32), (2, D - 1), (3, 3), (5, 0)):
+            assert (s0[row][v0[row]] == s).sum() > 50, (row, s)
+        assert (s0[5][v0[5]] == 480).sum() > 50
+        if occ == 2:
+            s1 = td[..., 1] - BALLOT_DLO
+            both = tv[..., 1]
+            # two hits inside one 32-diagonal step, and across two steps
+            assert ((s0[3] == 3) & (s1[3] == 18) & both[3]).sum() > 100
+            assert ((s0[4] == 31) & (s1[4] == 32) & both[4]).any()
 
 
 def test_cpu_tensors_never_reach_the_kernels():
@@ -120,12 +145,12 @@ def test_cpu_tensors_never_reach_the_kernels():
     c, kw = chain_case("A100-pvt1")
     tchain.chain_anchors(torch_anchors(c), torch.from_numpy(c["read_len"]),
                          **kw)
-    reads, rlen, windows, wlens, offs, occ = sdp_case("straddle-occ2")
+    reads, rlen, windows, wlens, offs, occ, k = sdp_case("straddle-occ2")
     trk, trv = tanchor.read_kmer_keys(torch.from_numpy(reads),
-                                      torch.from_numpy(rlen), K_SDP)
-    tsdp.window_fragment_diags_banded(
-        trk, trv, torch.from_numpy(windows), torch.from_numpy(wlens),
-        torch.from_numpy(offs), k=K_SDP, occ=occ)
+                                      torch.from_numpy(rlen), k)
+    sdp_args = (trk, trv, torch.from_numpy(windows), torch.from_numpy(wlens),
+                torch.from_numpy(offs))
+    tsdp.window_fragment_diags_banded(*sdp_args, k=k, occ=occ)
     assert cuda_ops._lib is None
     assert cuda_ops.LAUNCHES == before
     i32 = torch.int32
@@ -138,31 +163,6 @@ def test_cpu_tensors_never_reach_the_kernels():
             rate=1.3, drift_frac=0.35, drift_slack=50.0, drift_penalty=0.0,
             global_chain=False, rank_mode=1)
     with pytest.raises(ValueError):
-        cuda_ops.sdp_window_launch(
-            trk.to(i32), torch.zeros(windows.shape, dtype=i32),
-            torch.zeros(len(reads), dtype=i32), D=512, occ=2)
+        cuda_ops.sdp_window_launch(*sdp_args, k=k, occ=occ, D=SDP_D,
+                                   w_b=128)
     assert cuda_ops._lib is None
-
-
-def test_k4_inputs_keep_the_sentinels():
-    """The keys K4 takes are the plain version's masked keys narrowed to
-    int32 bit patterns: invalid window k-mers stay 0xFFFFFFFF, invalid
-    read k-mers 0xFFFFFFFE (so the two never match), and the slab starts
-    are the plain version's."""
-    reads, rlen, windows, wlens, offs, occ = sdp_case("short-windows-occ2")
-    rk, rv = tanchor.read_kmer_keys(torch.from_numpy(reads),
-                                    torch.from_numpy(rlen), 16)
-    wins, wl, of = (torch.from_numpy(x) for x in (windows, wlens, offs))
-    k_rk, k_wk, k_dlo = tsdp.kernel_inputs(rk, rv, wins, wl, of, k=16,
-                                           D=512, w_b=128)
-    assert k_rk.dtype == k_wk.dtype == k_dlo.dtype == torch.int32
-    wkeys, wval = tanchor.read_kmer_keys(wins, wl, 16)
-    want_w = torch.where(wval, wkeys, tsdp.INVALID_WINDOW)
-    want_r = torch.where(rv, rk, tsdp.INVALID_READ)
-    assert torch.equal(k_wk.to(torch.int64) & 0xFFFFFFFF, want_w)
-    assert torch.equal(k_rk.to(torch.int64) & 0xFFFFFFFF, want_r)
-    assert (k_wk[~wval] == -1).all() and (k_rk[~rv] == -2).all()
-    assert (want_w >= 1 << 31).any()     # k = 16: keys use the top bit
-    assert torch.equal(k_dlo.to(torch.int64),
-                       tsdp._diag_lo(of, reads.shape[1], windows.shape[1],
-                                     512, 128))

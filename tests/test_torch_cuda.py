@@ -1,11 +1,12 @@
 """The hand-written CUDA kernels (K1 banded DP in its distance and QV
 modes, K2 traceback walk, K3 chain scan, K4 SDP window pass, K5 anchor
 search, K6 band offsets) against their plain PyTorch versions, on a card.
-Skipped without a CUDA device.  K3-K6 take the edge inputs of
-``tests/torch_edge_cases.py``, on which ``tests/test_torch_chain_sdp_edges.py``
+Skipped without a CUDA device.  K1 in both modes and K3-K6 take the edge
+inputs of ``tests/torch_edge_cases.py``, on which
+``tests/test_torch_banded.py``, ``tests/test_torch_chain_sdp_edges.py``
 and ``tests/test_torch_anchor_band_edges.py`` hold the plain versions to
 JAX; K3 also at A = 8192 (beyond one block's shared memory) and K4 at
-L = 65536 (a slab tiled through shared memory).
+L = 65536 (a row's slab spread over many CTAs).
 
 The GPU machine has no JAX, and tests/conftest.py imports it, so run this
 file there without the conftest:
@@ -29,9 +30,10 @@ from blasr_tpu_torch.index.genome import build_genome_index  # noqa: E402
 from blasr_tpu_torch.io.fasta import FastaRecord  # noqa: E402
 from blasr_tpu_torch.pipeline import map_read as tmr  # noqa: E402
 from torch_edge_cases import (ANCHOR_CASES, BAND_CASES,  # noqa: E402
-                              CHAIN_CASES, K_SDP, SDP_CASES, anchor_case,
-                              anchor_world, band_case, chain_case,
-                              chain_rows, long_sdp_case, sdp_case)
+                              BANDED_CASES, BANDED_QV_SEED, CHAIN_CASES,
+                              K_SDP, SDP_CASES, anchor_case, anchor_world,
+                              band_case, banded_case, chain_case, chain_rows,
+                              long_sdp_case, sdp_case)
 
 pytestmark = pytest.mark.cuda
 
@@ -166,6 +168,32 @@ def test_qv_kernel_matches_plain(cuda):
                                   qv2=q2)
 
 
+@pytest.mark.parametrize("mode", ["distance", "qv"])
+@pytest.mark.parametrize("name", BANDED_CASES)
+def test_dp_kernel_edges_match_plain(cuda, name, mode):
+    """K1 / K1-QV against the plain DP on the edge shapes of its 16-row
+    tiles (tests/torch_edge_cases.py::banded_case), every output exactly,
+    one launch per call."""
+    arrs = banded_case(name)
+    N, L = arrs[0].shape
+    args = [torch.from_numpy(a).to(cuda) for a in arrs]
+    qv = {}
+    if mode == "qv":
+        q1, q2 = qv_words(np.random.default_rng(BANDED_QV_SEED), N, L)
+        qv = dict(qv1=torch.from_numpy(q1).to(cuda),
+                  qv2=torch.from_numpy(q2).to(cuda))
+    key = "banded_dp_qv" if qv else "banded_dp"
+    sm = _submat()
+    before = cuda_ops.LAUNCHES[key]
+    k1 = tpb.banded_align_cuda(*args, sm, 4.0, 4.0, 5.0, 5.0, **qv)
+    torch.cuda.synchronize()
+    assert cuda_ops.LAUNCHES[key] == before + 1
+    p1 = tb.banded_align(*args, sm, 4.0, 4.0, 5.0, 5.0, **qv)
+    assert p1.valid.sum() >= N - 1
+    for f, a, b in zip(k1._fields, k1, p1):
+        assert a.dtype == b.dtype and torch.equal(a, b), f
+
+
 def test_wrappers_check_their_inputs(cuda):
     args = [t.to(cuda) for t in _case(np.random.default_rng(3), 4, 128,
                                       384)]
@@ -210,16 +238,16 @@ def test_chain_kernel_matches_plain(cuda, name):
 def test_sdp_kernel_matches_plain(cuda, name):
     """K4 against window_fragment_diags_banded_plain on the same CUDA
     tensors, exactly, one launch per call."""
-    reads, rlen, windows, wlens, offs, occ = sdp_case(name)
+    reads, rlen, windows, wlens, offs, occ, k = sdp_case(name)
     rk, rv = tanchor.read_kmer_keys(torch.from_numpy(reads).to(cuda),
-                                    torch.from_numpy(rlen).to(cuda), K_SDP)
+                                    torch.from_numpy(rlen).to(cuda), k)
     args = (rk, rv, torch.from_numpy(windows).to(cuda),
             torch.from_numpy(wlens).to(cuda), torch.from_numpy(offs).to(cuda))
     before = cuda_ops.LAUNCHES["sdp_window"]
-    k4 = tsdp.window_fragment_diags_banded(*args, k=K_SDP, occ=occ)
+    k4 = tsdp.window_fragment_diags_banded(*args, k=k, occ=occ)
     torch.cuda.synchronize()
     assert cuda_ops.LAUNCHES["sdp_window"] == before + 1
-    plain = tsdp.window_fragment_diags_banded_plain(*args, k=K_SDP, occ=occ)
+    plain = tsdp.window_fragment_diags_banded_plain(*args, k=k, occ=occ)
     for a, b in zip(k4, plain):
         assert a.dtype == b.dtype and torch.equal(a, b)
 
@@ -244,18 +272,27 @@ def test_chain_and_sdp_wrappers_check_their_inputs(cuda):
         cuda_ops.chain_scan_launch(args[0][1:].contiguous(), *args[1:], **kw)
     with pytest.raises(ValueError):         # a lookback beyond the row
         cuda_ops.chain_scan_launch(*args, **dict(kw, lookback=A + 1))
-    rk = torch.zeros((4, 256), dtype=i32, device=cuda)
-    wk = torch.zeros((4, 896), dtype=i32, device=cuda)
-    dlo = torch.zeros(4, dtype=i32, device=cuda)
-    with pytest.raises(TypeError):
-        cuda_ops.sdp_window_launch(rk.long(), wk, dlo, D=512, occ=2)
+    reads, rlen, windows, wlens, offs, occ, k = sdp_case("straddle-occ2")
+    rk, rv = tanchor.read_kmer_keys(torch.from_numpy(reads).to(cuda),
+                                    torch.from_numpy(rlen).to(cuda), k)
+    sargs = [rk, rv, *(torch.from_numpy(x).to(cuda)
+                       for x in (windows, wlens, offs))]
+    skw = dict(k=k, occ=occ, D=512, w_b=128)
+    with pytest.raises(TypeError):          # int32 read keys
+        cuda_ops.sdp_window_launch(rk.int(), *sargs[1:], **skw)
+    with pytest.raises(TypeError):          # float offsets
+        cuda_ops.sdp_window_launch(*sargs[:4], sargs[4].float(), **skw)
+    with pytest.raises(ValueError):         # a window length short
+        cuda_ops.sdp_window_launch(*sargs[:3], sargs[3][:3].contiguous(),
+                                   sargs[4], **skw)
+    with pytest.raises(ValueError):         # flags on the CPU
+        cuda_ops.sdp_window_launch(rk, rv.cpu(), *sargs[2:], **skw)
     with pytest.raises(ValueError):
-        cuda_ops.sdp_window_launch(rk, wk, dlo[:3].contiguous(), D=512,
-                                   occ=2)
+        cuda_ops.sdp_window_launch(*sargs, **dict(skw, occ=3))
     with pytest.raises(ValueError):
-        cuda_ops.sdp_window_launch(rk, wk, dlo, D=512, occ=3)
+        cuda_ops.sdp_window_launch(*sargs, **dict(skw, k=33))
     with pytest.raises(ValueError):         # a slab wider than a block holds
-        cuda_ops.sdp_window_launch(rk, wk, dlo, D=60_000, occ=2)
+        cuda_ops.sdp_window_launch(*sargs, **dict(skw, D=60_000))
     assert cuda_ops.LAUNCHES == before
 
 
@@ -281,8 +318,9 @@ def test_chain_kernel_wide_rows(cuda):
 
 @pytest.mark.parametrize("occ", [2, 1])
 def test_sdp_kernel_long_bucket(cuda, occ):
-    """K4 at L = 65536, N = 4, D = 512: more slab keys than a block holds,
-    so the query positions go in tiles; equal to the plain version."""
+    """K4 at L = 65536, N = 4, D = 512: a row's L + D slab keys exceed
+    one block's shared memory, so its query positions spread over 64 CTAs
+    of 1024; equal to the plain version, one launch per call."""
     reads, rlen, windows, wlens, offs = long_sdp_case(
         np.random.default_rng(65536))
     rk, rv = tanchor.read_kmer_keys(torch.from_numpy(reads).to(cuda),
@@ -290,7 +328,10 @@ def test_sdp_kernel_long_bucket(cuda, occ):
     args = (rk, rv, *(torch.from_numpy(x).to(cuda)
                       for x in (windows, wlens, offs)))
     assert 4 * (reads.shape[1] + 512) > cuda_ops.SMEM_OPTIN
+    before = cuda_ops.LAUNCHES["sdp_window"]
     k4 = tsdp.window_fragment_diags_banded(*args, k=K_SDP, occ=occ)
+    torch.cuda.synchronize()
+    assert cuda_ops.LAUNCHES["sdp_window"] == before + 1
     plain = tsdp.window_fragment_diags_banded_plain(*args, k=K_SDP, occ=occ)
     for a, b in zip(k4, plain):
         assert a.dtype == b.dtype and torch.equal(a, b)

@@ -98,21 +98,66 @@ def chain_case(name):
     return chain_rows(rng, B, A, nv, tie_every=tie_every), kw
 
 
+SDP_D = 512
+# slab start of the "ballot-edges" rows: their guide runs on diagonal 300
+BALLOT_DLO = 300 - SDP_D // 2
+
+
+def _ballot_edges(rng, N, L, W, w_b):
+    """Rows whose hits sit on the edges of K4's 32-diagonal ballot steps:
+    read segments planted at slab diagonals 31, 32 and D - 1; a read of
+    period 15 planted at diagonal 3 (hits at 3, 18, 33, ...: the first two
+    inside one step); a C run whose k-mers hit consecutive diagonals with
+    31 and 32 among them; diagonals 0 and 480 on disjoint read ranges."""
+    reads = rng.integers(0, 4, (N, L)).astype(np.int8)
+    windows = rng.integers(0, 4, (N, W)).astype(np.int8)
+
+    def plant(i, s, q0, q1):
+        p = BALLOT_DLO + s
+        windows[i, q0 + p:q1 + p] = reads[i, q0:q1]
+
+    plant(0, 31, 20, 200)
+    plant(1, 32, 20, 200)
+    plant(2, SDP_D - 1, 20, 200)
+    reads[3, 20:230] = np.tile(rng.integers(0, 4, 15), 14).astype(np.int8)
+    plant(3, 3, 20, 220)
+    reads[4, 50:110] = 1
+    x0 = 60 + BALLOT_DLO + 31        # q = 60 first hits diagonal 31
+    windows[4, x0:x0 + 80] = 1
+    plant(5, 0, 20, 100)
+    plant(5, 480, 120, 200)
+    offs = np.arange(L)[None, :] + 300 - w_b // 2 + np.zeros((N, 1), int)
+    return reads, windows, offs
+
+
 def sdp_case(name):
     """(reads int8 [N, L], read_len, windows int8 [N, W], wlens, offs
-    int32 [N, L], occ) for the SDP window pass.  Read segments are planted
-    into the windows along a diagonal, twice in some rows so that read
-    positions have a second hit; ``name`` picks the edge:
+    int32 [N, L], occ, k) for the SDP window pass.  Read segments are
+    planted into the windows along a diagonal, twice in some rows so that
+    read positions have a second hit; ``name`` picks the edge:
 
     * ``clamp-low`` / ``clamp-high``: offsets far outside the window, so
       the slab start clamps to -(L + D) or to W (no hits);
     * ``straddle``: slabs that cross the window's start or end;
     * ``short-windows``: wlens < W masks the window tails;
     * ``empty-read``: a row with no valid read k-mer;
+    * ``k16-short``: k = 16 (keys use the top bit) and wlens < W, with T
+      runs whose all-T keys (0xFFFFFFFF) meet the invalid-window sentinel,
+      as in the JAX package;
+    * ``all-n``: windows of N bases only (rows 1 and 4), and an N run
+      inside the others;
+    * ``ballot-edges``: hits on the edges of the 32-diagonal steps
+      (:func:`_ballot_edges`);
     * suffix ``-occ1`` / ``-occ2``: one or two hits per position."""
     base, occ = name.rsplit("-occ", 1)
     rng = np.random.default_rng(sum(map(ord, name)))
     N, L, W, w_b = 6, 256, 896, 128
+    k = 16 if base == "k16-short" else K_SDP
+    if base == "ballot-edges":
+        reads, windows, offs = _ballot_edges(rng, N, L, W, w_b)
+        rlen = np.full(N, L, np.int32)
+        return (reads, rlen, windows, np.full(N, W, np.int32),
+                offs.astype(np.int32), int(occ), k)
     reads = rng.integers(0, 4, (N, L)).astype(np.int8)
     rlen = rng.integers(L // 2, L + 1, N).astype(np.int32)
     windows = rng.integers(0, 4, (N, W)).astype(np.int8)
@@ -138,10 +183,17 @@ def sdp_case(name):
     elif base == "empty-read":
         rlen[1] = 0
         reads[3] = 4
+    elif base == "k16-short":
+        wlens = rng.integers(W // 2, W - 100, N).astype(np.int32)
+        reads[:, 100:130] = 3                  # all-T 16-mers: 0xFFFFFFFF
+        windows[:, 500:530] = 3
+    elif base == "all-n":
+        windows[[1, 4]] = 4
+        windows[:, 380:400] = 4
     else:
         raise KeyError(name)
     offs = np.maximum.accumulate(offs, axis=1).astype(np.int32)
-    return reads, rlen, windows, wlens, offs, int(occ)
+    return reads, rlen, windows, wlens, offs, int(occ), k
 
 
 def long_sdp_case(rng, N=4, L=65536, D=512, w_b=128):
@@ -165,8 +217,78 @@ def long_sdp_case(rng, N=4, L=65536, D=512, w_b=128):
 
 
 SDP_CASES = [f"{b}-occ{o}" for b in ("clamp-low", "clamp-high", "straddle",
-                                     "short-windows", "empty-read")
-             for o in (1, 2)]
+                                     "short-windows", "empty-read",
+                                     "k16-short", "ballot-edges")
+             for o in (1, 2)] + ["all-n-occ2"]
+
+
+# ---------------------------------------------------------------- banded DP
+
+BANDED_CASES = ("L-not-tile", "tile-edges", "slope2-across-tile",
+                "negative-offsets", "band-past-window")
+# cases outside pallas_banded_align's contract (L a multiple of 64, band
+# offsets >= 0); the XLA kernel and the plain DP take them
+BANDED_NOT_PALLAS = ("L-not-tile", "negative-offsets")
+# seed of the QV words (test_torch_cuda.py::qv_words) the QV mode takes
+BANDED_QV_SEED = 55
+
+
+def banded_case(name, w_b=128):
+    """Banded-DP inputs (reads, windows, offsets, qa, qb, ta, tb) at the
+    edges of K1's 16-row tiles, four items each, the read planted on a
+    noisy path into its window:
+
+    * ``L-not-tile``: L = 200, not a multiple of a tile;
+    * ``tile-edges``: qa / qb on tile edges (16, 48), one past or before
+      them (15, 33), qb = L, and a 17-row span;
+    * ``slope2-across-tile``: a slope-2 run over rows 10-40;
+    * ``negative-offsets``: the band starts left of the window (o_r < 0)
+      at the first rows, the first active row included;
+    * ``band-past-window``: the band runs past the window's end
+      (o_r + 128 > W)."""
+    rng = np.random.default_rng(sum(map(ord, name)))
+    N = 4
+    L, W = {"L-not-tile": (200, 448), "band-past-window": (256, 320)}.get(
+        name, (256, 512))
+    reads = rng.integers(0, 4, (N, L)).astype(np.int8)
+    windows = rng.integers(0, 4, (N, W)).astype(np.int8)
+    qa = rng.integers(0, 8, N)
+    qb = qa + rng.integers(L // 2, L - 8, N)
+    ta = rng.integers(1, 40, N)
+    if name == "tile-edges":
+        qa, qb = np.array([16, 15, 32, 0]), np.array([48, 33, L, 17])
+    slope = np.ones(L, np.int64)
+    if name == "slope2-across-tile":
+        slope[10:40] = 2
+    shift = {"negative-offsets": -40, "band-past-window": 40}.get(name, 0)
+    hi = W - 20 if name == "band-past-window" else W - w_b
+    offs = np.zeros((N, L), np.int64)
+    tb = np.zeros(N, np.int64)
+    for i in range(N):
+        t = int(ta[i])
+        for r in range(int(qa[i]), int(qb[i])):
+            if slope[r] == 2 and t + 2 < W:
+                windows[i, t] = reads[i, r]
+                t += 2
+            elif rng.random() < 0.08:
+                pass                                 # an insertion
+            else:
+                if rng.random() < 0.9:
+                    windows[i, t] = reads[i, r]
+                t += 1
+            t = min(t, W - 1)
+        tb[i] = min(t + 1, W)
+        steps = np.where(np.arange(L) > qa[i], slope, 0)
+        center = np.minimum(ta[i] + np.cumsum(steps), W - 1)
+        offs[i] = np.minimum(center - w_b // 2 + shift, hi)
+        if shift >= 0:
+            offs[i] = np.maximum(offs[i], 0)
+    r = np.arange(L)
+    offs = np.maximum.accumulate(offs, axis=1)
+    offs = 2 * r + np.minimum.accumulate(offs - 2 * r, axis=1)
+    i32 = np.int32
+    return (reads, windows, offs.astype(i32), qa.astype(i32), qb.astype(i32),
+            ta.astype(i32), tb.astype(i32))
 
 
 # ---------------------------------------------------------------- anchors
