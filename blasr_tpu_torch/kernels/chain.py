@@ -61,24 +61,39 @@ def chain_anchors(anchors: Anchors, read_len: torch.Tensor, *, n_cand: int,
             drift_penalty=drift_penalty)
 
     def launch(ops):
-        A = anchors.q.shape[1]
-        frac, slack = (0.1, 0) if global_chain else (drift_frac, drift_slack)
-        rank_mode = ({1: 2, 2: 3}.get(p_value_type, 1) if rank_by_pvalue
-                     else 0)
-
-        def i32(x):
-            return x.to(torch.int32).contiguous()
-
+        # the kernel reads the anchors in the dtype the mapper holds them
+        # (int64 from the anchor search, int32 as in the JAX package)
         return ops.chain_scan_launch(
-            i32(anchors.q), i32(anchors.t), i32(anchors.l),
-            anchors.valid.contiguous(), anchors.nlogp.contiguous(),
-            i32(read_len), n_cand=n_cand,
-            lookback=A if lookback <= 0 or lookback > A else lookback,
-            rate=1.0 + indel_rate, drift_frac=frac,
-            drift_slack=float(slack), drift_penalty=drift_penalty,
-            global_chain=global_chain, rank_mode=rank_mode)
+            anchors.q.contiguous(), anchors.t.contiguous(),
+            anchors.l.contiguous(), anchors.valid.contiguous(),
+            anchors.nlogp.contiguous(), read_len.contiguous(),
+            **k3_arguments(
+                anchors.q.shape[1], n_cand=n_cand, indel_rate=indel_rate,
+                drift_frac=drift_frac, drift_slack=drift_slack,
+                rank_by_pvalue=rank_by_pvalue, p_value_type=p_value_type,
+                lookback=lookback, global_chain=global_chain,
+                drift_penalty=drift_penalty))
 
     return on_device("chain_anchors", anchors.q.device, plain, launch)
+
+
+def k3_arguments(A: int, *, n_cand: int, indel_rate: float = 0.3,
+                 drift_frac: float = 0.35, drift_slack: int = 50,
+                 rank_by_pvalue: bool = False, p_value_type: int = 0,
+                 lookback: int = 0, global_chain: bool = False,
+                 drift_penalty: float = 0.0) -> dict:
+    """The keyword arguments of ``cuda_ops.chain_scan_launch`` for a
+    ``chain_anchors`` call on rows of A anchors: the predecessor window,
+    the drift bound (the global chain's 0.1 and no slack) and the
+    selection key (0 best, 1 sump, 2 best * log 4, 3 sumr)."""
+    frac, slack = (0.1, 0) if global_chain else (drift_frac, drift_slack)
+    return dict(
+        n_cand=n_cand, lookback=A if lookback <= 0 or lookback > A
+        else lookback, rate=1.0 + indel_rate, drift_frac=frac,
+        drift_slack=float(slack), drift_penalty=drift_penalty,
+        global_chain=global_chain,
+        rank_mode=({1: 2, 2: 3}.get(p_value_type, 1) if rank_by_pvalue
+                   else 0))
 
 
 def chain_anchors_plain(anchors: Anchors, read_len: torch.Tensor, *,

@@ -146,8 +146,8 @@ def _load() -> ctypes.CDLL:
                 [P] * 8 + [I] * 3 + [P] * 7 + [P])
             lib.blasr_chain_scan.restype = I
             lib.blasr_chain_scan.argtypes = (
-                [P] * 6 + [I] * 4 + [F] * 3 + [I, F, I, I] + [P] * 10
-                + [P, LL] + [P])
+                [P] * 3 + [I] + [P] * 3 + [I] * 5 + [F] * 3 + [I, F, I, I]
+                + [P] * 10 + [P, LL] + [P])
             lib.blasr_sdp_window.restype = I
             lib.blasr_sdp_window.argtypes = (
                 [P] * 4 + [I, P] + [I] * 8 + [P] * 2 + [P])
@@ -249,8 +249,12 @@ def banded_traceback_cuda(result: BandedResult, offsets, qa, qb, ta, tb, *,
                     ("final_state", result.final_state)):
         _check(x, name, torch.int32, (N,), dev)
     _check(result.valid, "valid", torch.bool, (N,), dev)
+    if tbb.data_ptr() % 16:
+        raise ValueError("K2 copies 16-byte aligned rows of tbbits: its "
+                         "storage must start 16-byte aligned")
     P = pair_capacity(t_max)
-    pairs = torch.zeros((N, P // 2), dtype=torch.int32, device=dev)
+    # the kernel writes every pair word, zeros after the stop included
+    pairs = torch.empty((N, P // 2), dtype=torch.int32, device=dev)
     counts = torch.empty((5, N), dtype=torch.int32, device=dev)
     overflow = torch.empty(N, dtype=torch.bool, device=dev)
     if N > 0:
@@ -277,30 +281,35 @@ def chain_scan_launch(q, t, l, valid, nlogp, read_len, *, n_cand: int,
                       lookback: int, rate: float, drift_frac: float,
                       drift_slack: float, drift_penalty: float,
                       global_chain: bool, rank_mode: int) -> Candidates:
-    """K3 on CUDA tensors: anchors q/t/l int32 [B, A], valid bool [B, A],
-    nlogp float32 [B, A], read_len int32 [B]; ``lookback`` is the
-    predecessor window D (1..A), ``rank_mode`` the selection key (0 best,
-    1 sump, 2 best * log 4, 3 sumr).  Returns the Candidates of
-    ``chain_anchors_plain``, the kernel's int32 results widened to int64."""
+    """K3 on CUDA tensors: anchors q/t/l [B, A], all three int32 or all
+    three int64 (values below 2^31, as the JAX package's int32 anchors),
+    valid bool [B, A], nlogp float32 [B, A], read_len int32 or int64 [B];
+    ``lookback`` is the predecessor window D (1..A), ``rank_mode`` the
+    selection key (0 best, 1 sump, 2 best * log 4, 3 sumr).  Returns the
+    Candidates of ``chain_anchors_plain``; the kernel writes the int64
+    fields itself."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError("chain_scan_launch needs CUDA tensors")
     B, A = q.shape
-    for name, x, dt in (("q", q, torch.int32), ("t", t, torch.int32),
-                        ("l", l, torch.int32), ("valid", valid, torch.bool),
+    pos_dt = torch.int64 if q.dtype == torch.int64 else torch.int32
+    for name, x, dt in (("q", q, pos_dt), ("t", t, pos_dt),
+                        ("l", l, pos_dt), ("valid", valid, torch.bool),
                         ("nlogp", nlogp, torch.float32)):
         _check(x, name, dt, (B, A), dev)
-    _check(read_len, "read_len", torch.int32, (B,), dev)
+    wide_len = read_len.dtype == torch.int64
+    _check(read_len, "read_len", torch.int64 if wide_len else torch.int32,
+           (B,), dev)
     if A < 1 or not 1 <= lookback <= A or n_cand < 1 \
             or rank_mode not in range(4):
         raise ValueError(f"K3 arguments out of range: lookback={lookback}, "
                          f"n_cand={n_cand}, rank_mode={rank_mode}")
     C = n_cand
-    i32 = torch.int32
+    i64 = torch.int64
     outs = [torch.empty((B, C), dtype=dt, device=dev)
-            for dt in (i32, i32, i32, i32, torch.float32, i32,
-                       torch.float32, torch.bool, i32)]
-    parent = torch.empty((B, A), dtype=i32, device=dev)
+            for dt in (i64, i64, i64, i64, torch.float32, i64,
+                       torch.float32, torch.bool, i64)]
+    parent = torch.empty((B, A), dtype=i64, device=dev)
     # beyond one block's shared memory the rows' arrays go to a scratch
     # buffer in global memory, one 16-byte aligned slice per row
     row_bytes = 0
@@ -313,23 +322,22 @@ def chain_scan_launch(q, t, l, valid, nlogp, read_len, *, n_cand: int,
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             rc = lib.blasr_chain_scan(
-                q.data_ptr(), t.data_ptr(), l.data_ptr(), valid.data_ptr(),
-                nlogp.data_ptr(), read_len.data_ptr(), B, A, lookback, C,
-                float(rate), float(drift_frac), float(drift_slack),
-                int(drift_penalty > 0.0), -float(drift_penalty),
-                int(bool(global_chain)), rank_mode,
+                q.data_ptr(), t.data_ptr(), l.data_ptr(),
+                int(pos_dt == torch.int64), valid.data_ptr(),
+                nlogp.data_ptr(), read_len.data_ptr(), int(wide_len), B, A,
+                lookback, C, float(rate), float(drift_frac),
+                float(drift_slack), int(drift_penalty > 0.0),
+                -float(drift_penalty), int(bool(global_chain)), rank_mode,
                 *(o.data_ptr() for o in outs), parent.data_ptr(),
                 None if scratch is None else scratch.data_ptr(), row_bytes,
                 stream)
         _launched(rc, "chain_scan")
         LAUNCHES["chain_scan"] += 1
     qs, qe, ts, te, score, n_anch, cnlogp, cvalid, end = outs
-    i64 = torch.int64
     return Candidates(
-        q_start=qs.to(i64), q_end=qe.to(i64), t_start=ts.to(i64),
-        t_end=te.to(i64), score=score, n_anchors=n_anch.to(i64),
-        nlogp=cnlogp, valid=cvalid, end_idx=end.to(i64),
-        parent=parent.to(i64))
+        q_start=qs, q_end=qe, t_start=ts, t_end=te, score=score,
+        n_anchors=n_anch, nlogp=cnlogp, valid=cvalid, end_idx=end,
+        parent=parent)
 
 
 def sdp_window_launch(rkeys, rvalid, windows, wlens, offs, *, k: int, occ: int,

@@ -4,10 +4,13 @@
 Run from the repository root on a machine with a CUDA card:
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --compare-k1 A/banded_dp.cu B/banded_dp.cu
+    python3 chip_smoke.py --compare K1|K2|K3 A/kernel.cu B/kernel.cu
 
-The second form only builds K1 from each given source and times them in
-turns on phase 2's inputs, outputs held equal (see ``compare_k1``).
+The second form only builds the named kernel from each given source (K1
+banded_dp.cu, K2 banded_traceback.cu, K3 chain_scan.cu; e.g. a parent
+commit's unpacked beside this one's), holds their outputs equal on phase
+2's inputs (K3: the bench batch and A = 8192) and times them in turns,
+A B B A (see ``compare_k1``, ``compare_k2``, ``compare_k3``).
 
 Phases (any failed check exits nonzero):
   1. header: torch / CUDA / nvcc versions, the card's name and power limit;
@@ -18,8 +21,10 @@ Phases (any failed check exits nonzero):
   2. each kernel against its plain PyTorch version at the main path's
      shapes, exact equality, timed with CUDA events: K1, K1-QV (random QV
      words in the three flavours: IDS tracks, plain base qualities, none)
-     and K2 at N=640 items, L=2048 rows, W=3072 window, K1 and K1-QV also
-     on the edge shapes of their 16-row tiles; K3 on the anchors of the
+     and K2 at N=640 items, L=2048 rows, W=3072 window (K2 warm, and cold
+     with the L2 flushed before each call), K1 and K1-QV also on the edge
+     shapes of their 16-row tiles, K2 on their cell words and on planted
+     walks at the edges of its own 16-row tiles; K3 on the anchors of the
      bench workload's first batch (2B=64 strand-rows, A=512) in its
      candidate and guide passes, a lookback-64 global chain and the edge
      inputs of tests/torch_edge_cases.py; K4 (the whole
@@ -34,13 +39,16 @@ Phases (any failed check exits nonzero):
   3. the golden worlds of tests/test_golden.py through the port's CLI with
      ``--device cuda``, byte for byte against tests/golden/: the main path
      (small: 60 kb, 12 reads; big: 4.6 Mbp, 11 reads; golden.{m4,sam,
-     m4.big,sam.big}) and the ``--useQuality`` path (FASTQ and hp-biased
+     m4.big,sam.big}, and on the big world --fastMaxInterval, the chain
+     scan with lookback 64, and --aggressiveIntervalCut:
+     golden.{m4.fastmax,m4.aggressive}) and the ``--useQuality`` path
+     (FASTQ and hp-biased
      STR worlds; golden.{m4.fastq,sam.fastq,sam.hpstr.qv}); then the IDS
      world of make_qvsteer, built in memory (its bax.h5 needs h5py), mapped
      with the port's Mapper on ``cuda`` and on ``cpu``: identical
      positions, CIGARs, scores and mapQV; then two simulated reads of
      ~40 kb on a 1 Mbp genome (bucket 65536) mapped on the card, each on
-     its simulated interval, every K4, K5 and K6 launch of that run
+     its simulated interval, every K2, K4, K5 and K6 launch of that run
      captured and held to the plain version (L = 65536);
   4. the bench.py workload (4.6 Mbp genome, k=12, 512 CLR reads of
      0.5-2 kb at 85% accuracy), once in distance mode and once under
@@ -223,6 +231,46 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def cold_ms(fn, reps: int) -> float:
+    """Mean device ms of ``fn`` with the L2 flushed before each call (128
+    MB written, so the 50 MB L2 holds none of its inputs), each call timed
+    alone between two CUDA events (the flush outside them)."""
+    flush = torch.empty(1 << 27, dtype=torch.uint8, device="cuda")
+    evs = []
+    for _ in range(reps):
+        flush.fill_(1)
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        fn()
+        ev[1].record()
+        evs.append(ev)
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in evs) / reps
+
+
+def check_walk(res, rest, t_max: int, name: str):
+    """K2 (banded_traceback on CUDA tensors) against the plain walk, every
+    output exactly; its pair buffer is handed out dirty first, so the
+    zeros after each stop are the kernel's own.  Returns (K2's result,
+    max |diff|)."""
+    from blasr_tpu_torch.kernels.banded import (banded_traceback,
+                                                banded_traceback_plain,
+                                                pair_capacity)
+    N = res.tbbits.shape[0]
+    torch.full((N, pair_capacity(t_max) // 2), -1, dtype=torch.int32,
+               device="cuda")
+    k2 = banded_traceback(res, *rest, t_max=t_max)
+    torch.cuda.synchronize()
+    pl = banded_traceback_plain(res, *rest, t_max=t_max)
+    torch.cuda.synchronize()
+    for f in k2._fields:
+        a, b = getattr(k2, f), getattr(pl, f)
+        assert a.dtype == b.dtype and torch.equal(a, b), \
+            f"{name}: {f} differs from the plain walk"
+    return k2, max_abs(list(k2), list(pl))
+
+
 def profiled_kernels(fn) -> list:
     """Names of the CUDA kernels one call of ``fn`` launches, as
     torch.profiler records them (copies and memsets left out), after one
@@ -261,7 +309,7 @@ def check_dp(out, ref, name: str) -> float:
 
 def phase_kernels(card):
     from blasr_tpu_torch.kernels import cuda_ops
-    from blasr_tpu_torch.kernels.banded import (banded_align,
+    from blasr_tpu_torch.kernels.banded import (BandedResult, banded_align,
                                                 banded_traceback,
                                                 banded_traceback_plain)
     from blasr_tpu_torch.kernels.pallas_banded import banded_align_cuda
@@ -326,57 +374,80 @@ def phase_kernels(card):
         f"ms, bound {qv_bound[0]:.3f} ms ({qv_bound[1]}) per call (N={N}, "
         f"L={L}) on {card}")
 
-    from torch_edge_cases import BANDED_CASES, BANDED_QV_SEED, banded_case
+    from torch_edge_cases import (BANDED_CASES, BANDED_QV_SEED,
+                                  TRACEBACK_CASES, banded_case,
+                                  traceback_case)
+    tb_err = 0.0
     for name in BANDED_CASES:
         # the QV words of tests/test_torch_cuda.py::qv_words, same draws
         e = [torch.from_numpy(x).to(dev) for x in banded_case(name)]
         n_e, l_e = e[0].shape
+        w_e = e[1].shape[1]
         q1e, q2e = qv_words(np.random.default_rng(BANDED_QV_SEED), n_e, l_e,
                             params, int(sm[1]))
         for label, qkw in (("K1", {}),
                            ("K1-QV", dict(qv1=torch.from_numpy(q1e).to(dev),
                                           qv2=torch.from_numpy(q2e).to(dev)))):
             a_e = (*e, sm, *gaps)
-            err = check_dp(banded_align_cuda(*a_e, **qkw),
-                           banded_align(*a_e, **qkw), f"{label} {name}")
+            k1e = banded_align_cuda(*a_e, **qkw)
+            err = check_dp(k1e, banded_align(*a_e, **qkw), f"{label} {name}")
             if label == "K1":
                 dp_err = max(dp_err, err)
             else:
                 qv_err = max(qv_err, err)
+            # K2 on these cell words, at t_max = 3T/8 and T
+            for t_e in ((3 * (l_e + w_e)) // 8, l_e + w_e):
+                tb_err = max(tb_err, check_walk(
+                    k1e, e[2:], t_e, f"K2 on {label} {name} t_max={t_e}")[1])
     log(f"# K1 and K1-QV == plain on the {len(BANDED_CASES)} edge shapes of "
-        f"their 16-row tiles: exact")
+        f"their 16-row tiles: exact; K2 == plain on their cell words at "
+        f"t_max = 3T/8 and T: exact")
+    for name in TRACEBACK_CASES:
+        tbb, st, ok, *rest, t_e = traceback_case(name)
+        res_e = BandedResult(torch.zeros(len(st), device=dev),
+                             *(torch.from_numpy(x).to(dev)
+                               for x in (tbb, st, ok)))
+        tb_err = max(tb_err, check_walk(
+            res_e, [torch.from_numpy(x).to(dev) for x in rest], t_e,
+            f"K2 {name}")[1])
+    log(f"# K2 == plain on the {len(TRACEBACK_CASES)} planted-walk edge "
+        f"inputs: exact")
 
-    tb_err = 0.0
     tb_times = {}
     n_ovf = {}
     for t_max in ((3 * T) // 8, T):
-        k2 = banded_traceback(out, offs, qa, qb, ta, tb, t_max=t_max)
-        torch.cuda.synchronize()
-        pl = banded_traceback_plain(out, offs, qa, qb, ta, tb, t_max=t_max)
-        torch.cuda.synchronize()
-        for name in k2._fields:
-            assert torch.equal(getattr(k2, name), getattr(pl, name)), \
-                f"K2 {name} differs from the plain walk at t_max={t_max}"
-        tb_err = max(tb_err, max_abs(list(k2), list(pl)))
+        run = (lambda: banded_traceback(out, offs, qa, qb, ta, tb,  # noqa
+                                        t_max=t_max))
+        k2, err = check_walk(out, (offs, qa, qb, ta, tb), t_max,
+                             f"K2 at t_max={t_max}")
+        tb_err = max(tb_err, err)
         n_ovf[t_max] = int(k2.overflow.sum())
-        kms = cuda_ms(lambda: banded_traceback(
-            out, offs, qa, qb, ta, tb, t_max=t_max), 5)
+        kms = cuda_ms(run, 5)
+        cold = cold_ms(run, 5)
         pms = cuda_ms(lambda: banded_traceback_plain(
             out, offs, qa, qb, ta, tb, t_max=t_max), 1)
-        # the walk needs one dependent cell gather (one DRAM sector) per
+        # the walk needs one dependent cell read (one DRAM sector) per
         # emitted pair, its per-row inputs (qa, qb, ta, tb, final_state,
         # valid: 21 B) and its outputs (pairs, five counts, overflow);
         # about 30 integer operations per step
         steps = float(k2.n_pairs.sum())
         k2_bytes = (SECTOR * steps + 21 * N
                     + 4 * k2.pairs.numel() + 21 * N)
-        tb_times[t_max] = (kms, pms, bound(k2_bytes, 30 * steps))
+        tb_times[t_max] = (kms, pms, bound(k2_bytes, 30 * steps), cold)
+        # the rows [qa, qb) of the valid items, which K2 stages whole
+        rows = (torch.clamp(qb - 1, max=L - 1) - torch.clamp(qa, min=0)
+                + 1).clamp(min=0)
+        staged = 512.0 * float((rows * out.valid).sum())
         log(f"# K2 == plain at t_max={t_max}: exact, {n_ovf[t_max]} rows "
-            f"overflow; kernel {kms:.3f} ms, plain {pms:.1f} ms, bound "
-            f"{tb_times[t_max][2][0]:.4f} ms "
+            f"overflow, {steps:.0f} steps (longest walk "
+            f"{int(k2.n_pairs.max())}), {staged / 1e6:.1f} MB of rows "
+            f"staged ({1e3 * staged / HBM_BPS:.4f} ms at the HBM rate); "
+            f"kernel {kms:.3f} ms warm (5 reps "
+            f"back to back), {cold:.3f} ms cold (L2 flushed before each), "
+            f"plain {pms:.1f} ms, bound {tb_times[t_max][2][0]:.4f} ms "
             f"({tb_times[t_max][2][1]}) on {card}")
     assert n_ovf[(3 * T) // 8] > 0, "the overflow path of K2 was not exercised"
-    kms, pms, kb = tb_times[(3 * T) // 8]
+    kms, pms, kb, _ = tb_times[(3 * T) // 8]
     hp_bound = bound(k1_bytes, cells * HP_OPS_PER_CELL)
     log(f"# not ported: banded_align with the hp band at these shapes "
         f"(N={N}, L={L}, W={W}, {cells:.0f} active cells): bound "
@@ -390,26 +461,47 @@ def phase_kernels(card):
     }
 
 
-def compare_k1(card, sources, reps: int = 5) -> None:
-    """K1 and K1-QV built from each given banded_dp.cu (the C interface of
-    blasr_tpu_torch/csrc/banded_dp.cu, e.g. a parent commit's unpacked
-    beside this one), on phase 2's inputs (N=640, L=2048): every output
-    held to the first source's, then the kernels timed in turns, first to
-    last and back (A B B A)."""
+def build_source(kernel: str, src: str):
+    """One kernel source (e.g. a parent commit's, unpacked beside this
+    one) built alone into a shared library with the package's nvcc flags;
+    (the ctypes library, the source's bytes)."""
     import ctypes
     import hashlib
     from blasr_tpu_torch.kernels import cuda_ops
+    data = open(src, "rb").read()
+    so = (cuda_ops.BUILD_DIR
+          / f"{kernel.lower()}_{hashlib.sha256(data).hexdigest()[:16]}.so")
+    so.parent.mkdir(parents=True, exist_ok=True)
+    subprocess.run([cuda_ops._nvcc(), *cuda_ops.NVCC_FLAGS, "-shared",
+                    "-I", str(cuda_ops.SRC_DIR), "-o", str(so), src],
+                   check=True, capture_output=True)
+    return ctypes.CDLL(str(so)), data
+
+
+def in_turns(card, what: str, sources, run, reps: int, cold=False):
+    """Each source's ``run(i)`` timed in turns, first to last and back
+    (A B B A), warm (reps back to back) or cold (L2 flushed before each
+    call); one line per source."""
+    order = list(range(len(sources))) + list(reversed(range(len(sources))))
+    times = {i: [] for i in range(len(sources))}
+    for i in order:
+        fn = lambda: run(i)  # noqa: E731
+        times[i].append(cold_ms(fn, reps) if cold else cuda_ms(fn, reps))
+    for i, src in enumerate(sources):
+        log(f"# {what} from {src}: "
+            f"{', '.join(f'{t:.4f}' for t in times[i])} ms per call "
+            f"{'cold' if cold else 'warm'} (outputs equal to the first "
+            f"source's) on {card}")
+
+
+def compare_k1(card, sources, reps: int = 5) -> None:
+    """K1 and K1-QV from each given banded_dp.cu on phase 2's inputs
+    (N=640, L=2048), every output held to the first source's."""
+    import ctypes
     from blasr_tpu_torch.params import MappingParams
     libs = []
     for src in sources:
-        data = open(src, "rb").read()
-        so = (cuda_ops.BUILD_DIR
-              / f"k1_{hashlib.sha256(data).hexdigest()[:16]}.so")
-        so.parent.mkdir(parents=True, exist_ok=True)
-        subprocess.run([cuda_ops._nvcc(), *cuda_ops.NVCC_FLAGS, "-shared",
-                        "-I", str(cuda_ops.SRC_DIR), "-o", str(so), src],
-                       check=True, capture_output=True)
-        lib = ctypes.CDLL(str(so))
+        lib = build_source("K1", src)[0]
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.blasr_banded_dp.argtypes = [P] * 7 + [I] * 3 + [F] * 6 + [P] * 5
         lib.blasr_banded_dp_qv.argtypes = [P] * 9 + [I] * 3 + [F] + [P] * 5
@@ -441,21 +533,160 @@ def compare_k1(card, sources, reps: int = 5) -> None:
         assert rc == 0, f"launch failed: {rc}"
         return outs
 
-    order = list(range(len(libs))) + list(reversed(range(len(libs))))
     for use_qv in (False, True):
         ref = run(libs[0], use_qv)
         for i, lib in enumerate(libs[1:], 1):
             for a, b in zip(run(lib, use_qv), ref):
                 assert torch.equal(a, b), f"{sources[i]} differs from " \
                     f"{sources[0]} (qv={use_qv})"
-        times = {i: [] for i in range(len(libs))}
-        for i in order:
-            times[i].append(cuda_ms(lambda: run(libs[i], use_qv), reps))
-        for i, src in enumerate(sources):
-            log(f"# K1{'-QV' if use_qv else ''} from {src}: "
-                f"{', '.join(f'{t:.4f}' for t in times[i])} ms per call "
-                f"(N={N}, L={L}; outputs equal to the first source's) on "
-                f"{card}")
+        in_turns(card, f"K1{'-QV' if use_qv else ''} (N={N}, L={L})",
+                 sources, lambda i: run(libs[i], use_qv), reps)
+
+
+def compare_k2(card, sources, reps: int = 5) -> None:
+    """K2 from each given banded_traceback.cu on phase 2's inputs (K1's
+    cell words at N=640, L=2048) at t_max = 3T/8 and T: every output held
+    to the first source's, then timed warm and cold.  Each source's walk
+    writes into one pre-zeroed pair buffer (an older walk stores only up
+    to its stop), so the times are its launches alone."""
+    import ctypes
+    from blasr_tpu_torch.kernels.banded import pair_capacity
+    from blasr_tpu_torch.kernels.pallas_banded import banded_align_cuda
+    from blasr_tpu_torch.params import MappingParams
+    libs = []
+    for src in sources:
+        lib = build_source("K2", src)[0]
+        P, I = ctypes.c_void_p, ctypes.c_int
+        lib.blasr_banded_traceback.argtypes = [P] * 8 + [I] * 3 + [P] * 8
+        libs.append(lib)
+    N, L, W = 640, 2048, 3072
+    dev = torch.device("cuda")
+    ins = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+           for a in random_case(np.random.default_rng(7), N, L, W)]
+    sm = np.asarray(MappingParams().make_sane().score_matrix,
+                    np.float32).reshape(25)
+    res = banded_align_cuda(*ins, sm, 4.0, 4.0, 5.0, 5.0)
+    T = L + W
+    for t_max in ((3 * T) // 8, T):
+        Pc = pair_capacity(t_max)
+        bufs = [(torch.zeros((N, Pc // 2), dtype=torch.int32, device=dev),
+                 torch.empty((5, N), dtype=torch.int32, device=dev),
+                 torch.empty(N, dtype=torch.bool, device=dev))
+                for _ in libs]
+
+        def run(i):
+            pairs, counts, ovf = bufs[i]
+            rc = libs[i].blasr_banded_traceback(
+                res.tbbits.data_ptr(), ins[2].data_ptr(),
+                *(x.data_ptr() for x in ins[3:]),
+                res.final_state.data_ptr(), res.valid.data_ptr(), N, L, Pc,
+                pairs.data_ptr(), *(counts[k].data_ptr() for k in range(5)),
+                ovf.data_ptr(), torch.cuda.current_stream().cuda_stream)
+            assert rc == 0, f"launch failed: {rc}"
+            return bufs[i]
+
+        for i in range(len(libs)):
+            run(i)
+        torch.cuda.synchronize()
+        for i in range(1, len(libs)):
+            for a, b in zip(bufs[i], bufs[0]):
+                assert torch.equal(a, b), \
+                    f"{sources[i]} differs from {sources[0]} (t_max={t_max})"
+        for cold in (False, True):
+            in_turns(card, f"K2 (N={N}, L={L}, t_max={t_max})", sources, run,
+                     reps, cold=cold)
+
+
+def compare_k3(card, sources, reps: int = 20) -> None:
+    """K3 from each given chain_scan.cu on the bench batch's anchors
+    (2B=64, A=512; candidate and guide passes) and at B=2, A=8192: every
+    output held to the first source's, then timed in turns.  A source of
+    the int32 interface (before the kernel read the mapper's int64 anchors)
+    gets the anchors cast beforehand, outside the timing, and its outputs
+    are widened for the comparison."""
+    import ctypes
+    from blasr_tpu_torch.kernels import cuda_ops
+    from blasr_tpu_torch.kernels.anchor import Anchors
+    from blasr_tpu_torch.kernels.chain import k3_arguments
+    from torch_edge_cases import chain_rows
+    libs = []
+    for src in sources:
+        lib, data = build_source("K3", src)
+        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        LL = ctypes.c_longlong
+        wide = b"wide_pos" in data
+        lib.blasr_chain_scan.argtypes = (
+            ([P] * 3 + [I] + [P] * 3 + [I] * 5) if wide
+            else ([P] * 6 + [I] * 4)) + [F] * 3 + [I, F, I, I] + [P] * 10 \
+            + [P, LL] + [P]
+        libs.append((lib, wide))
+    cuda_ops.build()
+    gi, sims = bench_world()
+    bb = bench_batch(gi, sims)
+    dev = torch.device("cuda")
+    c = chain_rows(np.random.default_rng(8192), 2, 8192, (8192, 6000),
+                   read_len=(20_000, 40_000))
+    big = Anchors(**{f: torch.from_numpy(c[f]).to(dev)
+                     for f in ("q", "t", "l", "valid", "nlogp")},
+                  n_total=None)
+    cases = [("bench candidate pass", bb["anchors"], bb["rlen2"],
+              bb["chain_kw"]),
+             ("bench guide pass", bb["anchors"], bb["rlen2"],
+              dict(bb["chain_kw"], n_cand=1, drift_penalty=1.0)),
+             ("global scratch rows", big,
+              torch.from_numpy(c["read_len"]).to(dev),
+              dict(n_cand=20, rank_by_pvalue=True, p_value_type=0))]
+    for label, an, rl, kw in cases:
+        B, A = an.q.shape
+        a = k3_arguments(A, **kw)
+        C = a["n_cand"]
+        narrow = [x.to(torch.int32).contiguous()
+                  for x in (an.q, an.t, an.l, rl)]
+        row_bytes = 0
+        scratch = None
+        if A > cuda_ops.CHAIN_MAX_ANCHORS:
+            row_bytes = -(-A * cuda_ops.CHAIN_SMEM_PER_ANCHOR // 16) * 16
+            scratch = torch.empty(B * row_bytes, dtype=torch.uint8,
+                                  device=dev)
+        bufs = []
+        for _, wide in libs:
+            it = torch.int64 if wide else torch.int32
+            bufs.append([torch.empty((B, C), dtype=dt, device=dev)
+                         for dt in (it, it, it, it, torch.float32, it,
+                                    torch.float32, torch.bool, it)]
+                        + [torch.empty((B, A), dtype=it, device=dev)])
+
+        def run(i):
+            lib, wide = libs[i]
+            if wide:
+                pos = (an.q.data_ptr(), an.t.data_ptr(), an.l.data_ptr(), 1,
+                       an.valid.data_ptr(), an.nlogp.data_ptr(),
+                       rl.data_ptr(), int(rl.dtype == torch.int64))
+            else:
+                pos = (*(x.data_ptr() for x in narrow[:3]),
+                       an.valid.data_ptr(), an.nlogp.data_ptr(),
+                       narrow[3].data_ptr())
+            rc = lib.blasr_chain_scan(
+                *pos, B, A, a["lookback"], C, a["rate"], a["drift_frac"],
+                a["drift_slack"], int(a["drift_penalty"] > 0.0),
+                -float(a["drift_penalty"]), int(a["global_chain"]),
+                a["rank_mode"], *(o.data_ptr() for o in bufs[i]),
+                None if scratch is None else scratch.data_ptr(), row_bytes,
+                torch.cuda.current_stream().cuda_stream)
+            assert rc == 0, f"launch failed: {rc}"
+
+        for i in range(len(libs)):
+            run(i)
+        torch.cuda.synchronize()
+        ref = [x.long() if x.dtype == torch.int32 else x for x in bufs[0]]
+        for i in range(1, len(libs)):
+            for x, y in zip(bufs[i], ref):
+                x = x.long() if x.dtype == torch.int32 else x
+                assert torch.equal(x, y), \
+                    f"{sources[i]} differs from {sources[0]} ({label})"
+        in_turns(card, f"K3 ({label}: B={B}, A={A}, "
+                 f"lookback={a['lookback']}, "
+                 f"n_cand={C})", sources, run, reps if A <= 512 else 3)
 
 
 def bench_batch(gi, sims):
@@ -1071,7 +1302,13 @@ def phase_goldens(d, cuda_ops):
                            ("sam", "small", ["--sam", "--clipping", "soft"]),
                            ("m4.big", "big", ["-m", "4"]),
                            ("sam.big", "big",
-                            ["--sam", "--clipping", "soft"])],
+                            ["--sam", "--clipping", "soft"]),
+                           # the chain scan with a finite lookback (64) and
+                           # the aggressive interval cut
+                           ("m4.fastmax", "big", ["-m", "4",
+                                                  "--fastMaxInterval"]),
+                           ("m4.aggressive", "big",
+                            ["-m", "4", "--aggressiveIntervalCut"])],
              PATH_KERNELS + ("banded_dp",), "banded_dp_qv"),
             ("--useQuality", [("m4.fastq", "fastq",
                                ["-m", "4", "--useQuality"]),
@@ -1135,9 +1372,10 @@ def phase_long_reads(card, cuda_ops):
     """Two simulated reads of ~40 kb on a 1 Mbp genome mapped on the card
     through the CLI's Mapper (bucket 65536: K4's tiled slab, K5 and K6 at
     L = 65536): each read's best alignment lies on its simulated interval
-    and strand.  Every find_anchors and _band_offsets call of the run is
-    captured, and its kernel's result held to the plain version on the
-    same CUDA tensors (K6's scans cross 64 chunks of 1024 rows there)."""
+    and strand.  Every banded_traceback, window_fragment_diags_banded,
+    find_anchors and _band_offsets call of the run is captured, and its
+    kernel's result held to the plain version on the same CUDA tensors
+    (K6's scans cross 64 chunks of 1024 rows there)."""
     from blasr_tpu_torch.index.genome import build_genome_index
     from blasr_tpu_torch.kernels.anchor import Anchors, find_anchors_plain
     from blasr_tpu_torch.params import MappingParams, ShapeConfig
@@ -1155,7 +1393,8 @@ def phase_long_reads(card, cuda_ops):
     log(f"# long reads: 1 Mbp genome + index, reads of "
         f"{[len(s.rec.seq) for s in sims]} bases ({time.time() - t0:.1f}s)")
     from blasr_tpu_torch.kernels import sdp
-    k4_calls, k5_calls, k6_calls = [], [], []
+    k2_calls, k4_calls, k5_calls, k6_calls = [], [], [], []
+    k2_inner = capture_calls(map_read, "banded_traceback", k2_calls)
     k4_inner = capture_calls(sdp, "window_fragment_diags_banded", k4_calls)
     k5_inner = capture_calls(map_read, "find_anchors", k5_calls)
     k6_inner = capture_calls(map_read, "_band_offsets", k6_calls)
@@ -1167,11 +1406,14 @@ def phase_long_reads(card, cuda_ops):
         wall = time.time() - t0
         launches = dict(cuda_ops.LAUNCHES)
     finally:
+        map_read.banded_traceback = k2_inner
         sdp.window_fragment_diags_banded = k4_inner
         map_read.find_anchors = k5_inner
         map_read._band_offsets = k6_inner
-    assert k4_calls and k5_calls and k6_calls, \
-        "the long reads made no K4/K5/K6 call"
+    assert k2_calls and k4_calls and k5_calls and k6_calls, \
+        "the long reads made no K2/K4/K5/K6 call"
+    assert launches["banded_traceback"] == sum(
+        a[0].tbbits.shape[0] > 0 for a, _, _ in k2_calls), launches
     assert launches["sdp_window"] == sum(a[0].shape[0] > 0
                                          for a, _, _ in k4_calls), launches
     # every launch of the run is one of the calls held to the plain version
@@ -1188,6 +1430,19 @@ def phase_long_reads(card, cuda_ops):
             f"long-read K6 call {i + 1} is not at L = 65536"
         check_equal([out], [map_read._band_offsets_plain(*a, **kw)],
                     ("offsets",), f"K6 long-read call {i + 1}")
+    from blasr_tpu_torch.kernels.banded import banded_traceback_plain
+    for i, (a, kw, out) in enumerate(k2_calls):
+        assert a[0].tbbits.is_cuda and a[0].tbbits.shape[1] == 65536, \
+            f"long-read K2 call {i + 1} is not at L = 65536"
+        ref = banded_traceback_plain(*a, **kw)
+        for f in out._fields:
+            assert torch.equal(getattr(out, f), getattr(ref, f)), \
+                f"K2 long-read call {i + 1}: {f} differs from the plain walk"
+    log(f"# K2 == plain on the long reads' {len(k2_calls)} banded_traceback "
+        f"call(s) (N={[a[0].tbbits.shape[0] for a, _, _ in k2_calls]}, "
+        f"L=65536, t_max={[kw['t_max'] for _, kw, _ in k2_calls]}, "
+        f"{[int(o.n_pairs.max()) for _, _, o in k2_calls]} steps in the "
+        f"longest walk): exact")
     for i, (a, kw, out) in enumerate(k4_calls):
         assert a[0].is_cuda and a[0].shape[1] == 65536, \
             f"long-read K4 call {i + 1} is not at L = 65536"
@@ -1399,8 +1654,10 @@ def main() -> int:
         f"{nvcc.strip().splitlines()[-1] if nvcc else 'not found'}")
     log(f"# card: {card}; devices: {torch.cuda.device_count()}")
 
-    if sys.argv[1:2] == ["--compare-k1"]:
-        compare_k1(card, sys.argv[2:])
+    if sys.argv[1:2] == ["--compare"]:
+        sys.path.insert(0, os.path.join(HERE, "tests"))
+        {"K1": compare_k1, "K2": compare_k2,
+         "K3": compare_k3}[sys.argv[2]](card, sys.argv[3:])
         return 0
     if sys.argv[1:] == ["--k4-kernels"]:
         return count_k4_kernels(card)

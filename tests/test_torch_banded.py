@@ -18,12 +18,14 @@ import jax.numpy as jnp  # noqa: E402
 import blasr_tpu.kernels.pallas_banded as pb  # noqa: E402
 from blasr_tpu.kernels.banded import banded_align as jax_banded_align  # noqa: E402
 from blasr_tpu.kernels.banded import banded_traceback as jax_traceback  # noqa: E402
+from blasr_tpu.kernels.banded import BandedResult as JaxBandedResult  # noqa: E402
 from blasr_tpu.params import MappingParams  # noqa: E402
 from blasr_tpu_torch.kernels import banded as tb  # noqa: E402
 from blasr_tpu_torch.kernels import pallas_banded as tpb  # noqa: E402
 from test_torch_cuda import qv_words  # noqa: E402
 from torch_edge_cases import (BANDED_CASES, BANDED_NOT_PALLAS,  # noqa: E402
-                              BANDED_QV_SEED, banded_case)
+                              BANDED_QV_SEED, TB_TILE, TRACEBACK_CASES,
+                              banded_case, traceback_case)
 
 torch.set_num_threads(2)
 
@@ -213,6 +215,80 @@ def test_plain_traceback_matches_jax(t_max):
     if t_max < 640:
         assert got.overflow[[0, 3]].all()
     else:
+        assert not got.overflow.any()
+
+
+def _walk_pairs(pairs):
+    """The (op, count) halfword pairs of packed pair words [N, P//2]."""
+    p = pairs.numpy().astype(np.int64)
+    both = np.stack([p & 0xFFFF, (p >> 16) & 0xFFFF], -1).reshape(len(p), -1)
+    return both & 3, both >> 2
+
+
+@pytest.mark.parametrize("name", list(TRACEBACK_CASES))
+def test_plain_traceback_edges_match_jax(name):
+    """The plain walk against JAX's banded_traceback on planted walks at
+    the edges of K2's 16-row tiles (tests/torch_edge_cases.py::
+    traceback_case): M runs of up to 63 rows across tiles, qa / qb - 1 on
+    and beside tile edges, stalls on tile edges, L = 200, valid == 0
+    items, all-boundary walks past the 16383-column cap, overflow at P and
+    a walk leaving the band.  Every output exactly."""
+    tbb, st, valid, off, qa, qb, ta, tbv, t_max = traceback_case(name)
+    N = len(st)
+    rest = (off, qa, qb, ta, tbv)
+    jt = jax_traceback(
+        JaxBandedResult(jnp.zeros(N, jnp.float32), jnp.asarray(tbb),
+                        jnp.asarray(st), jnp.asarray(valid)),
+        *[jnp.asarray(x) for x in rest], t_max=t_max)
+    res = tb.BandedResult(torch.zeros(N), torch.from_numpy(tbb),
+                          torch.from_numpy(st), torch.from_numpy(valid))
+    got = tb.banded_traceback(res, *_torch(rest), t_max=t_max)
+    _assert_same(jt, got, tb.TracebackResult._fields)
+    op, cnt = _walk_pairs(got.pairs)
+    stall = (op == 1) & (cnt == 0)
+    if name == "m-runs-cross-tiles":
+        assert ((op == 1) & (cnt >= TB_TILE * 2 + 8)).sum() >= 10
+    if name in ("stall-on-tile-edge", "L-not-tile"):
+        assert stall.sum() >= 8
+    if name == "invalid-and-empty":
+        assert not got.n_pairs[~torch.from_numpy(valid)].any()
+        assert got.n_del[1] == 40_000 and got.n_pairs[1] == 3
+        assert (got.pairs[[0, 3]] == 0).all()
+    if name == "overflow-and-band-exit":
+        assert got.overflow.sum() >= 2
+        assert (got.n_pairs[~got.overflow] < 40).any()   # left the band
+    assert not got.overflow[torch.from_numpy(~valid)].any()
+
+
+@pytest.fixture(scope="module")
+def dp_edges():
+    """The plain DP on the K1 edge shapes, once per shape."""
+    out = {}
+    sm = _submat()
+    for name in BANDED_CASES:
+        arrs = banded_case(name)
+        out[name] = (arrs, tb.banded_align(*_torch(arrs), torch.from_numpy(sm),
+                                          4.0, 4.0, 5.0, 5.0))
+    return out
+
+
+@pytest.mark.parametrize("frac", ["3T/8", "T"])
+@pytest.mark.parametrize("name", BANDED_CASES)
+def test_plain_traceback_dp_edges_match_jax(dp_edges, name, frac):
+    """The plain walk against JAX's banded_traceback on the plain DP's
+    cell words of each K1 edge shape (tests/torch_edge_cases.py::
+    banded_case), at t_max = 3T/8 and T (T = L + W)."""
+    arrs, res = dp_edges[name]
+    L, W = arrs[0].shape[1], arrs[1].shape[1]
+    t_max = (3 * (L + W)) // 8 if frac == "3T/8" else L + W
+    rest = arrs[2:]
+    jt = jax_traceback(
+        JaxBandedResult(*(jnp.asarray(x.numpy()) for x in res)),
+        *[jnp.asarray(x) for x in rest], t_max=t_max)
+    got = tb.banded_traceback(res, *_torch(rest), t_max=t_max)
+    _assert_same(jt, got, tb.TracebackResult._fields)
+    assert got.n_pairs[res.valid].min() > 0
+    if frac == "T":
         assert not got.overflow.any()
 
 

@@ -1,8 +1,9 @@
 """The hand-written CUDA kernels (K1 banded DP in its distance and QV
 modes, K2 traceback walk, K3 chain scan, K4 SDP window pass, K5 anchor
 search, K6 band offsets) against their plain PyTorch versions, on a card.
-Skipped without a CUDA device.  K1 in both modes and K3-K6 take the edge
-inputs of ``tests/torch_edge_cases.py``, on which
+Skipped without a CUDA device.  K1 in both modes and K2-K6 take the edge
+inputs of ``tests/torch_edge_cases.py`` (K2 its planted walks and K1's
+cell words on the K1 edge shapes), on which
 ``tests/test_torch_banded.py``, ``tests/test_torch_chain_sdp_edges.py``
 and ``tests/test_torch_anchor_band_edges.py`` hold the plain versions to
 JAX; K3 also at A = 8192 (beyond one block's shared memory) and K4 at
@@ -31,9 +32,10 @@ from blasr_tpu_torch.io.fasta import FastaRecord  # noqa: E402
 from blasr_tpu_torch.pipeline import map_read as tmr  # noqa: E402
 from torch_edge_cases import (ANCHOR_CASES, BAND_CASES,  # noqa: E402
                               BANDED_CASES, BANDED_QV_SEED, CHAIN_CASES,
-                              K_SDP, SDP_CASES, anchor_case, anchor_world,
-                              band_case, banded_case, chain_case, chain_rows,
-                              long_sdp_case, sdp_case)
+                              K_SDP, SDP_CASES, TRACEBACK_CASES, anchor_case,
+                              anchor_world, band_case, banded_case,
+                              chain_case, chain_rows, long_sdp_case,
+                              sdp_case, traceback_case)
 
 pytestmark = pytest.mark.cuda
 
@@ -109,6 +111,49 @@ def test_kernels_match_plain(cuda):
     assert cuda_ops.LAUNCHES["banded_dp"] == before["banded_dp"] + 1
     assert cuda_ops.LAUNCHES["banded_traceback"] == \
         before["banded_traceback"] + 2
+
+
+def _same_walk(res, rest, t_max):
+    """K2 against the plain walk on the same CUDA tensors, every output
+    exactly, one launch; the pair buffer the kernel fills is handed out
+    dirty first, so the zeros after each stop are the kernel's own."""
+    N = res.tbbits.shape[0]
+    P = tb.pair_capacity(t_max)
+    torch.full((N, P // 2), -1, dtype=torch.int32, device=res.tbbits.device)
+    before = cuda_ops.LAUNCHES["banded_traceback"]
+    k2 = tb.banded_traceback(res, *rest, t_max=t_max)
+    torch.cuda.synchronize()
+    assert cuda_ops.LAUNCHES["banded_traceback"] == before + 1
+    p2 = tb.banded_traceback_plain(res, *rest, t_max=t_max)
+    for name, a, b in zip(k2._fields, k2, p2):
+        assert a.dtype == b.dtype and torch.equal(a, b), (name, t_max)
+    return k2
+
+
+@pytest.mark.parametrize("name", list(TRACEBACK_CASES))
+def test_traceback_kernel_edges_match_plain(cuda, name):
+    """K2 on the planted walks of tests/torch_edge_cases.py::
+    traceback_case: M runs across its 16-row tiles, qa / qb - 1 on tile
+    edges, stalls on tile edges, L = 200, valid == 0 items, overflow at P,
+    a walk leaving the band."""
+    tbb, st, valid, off, qa, qb, ta, tbv, t_max = traceback_case(name)
+    res = tb.BandedResult(torch.zeros(len(st), device=cuda),
+                          *(torch.from_numpy(x).to(cuda)
+                            for x in (tbb, st, valid)))
+    _same_walk(res, [torch.from_numpy(x).to(cuda)
+                     for x in (off, qa, qb, ta, tbv)], t_max)
+
+
+@pytest.mark.parametrize("frac", ["3T/8", "T"])
+@pytest.mark.parametrize("name", BANDED_CASES)
+def test_traceback_kernel_dp_edges_match_plain(cuda, name, frac):
+    """K2 on K1's cell words of each K1 edge shape, at t_max = 3T/8 and
+    T."""
+    args = [torch.from_numpy(a).to(cuda) for a in banded_case(name)]
+    L, W = args[0].shape[1], args[1].shape[1]
+    t_max = (3 * (L + W)) // 8 if frac == "3T/8" else L + W
+    k1 = tpb.banded_align_cuda(*args, _submat(), 4.0, 4.0, 5.0, 5.0)
+    _same_walk(k1, args[2:], t_max)
 
 
 def qv_words(rng, N, L, flavours=("ids", "qv", "none")):
@@ -234,6 +279,21 @@ def test_chain_kernel_matches_plain(cuda, name):
         assert a.dtype == b.dtype and torch.equal(a, b), f
 
 
+def test_chain_kernel_reads_both_widths(cuda):
+    """K3 reads int32 anchors and read lengths (the JAX package's dtypes)
+    as it reads the mapper's int64 ones: the same Candidates, int64
+    fields written by the kernel."""
+    c, kw = chain_case("lookback17")
+    wide = _anchors(c, cuda)
+    rlen = torch.from_numpy(c["read_len"]).to(cuda)
+    narrow = wide._replace(q=wide.q.int(), t=wide.t.int(), l=wide.l.int())
+    a = tchain.chain_anchors(wide, rlen.long(), **kw)
+    b = tchain.chain_anchors(narrow, rlen, **kw)
+    for f, x, y in zip(tchain.Candidates._fields, a, b):
+        assert x.dtype == y.dtype and torch.equal(x, y), f
+    assert a.parent.dtype == torch.int64 and a.end_idx.dtype == torch.int64
+
+
 @pytest.mark.parametrize("name", SDP_CASES)
 def test_sdp_kernel_matches_plain(cuda, name):
     """K4 against window_fragment_diags_banded_plain on the same CUDA
@@ -264,8 +324,10 @@ def test_chain_and_sdp_wrappers_check_their_inputs(cuda):
               drift_slack=50.0, drift_penalty=0.0, global_chain=False,
               rank_mode=1)
     before = dict(cuda_ops.LAUNCHES)
-    with pytest.raises(TypeError):          # int64 positions
+    with pytest.raises(TypeError):          # int64 q beside int32 t and l
         cuda_ops.chain_scan_launch(args[0].long(), *args[1:], **kw)
+    with pytest.raises(TypeError):          # float read lengths
+        cuda_ops.chain_scan_launch(*args[:5], args[5].float(), **kw)
     with pytest.raises(ValueError):         # one tensor on the CPU
         cuda_ops.chain_scan_launch(*args[:5], args[5].cpu(), **kw)
     with pytest.raises(ValueError):         # a row short

@@ -87,7 +87,40 @@ CHAIN_CASES = {
     "guide-drift": (4, 512, None, 6,
                     dict(n_cand=1, rank_by_pvalue=True, p_value_type=0,
                          drift_penalty=1.0)),
+    # rows around K3's 32-anchor scan blocks: one block short, one block,
+    # one anchor past it, two blocks and one
+    "A31": (3, 31, (31, 20, 2), 0,
+            dict(n_cand=6, rank_by_pvalue=True, p_value_type=0)),
+    "A32": (3, 32, (32, 25, 1), 2, dict(n_cand=6, rank_by_pvalue=False)),
+    "A33": (3, 33, (33, 33, 17), 0,
+            dict(n_cand=6, rank_by_pvalue=True, p_value_type=2)),
+    "A65-pvt1": (3, 65, None, 3,
+                 dict(n_cand=8, rank_by_pvalue=True, p_value_type=1)),
+    # predecessor windows shorter than a block, not a multiple of it, and
+    # two blocks (--fastMaxInterval) with the global chain
+    "lookback1": (2, 200, None, 0,
+                  dict(n_cand=8, rank_by_pvalue=True, p_value_type=0,
+                       lookback=1)),
+    "lookback17": (2, 200, None, 4,
+                   dict(n_cand=8, rank_by_pvalue=True, p_value_type=0,
+                        lookback=17)),
+    "lookback64-global": (2, 200, None, 0,
+                          dict(n_cand=8, rank_by_pvalue=True,
+                               p_value_type=0, lookback=64,
+                               global_chain=True)),
+    # every anchor twinned: equal cands on both sides of the block
+    # boundaries (a twin in the older part and one in the previous or
+    # current block), under a window of 48
+    "ties-blocks": (2, 256, (256, 230), 1,
+                    dict(n_cand=8, rank_by_pvalue=False, lookback=48)),
+    # invalid anchors at the first and last slots of every block
+    "block-edge-holes": (3, 192, (192, 170, 120), 0,
+                         dict(n_cand=8, rank_by_pvalue=True,
+                              p_value_type=0)),
 }
+
+# slots (mod 32) whose anchors a case marks invalid
+CHAIN_HOLES = {"block-edge-holes": (0, 1, 30, 31)}
 
 
 def chain_case(name):
@@ -95,7 +128,10 @@ def chain_case(name):
     rng = np.random.default_rng(sum(map(ord, name)))
     if nv is None:
         nv = rng.integers(int(0.5 * A), int(0.9 * A), B)
-    return chain_rows(rng, B, A, nv, tie_every=tie_every), kw
+    c = chain_rows(rng, B, A, nv, tie_every=tie_every)
+    holes = np.isin(np.arange(A) % 32, CHAIN_HOLES.get(name, ()))
+    c["valid"] &= ~holes[None, :]
+    return c, kw
 
 
 SDP_D = 512
@@ -429,3 +465,157 @@ def band_case(name):
         frag_valid = rng.random((N, L, F)) < (0.001 if L > 1024 else 0.3)
     return dict(mq=mq, mt=mt, ws=ws, L=L, W=W, w_b=w_b, frag_diag=frag_diag,
                 frag_valid=frag_valid, between_only=name == "between-only")
+
+
+# ---------------------------------------------------------------- traceback
+
+TB_TILE = 16      # K2 stages an item's rows in 16-row tiles
+TB_ST_M, TB_ST_I, TB_ST_D, TB_ST_H = 0, 1, 2, 3
+
+
+def _cell(rng, **f):
+    """A cell word (kernels/banded.py layout) with random unused bits and
+    the traceback fields given (the rest random)."""
+    word = int(rng.integers(0, 1 << 30))
+    for name, (shift, width) in (("i_open", (2, 1)), ("d_open", (3, 1)),
+                                 ("d_from_m", (4, 1)), ("h_open", (6, 1)),
+                                 ("rexit", (7, 2)), ("mrun", (9, 6)),
+                                 ("meq", (15, 6)), ("s_r", (21, 2)),
+                                 ("ssum", (23, 7))):
+        v = f.get(name, int(rng.integers(0, 1 << width)))
+        word = (word & ~(((1 << width) - 1) << shift)) | (v << shift)
+    return word
+
+
+def _plant_walk(rng, tbb, off, L, qa, qb, tb, st, P, runs, stall_rows,
+                exit_at):
+    """Write the cells that one item's walk reads, step by step, as the
+    walk (kernels/banded.py::banded_traceback_plain) will take them: M runs
+    drawn from ``runs`` (clipped to keep the band column in [0, 128)), I, D
+    and H steps with random exits; an M step whose landing row is in
+    ``stall_rows`` saturates its band jump (ssum = 127), so the walk
+    stalls there and re-derives its column from ``off`` (set so that it
+    lands mid-band); at the first M step from step ``exit_at`` on the
+    column leaves the band."""
+    t = tb - 1
+    r = qb - 1
+    w = t - off[min(max(r, 0), L - 1)]
+    wbad = False
+    for step in range(P):
+        if r < qa:
+            return
+        rc = min(max(r, 0), L - 1)
+        if wbad:                                     # a stall step
+            off[rc] = t - int(rng.integers(40, 88))
+            w = t - off[rc]
+            wbad = False
+            continue
+        wc = min(max(w, 0), 127)
+        w_ok = 0 <= w < 128
+        if st == TB_ST_M:
+            m = int(rng.integers(*runs))
+            target = [x for x in stall_rows if r - 63 <= x < r and x >= qa]
+            sat = bool(target) and rng.random() < 0.7
+            if sat:
+                m = r - target[0]
+            m = max(1, min(m, 63))
+            leave = 0 <= exit_at <= step
+            nw = 130 if leave else int(rng.integers(20, 108))
+            if leave:
+                exit_at = -1
+            ssum = 127 if sat else min(max(nw - w + m, 0), 126)
+            tbb[rc, wc] = _cell(rng, mrun=m, meq=int(rng.integers(0, m + 1)),
+                                ssum=ssum,
+                                rexit=int(rng.choice(4, p=(.4, .25, .25, .1))))
+            nr, t, w = r - m, t - m, w - m + ssum
+            wbad = sat and nr >= qa
+            st = (int(tbb[rc, wc]) >> 7) & 3
+        elif st == TB_ST_D:
+            tbb[rc, wc] = _cell(rng, d_open=int(rng.random() < 0.5))
+            nr, t, w = r, t - 1, w - 1
+            cell = int(tbb[rc, wc])
+            if (cell >> 3) & 1:
+                st = TB_ST_M if (cell >> 4) & 1 else TB_ST_I
+        else:
+            s_r = int(rng.integers(0, 3))
+            tbb[rc, wc] = _cell(rng, s_r=s_r, i_open=int(rng.random() < 0.5),
+                                h_open=int(rng.random() < 0.5))
+            nr, w = r - 1, w + s_r
+            cell = int(tbb[rc, wc])
+            if (cell >> (6 if st == TB_ST_H else 2)) & 1:
+                st = TB_ST_M
+        r = nr
+        if not w_ok:
+            return
+
+
+# name -> (L, t_max, M run lengths [lo, hi), per-item (qa, qb, tb - ta) or
+#          None for valid == 0, rows where a saturated M step lands, the
+#          step at which the band column leaves the band)
+TRACEBACK_CASES = {
+    # M steps of 40-63 rows cross up to four 16-row tiles at once; qb - 1
+    # on a tile's top row (63, 127, 255) and bottom row (16)
+    "m-runs-cross-tiles": (256, 640, (40, 64),
+                           [(0, 256, 300), (16, 240, 280), (3, 64, 90),
+                            (17, 128, 150), (0, 17, 40), (40, 200, 190)],
+                           (), -1),
+    # qa and qb - 1 on and beside tile edges, short runs
+    "ends-on-tile-edges": (256, 640, (1, 24),
+                           [(16, 32, 40), (15, 33, 40), (17, 49, 50),
+                            (32, 48, 30), (31, 47, 30), (0, 1, 5)],
+                           (), -1),
+    # stall steps on the first and last rows of tiles
+    "stall-on-tile-edge": (256, 640, (4, 40),
+                           [(0, 256, 300), (5, 250, 300), (16, 200, 240),
+                            (0, 160, 200), (33, 255, 260), (2, 129, 150)],
+                           (16, 31, 32, 47, 48, 64, 79, 95, 96, 127, 128,
+                            143, 160, 175, 191, 192, 208, 223, 224), -1),
+    # L = 200 is not a multiple of the tile: the top tile holds 8 rows
+    "L-not-tile": (200, 640, (1, 40),
+                   [(0, 200, 240), (7, 200, 220), (0, 193, 230),
+                    (100, 192, 120), (191, 200, 20), (0, 199, 230)],
+                   (64, 79, 112, 128), -1),
+    # valid == 0 items; qb - 1 < qa (the walk is all boundary, one item
+    # past the 16383-column cap); qa = qb - 1
+    "invalid-and-empty": (256, 640, (1, 30),
+                          [None, (10, 10, 40_000), (0, 256, 300), None,
+                           (50, 51, 3), (0, 0, 0)], (), -1),
+    # walks longer than P = 128 (short runs, many I / D steps) overflow;
+    # one leaves the band at its 20th step
+    "overflow-and-band-exit": (256, 128, (1, 4),
+                               [(0, 256, 300), (0, 240, 280), (30, 250, 260),
+                                (0, 256, 300), (100, 256, 200),
+                                (0, 200, 230)], (), 20),
+}
+
+
+def traceback_case(name):
+    """Inputs of the run-length traceback with planted walks: (tbbits
+    int32 [N, L, 128], final_state int32 [N], valid bool [N], offsets
+    int32 [N, L], qa, qb, ta, tb int32 [N], t_max).  Cells off the walks
+    are random words; each walk's cells are written as it will read them
+    (:func:`_plant_walk`), so its rows, runs, stalls and stop are
+    chosen."""
+    L, t_max, runs, items, stall_rows, exit_at = TRACEBACK_CASES[name]
+    rng = np.random.default_rng(sum(map(ord, name)))
+    N = len(items)
+    P = -(-t_max // 128) * 128
+    tbb = rng.integers(0, 1 << 30, (N, L, 128)).astype(np.int64)
+    off = rng.integers(0, 400, (N, L)).astype(np.int64)
+    qa, qb, ta, tb = (np.zeros(N, np.int64) for _ in range(4))
+    st = rng.integers(0, 3, N).astype(np.int64)
+    valid = np.array([it is not None for it in items])
+    for n, it in enumerate(items):
+        qa[n], qb[n], span = it if it is not None else (0, L, 200)
+        ta[n] = int(rng.integers(1, 40))
+        tb[n] = ta[n] + span
+        off[n, min(max(qb[n] - 1, 0), L - 1)] = tb[n] - 1 - int(
+            rng.integers(30, 98))
+        if it is not None:
+            _plant_walk(rng, tbb[n], off[n], L, int(qa[n]), int(qb[n]),
+                        int(tb[n]), int(st[n]), P, runs, stall_rows,
+                        exit_at if n % 2 == 0 else -1)
+    i32 = np.int32
+    return (tbb.astype(i32), st.astype(i32), valid, off.astype(i32),
+            qa.astype(i32), qb.astype(i32), ta.astype(i32), tb.astype(i32),
+            t_max)
