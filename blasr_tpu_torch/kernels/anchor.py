@@ -109,7 +109,10 @@ def find_anchors(genome, keys_sorted, pos_sorted, reads, read_len, *,
                                    read_len, **kw),
         lambda ops: ops.anchor_search_launch(
             genome, keys_sorted, pos_sorted, reads.contiguous(),
-            read_len.to(torch.int32).contiguous(), **kw))
+            # the mapper's read lengths are int32 already: no call
+            read_len if read_len.dtype == torch.int32
+            and read_len.is_contiguous()
+            else read_len.to(torch.int32).contiguous(), **kw))
 
 
 def find_anchors_plain(genome, keys_sorted, pos_sorted, reads, read_len, *,

@@ -52,8 +52,11 @@ LAUNCHES = {"banded_dp": 0, "banded_dp_qv": 0, "banded_traceback": 0,
 SMEM_OPTIN = 232448 - 1024
 CHAIN_SMEM_PER_ANCHOR = 42
 CHAIN_MAX_ANCHORS = SMEM_OPTIN // CHAIN_SMEM_PER_ANCHOR
+# K6 keeps an item's rows in shared memory up to this many, above in a
+# global scratch of two int32 rows an item (csrc/band_offsets.cu)
+BAND_SMEM_ROWS = 8192
 # K5's selection CTA: its static shared arrays, and the largest A it sorts
-ANCHOR_SELECT_STATIC = 8 * 1024 + 8 * 32 + 4 * 256 + 64
+ANCHOR_SELECT_STATIC = 8 * 1024 + 8 * 32 + 4 * 512 + 64
 ANCHOR_MAX_SELECT = 16384
 
 _lock = threading.Lock()
@@ -128,39 +131,38 @@ def build_log() -> str:
     return p.read_text() if p.exists() else ""
 
 
+_P, _I, _F, _LL = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                   ctypes.c_longlong)
+# each C entry point: (restype, argtypes)
+ARGTYPES = {
+    "blasr_banded_dp": (_I, [_P] * 7 + [_I] * 3 + [_F] * 6 + [_P] * 4 + [_P]),
+    "blasr_banded_dp_qv": (_I, [_P] * 9 + [_I] * 3 + [_F] + [_P] * 4 + [_P]),
+    "blasr_banded_traceback": (_I, [_P] * 8 + [_I] * 3 + [_P] * 7 + [_P]),
+    "blasr_chain_scan": (_I, [_P] * 3 + [_I] + [_P] * 3 + [_I] * 5
+                         + [_F] * 3 + [_I, _F, _I, _I] + [_P] * 10
+                         + [_P, _LL] + [_P]),
+    "blasr_sdp_window": (_I, [_P] * 4 + [_I, _P] + [_I] * 8 + [_P] * 2
+                         + [_P]),
+    "blasr_sdp_window_smem": (ctypes.c_size_t, [_I] * 3),
+    "blasr_anchor_search": (_I, [_P] * 10 + [_LL] * 2 + [_I] * 8 + [_LL]
+                            + [_I] * 5 + [_F] + [_P] * 12 + [_P]),
+    "blasr_band_offsets": (_I, [_P] * 5 + [_I] * 7 + [_P] * 2 + [_P]),
+}
+
+
+def bind(lib: ctypes.CDLL, names=tuple(ARGTYPES)) -> ctypes.CDLL:
+    """Set the C signatures of ``names`` on a loaded library."""
+    for name in names:
+        fn = getattr(lib, name)
+        fn.restype, fn.argtypes = ARGTYPES[name]
+    return lib
+
+
 def _load() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            LL = ctypes.c_longlong
-            lib.blasr_banded_dp.restype = I
-            lib.blasr_banded_dp.argtypes = (
-                [P] * 7 + [I] * 3 + [F] * 6 + [P] * 4 + [P])
-            lib.blasr_banded_dp_qv.restype = I
-            lib.blasr_banded_dp_qv.argtypes = (
-                [P] * 9 + [I] * 3 + [F] + [P] * 4 + [P])
-            lib.blasr_banded_traceback.restype = I
-            lib.blasr_banded_traceback.argtypes = (
-                [P] * 8 + [I] * 3 + [P] * 7 + [P])
-            lib.blasr_chain_scan.restype = I
-            lib.blasr_chain_scan.argtypes = (
-                [P] * 3 + [I] + [P] * 3 + [I] * 5 + [F] * 3 + [I, F, I, I]
-                + [P] * 10 + [P, LL] + [P])
-            lib.blasr_sdp_window.restype = I
-            lib.blasr_sdp_window.argtypes = (
-                [P] * 4 + [I, P] + [I] * 8 + [P] * 2 + [P])
-            lib.blasr_sdp_window_smem.restype = ctypes.c_size_t
-            lib.blasr_sdp_window_smem.argtypes = [I] * 3
-            lib.blasr_anchor_search.restype = I
-            lib.blasr_anchor_search.argtypes = (
-                [P] * 10 + [LL] * 2 + [I] * 8 + [LL] + [I] * 5 + [F]
-                + [P] * 12 + [P])
-            lib.blasr_band_offsets.restype = I
-            lib.blasr_band_offsets.argtypes = (
-                [P] * 5 + [I] * 7 + [P] * 2 + [P])
-            _lib = lib
+            _lib = bind(ctypes.CDLL(str(build())))
         return _lib
 
 
@@ -389,7 +391,7 @@ def anchor_search_launch(genome, keys_sorted, pos_sorted, reads, read_len, *,
                          max_anchors_per_pos: int, max_lcp: int = 0,
                          advance_exact: int = 0, bucket_starts=None,
                          bucket_pairs=None, gwords=None, gnwords=None,
-                         pos_records=None) -> Anchors:
+                         pos_records=None, lib=None) -> Anchors:
     """K5 on CUDA tensors: reads int8 [B, L], read_len int32 [B] and the
     DeviceIndex fields in their dtypes (genome int8 [G], keys_sorted and
     pos_sorted int64 [M], bucket_starts int32 [4^k + 1], bucket_pairs int32
@@ -397,7 +399,8 @@ def anchor_search_launch(genome, keys_sorted, pos_sorted, reads, read_len, *,
     lookup is the paired LUT rows if given, else the LUT, else the sorted
     keys; the records serve the fetch when given and anchor_ext <= 32.
     Returns the Anchors of ``find_anchors_plain``, every field in its
-    dtype."""
+    dtype.  ``lib`` launches another build of the same C interface
+    (``chip_smoke.py --compare K5``) instead of the package's."""
     dev = reads.device
     if dev.type != "cuda":
         raise ValueError("anchor_search_launch needs CUDA tensors")
@@ -436,26 +439,28 @@ def anchor_search_launch(genome, keys_sorted, pos_sorted, reads, read_len, *,
     A_out = min(max_anchors, n)
     nbits = max(1, (n - 1).bit_length())
     lmax = k + E
-    P = 1 << (A_out - 1).bit_length()
-    smem = 8 * P + 4 * A_out + 4 * (lmax + 1)
+    P = max(32, 1 << (A_out - 1).bit_length())
+    # the keys, and a second buffer for the merge sort up to 4096 of them
+    smem = (16 if P <= 4096 else 8) * P + 4 * A_out + 4 * (lmax + 1)
     if (n >= 1 << 31 or lmax >= 1 << 16 or lmax.bit_length() + nbits > 32
             or A_out > ANCHOR_MAX_SELECT
             or smem + ANCHOR_SELECT_STATIC > SMEM_OPTIN):
         raise ValueError(f"K5 cannot rank L*O = {n} candidates of length "
                          f"<= {lmax} into {A_out} anchors per row")
     i64 = torch.int64
-    nblk = -(-L // 256)
     hits_t = torch.empty((B, L, O), dtype=i64, device=dev)
     hits_valid = torch.empty((B, L, O), dtype=torch.bool, device=dev)
-    meta = torch.empty((B, n), dtype=torch.int32, device=dev)
-    cnlogp = torch.empty((B, n), dtype=torch.float32, device=dev)
-    clip_part = torch.empty((B, nblk), dtype=torch.int32, device=dev)
     q, t, l = (torch.empty((B, A_out), dtype=i64, device=dev)
                for _ in range(3))
     valid = torch.empty((B, A_out), dtype=torch.bool, device=dev)
     nlogp = torch.empty((B, A_out), dtype=torch.float32, device=dev)
     n_total = torch.empty(B, dtype=torch.int32, device=dev)
     n_clipped = torch.empty(B, dtype=torch.int32, device=dev)
+    # the kernels' scratch in one buffer (a view costs more host time than
+    # an allocation, so the outputs stay their own): per candidate a meta
+    # word and its nlogp, per 256-position block of a row its clip sum
+    nblk = -(-L // 256)
+    scratch = torch.empty(B * (2 * n + nblk), dtype=torch.int32, device=dev)
     if B > 0:
         def ptr(x):
             return None if x is None else x.data_ptr()
@@ -464,8 +469,10 @@ def anchor_search_launch(genome, keys_sorted, pos_sorted, reads, read_len, *,
             # lengths stay below 2^16: wider values compare the same
             return max(min(int(x), 1 << 30), -(1 << 30))
 
-        lib = _load()
+        if lib is None:
+            lib = _load()
         big = (1 << 63) - 1
+        meta = scratch.data_ptr()
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             rc = lib.blasr_anchor_search(
@@ -479,8 +486,8 @@ def anchor_search_launch(genome, keys_sorted, pos_sorted, reads, read_len, *,
                 clamp30(min_match), max(min(max_anchors_per_pos, big), -big),
                 clamp30(max_lcp), clamp30(advance_exact), A_out, nbits, lmax,
                 float(M),
-                hits_t.data_ptr(), hits_valid.data_ptr(), meta.data_ptr(),
-                cnlogp.data_ptr(), clip_part.data_ptr(), q.data_ptr(),
+                hits_t.data_ptr(), hits_valid.data_ptr(), meta,
+                meta + 4 * B * n, meta + 8 * B * n, q.data_ptr(),
                 t.data_ptr(), l.data_ptr(), valid.data_ptr(),
                 nlogp.data_ptr(), n_total.data_ptr(), n_clipped.data_ptr(),
                 stream)
@@ -493,7 +500,7 @@ def anchor_search_launch(genome, keys_sorted, pos_sorted, reads, read_len, *,
 
 def band_offsets_launch(mq, mt, ws, *, L: int, W: int, w_b: int,
                         frag_diag=None, frag_valid=None,
-                        between_only: bool = False) -> torch.Tensor:
+                        between_only: bool = False, lib=None) -> torch.Tensor:
     """K6 on CUDA tensors: chain members mq/mt int64 [N, MC] (BIG32 where
     invalid), window starts ws int64 [N], and optionally the fragments
     frag_diag int64 / frag_valid bool [N, L, F].  Returns the int64 [N, L]
@@ -516,15 +523,20 @@ def band_offsets_launch(mq, mt, ws, *, L: int, W: int, w_b: int,
         raise ValueError(f"K6 packs rows in 16 bits: L = {L}, w_b = {w_b}")
     out = torch.empty((N, L), dtype=torch.int64, device=dev)
     if N > 0:
-        scratch = torch.empty((N, 2, L), dtype=torch.int32, device=dev)
-        lib = _load()
+        scratch = None
+        if L > BAND_SMEM_ROWS or lib is not None:
+            # another build (--compare) may keep its rows there at any L
+            scratch = torch.empty((N, 2, L), dtype=torch.int32, device=dev)
+        if lib is None:
+            lib = _load()
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             rc = lib.blasr_band_offsets(
                 mq.data_ptr(), mt.data_ptr(), ws.data_ptr(),
                 None if F == 0 else frag_diag.data_ptr(),
                 None if F == 0 else frag_valid.data_ptr(), N, MC, L, W, w_b,
-                F, int(bool(between_only)), scratch.data_ptr(),
+                F, int(bool(between_only)),
+                None if scratch is None else scratch.data_ptr(),
                 out.data_ptr(), stream)
         _launched(rc, "band_offsets")
         LAUNCHES["band_offsets"] += 1

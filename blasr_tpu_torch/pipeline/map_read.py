@@ -255,7 +255,10 @@ def _band_offsets(mq, mt, ws, L, W, w_b,
     plain version on CPU tensors (same contract as
     :func:`_band_offsets_plain`)."""
     def i64(x):
-        return None if x is None else x.to(torch.int64).contiguous()
+        # the mapper's tensors are int64 and contiguous already: no call
+        if x is None or (x.dtype == torch.int64 and x.is_contiguous()):
+            return x
+        return x.to(torch.int64).contiguous()
 
     return on_device(
         "_band_offsets", mq.device,
@@ -264,7 +267,9 @@ def _band_offsets(mq, mt, ws, L, W, w_b,
         lambda ops: ops.band_offsets_launch(
             i64(mq), i64(mt), i64(ws), L=L, W=W, w_b=w_b,
             frag_diag=i64(frag_diag),
-            frag_valid=None if frag_valid is None else frag_valid.contiguous(),
+            frag_valid=(frag_valid if frag_valid is None
+                        or frag_valid.is_contiguous()
+                        else frag_valid.contiguous()),
             between_only=between_only))
 
 

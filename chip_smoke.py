@@ -4,13 +4,18 @@
 Run from the repository root on a machine with a CUDA card:
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --compare K1|K2|K3 A/kernel.cu B/kernel.cu
+    python3 chip_smoke.py --compare K1|K2|K3|K5|K6 A/kernel.cu B/kernel.cu
 
 The second form only builds the named kernel from each given source (K1
-banded_dp.cu, K2 banded_traceback.cu, K3 chain_scan.cu; e.g. a parent
-commit's unpacked beside this one's), holds their outputs equal on phase
-2's inputs (K3: the bench batch and A = 8192) and times them in turns,
-A B B A (see ``compare_k1``, ``compare_k2``, ``compare_k3``).
+banded_dp.cu, K2 banded_traceback.cu, K3 chain_scan.cu, K5
+anchor_search.cu, K6 band_offsets.cu; e.g. a parent commit's unpacked
+beside this one's), holds their outputs equal on phase 2's inputs (K3:
+the bench batch and A = 8192; K5: the bench batch's find_anchors call and
+a long read's at L = 65536; K6: the bench batch's two _band_offsets calls
+and a long read's) and times them in turns, A B B A (see ``compare_k1``
+.. ``compare_k6``): K5 and K6 by their device time alone (``device_ms``)
+and by the call's.  ``--device-times`` (run by phase 2 as a child) and
+``--k4-kernels`` (phase 5's) are the script's own child modes.
 
 Phases (any failed check exits nonzero):
   1. header: torch / CUDA / nvcc versions, the card's name and power limit;
@@ -35,7 +40,10 @@ Phases (any failed check exits nonzero):
      on the bench batch (the
      find_anchors call of its map_batch) and K6 on the two _band_offsets
      calls of that batch's map_batch, captured, both also on the edge
-     inputs;
+     inputs; K5's and K6's calls timed three ways: the call (events around
+     20 back to back), the device behind a spin kernel (``device_ms``)
+     and each kernel by torch.profiler in a child process
+     (``--device-times``: one profiler session of its own);
   3. the golden worlds of tests/test_golden.py through the port's CLI with
      ``--device cuda``, byte for byte against tests/golden/: the main path
      (small: 60 kb, 12 reads; big: 4.6 Mbp, 11 reads; golden.{m4,sam,
@@ -59,12 +67,15 @@ Phases (any failed check exits nonzero):
      dispatch (candidate and guide passes; band offsets before and after
      the SDP pass), K4 and K5 once;
   5. torch.profiler over one more pass in each mode: launches per read, the
-     device's busy share, the kernels with the most device time; over one
+     device's busy share, the kernels with the most device time, each
+     hand-written kernel's device ms per call; over one
      bench-shape call of K4's function, which must be one kernel (in a
      child process, ``--k4-kernels``, with a profiler session of its
      own); then
      rule 2's measure for K1-K6: launches per pass pair x (kernel ms -
-     bound ms).
+     bound ms), with the kernel's ms as phase 2 times the call and as its
+     device time alone (K5, K6: phase 2's profiled calls; K1-K4: phase 5's
+     passes, per launch).
 The second-to-last lines are a JSON kernel table and the card's name and
 power limit; the last line is ``{"ok": true, "device": {...}}``.
 Exits nonzero without a result when no CUDA device is present or when
@@ -229,6 +240,47 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+# cycles a spin kernel holds the stream for while the host enqueues one
+# call behind it (~1 ms at the H100's clocks, longer than any wrapper's
+# host time here)
+SPIN_CYCLES = 2_000_000
+
+
+def device_ms(fn, reps: int) -> float:
+    """Mean device ms of one call of ``fn``, the host's time hidden: a spin
+    kernel (``torch.cuda._sleep``) keeps the stream busy while the host
+    enqueues two CUDA events around the call, so the events time only the
+    call's kernels and the gaps between them on the device."""
+    evs = []
+    for _ in range(reps):
+        torch.cuda._sleep(SPIN_CYCLES)
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        fn()
+        ev[1].record()
+        evs.append(ev)
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in evs) / reps
+
+
+def short_name(name: str) -> str:
+    """A kernel's name as torch.profiler records it, without its return
+    type, namespace and parameter list: 'banded_dp_kernel<false>'."""
+    name = name.replace("(anonymous namespace)::", "")
+    if name.startswith("void "):
+        name = name[5:]
+    return name.split("(")[0]
+
+
+def is_kernel(name: str, names) -> bool:
+    """Whether a short kernel name is one of ``names``, or an instance of
+    one of them that names no template arguments ('anchor_candidates'
+    takes 'anchor_candidates<3, false>')."""
+    return any(name == n or ("<" not in n and name.startswith(n + "<"))
+               for n in names)
 
 
 def cold_ms(fn, reps: int) -> float:
@@ -478,20 +530,24 @@ def build_source(kernel: str, src: str):
     return ctypes.CDLL(str(so)), data
 
 
-def in_turns(card, what: str, sources, run, reps: int, cold=False):
+def in_turns(card, what: str, sources, run, reps: int, mode="warm"):
     """Each source's ``run(i)`` timed in turns, first to last and back
-    (A B B A), warm (reps back to back) or cold (L2 flushed before each
-    call); one line per source."""
+    (A B B A): "warm" (reps back to back, events around them: the call's
+    time, host included when the host is the slower), "cold" (L2 flushed
+    before each call) or "device" (each call behind a spin kernel, the
+    device's time alone, ``device_ms``); one line per source.  Returns
+    {source index: [ms, ms]}."""
     order = list(range(len(sources))) + list(reversed(range(len(sources))))
     times = {i: [] for i in range(len(sources))}
+    timer = {"warm": cuda_ms, "cold": cold_ms, "device": device_ms}[mode]
     for i in order:
         fn = lambda: run(i)  # noqa: E731
-        times[i].append(cold_ms(fn, reps) if cold else cuda_ms(fn, reps))
+        times[i].append(timer(fn, reps))
     for i, src in enumerate(sources):
         log(f"# {what} from {src}: "
             f"{', '.join(f'{t:.4f}' for t in times[i])} ms per call "
-            f"{'cold' if cold else 'warm'} (outputs equal to the first "
-            f"source's) on {card}")
+            f"{mode} (outputs equal to the first source's) on {card}")
+    return times
 
 
 def compare_k1(card, sources, reps: int = 5) -> None:
@@ -592,9 +648,9 @@ def compare_k2(card, sources, reps: int = 5) -> None:
             for a, b in zip(bufs[i], bufs[0]):
                 assert torch.equal(a, b), \
                     f"{sources[i]} differs from {sources[0]} (t_max={t_max})"
-        for cold in (False, True):
+        for mode in ("warm", "cold"):
             in_turns(card, f"K2 (N={N}, L={L}, t_max={t_max})", sources, run,
-                     reps, cold=cold)
+                     reps, mode)
 
 
 def compare_k3(card, sources, reps: int = 20) -> None:
@@ -687,6 +743,89 @@ def compare_k3(card, sources, reps: int = 20) -> None:
         in_turns(card, f"K3 ({label}: B={B}, A={A}, "
                  f"lookback={a['lookback']}, "
                  f"n_cand={C})", sources, run, reps if A <= 512 else 3)
+
+
+def compare_k5(card, sources, reps: int = 20) -> None:
+    """K5 from each given anchor_search.cu (one C interface) through the
+    package's wrapper, on the bench batch's find_anchors call and on the
+    long-read world's first one (L = 65536): every Anchors field held to
+    the first source's, then timed in turns, the device alone and the
+    call."""
+    from blasr_tpu_torch.kernels import cuda_ops
+    libs = [cuda_ops.bind(build_source("K5", src)[0],
+                          ("blasr_anchor_search",)) for src in sources]
+    cuda_ops.build()
+    gi, sims = bench_world()
+    bb = bench_batch(gi, sims)
+    long_a, long_kw = long_read_calls("find_anchors")[0]
+    for label, a, kw, n in (("bench batch", bb["anchor_args"],
+                             bb["anchor_kw"], reps),
+                            ("long read", long_a, long_kw, 5)):
+        a = (*a[:3], a[3].contiguous(), a[4].to(torch.int32).contiguous())
+
+        def run(i):
+            return cuda_ops.anchor_search_launch(*a, **kw, lib=libs[i])
+
+        outs = [run(i) for i in range(len(libs))]
+        torch.cuda.synchronize()
+        for i in range(1, len(libs)):
+            check_equal(outs[i], outs[0], outs[0]._fields,
+                        f"K5 from {sources[i]} ({label})")
+        B, L = a[3].shape
+        what = (f"K5 ({label}: B={B}, L={L}, O={kw['occ_per_pos']}, "
+                f"A={outs[0].q.shape[1]})")
+        for mode in ("device", "warm"):
+            in_turns(card, what, sources, run, n, mode)
+
+
+def band_launch_args(a, kw) -> dict:
+    """A captured ``_band_offsets`` call's arguments by name, the tensors
+    as the K6 wrapper takes them."""
+    import inspect
+    from blasr_tpu_torch.pipeline import map_read
+    b = inspect.signature(map_read._band_offsets_plain).bind(*a, **kw)
+    b.apply_defaults()
+    x = dict(b.arguments)
+    for f in ("mq", "mt", "ws", "frag_diag", "frag_valid"):
+        if x[f] is not None:
+            x[f] = x[f].contiguous()
+    return x
+
+
+def compare_k6(card, sources, reps: int = 20) -> None:
+    """K6 from each given band_offsets.cu (one C interface) through the
+    package's wrapper, on the two _band_offsets calls of the bench batch's
+    map_batch and on the long-read world's first one (L = 65536): outputs
+    held to the first source's, then timed in turns, the device alone and
+    the call."""
+    from blasr_tpu_torch.kernels import cuda_ops
+    libs = [cuda_ops.bind(build_source("K6", src)[0],
+                          ("blasr_band_offsets",)) for src in sources]
+    cuda_ops.build()
+    gi, sims = bench_world()
+    calls = [(f"bench call {i + 1}", a, kw, reps)
+             for i, (a, kw, _) in enumerate(band_calls(bench_batch(gi,
+                                                                   sims)))]
+    calls.append(("long read",
+                  *long_read_calls("_band_offsets")[0], 5))
+    for label, a, kw, n in calls:
+        x = band_launch_args(a, kw)
+
+        def run(i):
+            return cuda_ops.band_offsets_launch(
+                x["mq"], x["mt"], x["ws"], L=x["L"], W=x["W"], w_b=x["w_b"],
+                frag_diag=x["frag_diag"], frag_valid=x["frag_valid"],
+                between_only=x["between_only"], lib=libs[i])
+
+        outs = [run(i) for i in range(len(libs))]
+        torch.cuda.synchronize()
+        for i in range(1, len(libs)):
+            assert torch.equal(outs[i], outs[0]), \
+                f"K6 from {sources[i]} differs from {sources[0]} ({label})"
+        F = 0 if x["frag_diag"] is None else x["frag_diag"].shape[-1]
+        what = (f"K6 ({label}: N={x['mq'].shape[0]}, L={x['L']}, F={F})")
+        for mode in ("device", "warm"):
+            in_turns(card, what, sources, run, n, mode)
 
 
 def bench_batch(gi, sims):
@@ -844,13 +983,15 @@ def k4_bound(args, diag, valid, occ: int, D: int, k: int):
 def k6_bound(mq, mt, ws, L, W, w_b, frag_diag=None, frag_valid=None,
              between_only=False):
     """Bound of one _band_offsets call: the members (two int64 [N, MC]),
-    the window starts and the fragments (int64 diagonal and a flag per
-    slot) read once, the int64 offsets written once; ~30 integer
-    operations per row (three fills, the interpolation, two scans) and ~8
-    per fragment slot."""
+    the window starts and the fragment flags (one byte a slot) read once,
+    the int64 diagonal of each slot whose flag is set (the others' do not
+    change the result: this run's data, not the most it could need), the
+    int64 offsets written once; ~30 integer operations per row (three
+    fills, the interpolation, two scans) and ~8 per fragment slot."""
     N, MC = mq.shape
     F = 0 if frag_diag is None else frag_diag.shape[-1]
-    nbytes = 16 * N * MC + 8 * N + 9 * N * L * F + 8 * N * L
+    n_set = 0 if frag_valid is None else int(frag_valid.sum())
+    nbytes = 16 * N * MC + 8 * N + N * L * F + 8 * n_set + 8 * N * L
     return bound(nbytes, N * L * (30 + 8 * F))
 
 
@@ -883,6 +1024,98 @@ def unported_bounds(card, bb):
         f"fragments): bound {1e3 * sa[0]:.4f} us ({sa[1]})")
 
 
+def band_calls(bb) -> list:
+    """The two _band_offsets calls of the bench batch's map_batch, captured
+    as it makes them: [(args, kwargs, K6's offsets)]."""
+    from blasr_tpu_torch.pipeline import map_read
+    calls = []
+    inner = capture_calls(map_read, "_band_offsets", calls)
+    try:
+        map_read.map_batch(bb["ix"], bb["reads"], bb["rl"], *bb["pos"],
+                           **bb["kw"])
+        torch.cuda.synchronize()
+    finally:
+        map_read._band_offsets = inner
+    assert len(calls) == 2, f"map_batch made {len(calls)} band-offset calls"
+    return calls
+
+
+# the kernels of each wrapper as torch.profiler names them (short_name):
+# (those of which a call launches exactly one, the call's other kernels)
+PROFILE_KERNELS = {
+    "banded_dp": (("banded_dp_kernel<false>",), ()),
+    "banded_dp_qv": (("banded_dp_kernel<true>",), ()),
+    "banded_traceback": (("banded_traceback_kernel",), ()),
+    "chain_scan": (("chain_scan_kernel<false>", "chain_scan_kernel<true>"),
+                   ()),
+    "sdp_window": (("sdp_window_kernel",), ()),
+    "anchor_search": (("anchor_candidates",), ("anchor_select",)),
+    "band_offsets": (("band_offsets_kernel", "band_offsets_rows"), ()),
+}
+DEVICE_TIMES_REPS = 20
+
+
+def k5k6_device_times(card) -> int:
+    """The ``--device-times`` mode: phase 2's K5 call (the bench batch's
+    find_anchors) and K6 calls (its map_batch's two _band_offsets calls),
+    20 times each after a warm call, under one torch.profiler session of
+    this process's own; prints each kernel's device ms per call as one
+    JSON line (``# device-times {...}``).  0 if every launch was
+    recorded."""
+    from torch.profiler import ProfilerActivity, profile
+    from blasr_tpu_torch.kernels import cuda_ops
+    from blasr_tpu_torch.kernels.anchor import find_anchors
+    from blasr_tpu_torch.pipeline import map_read
+    cuda_ops.build()
+    gi, sims = bench_world()
+    bb = bench_batch(gi, sims)
+    fns = [lambda: find_anchors(*bb["anchor_args"], **bb["anchor_kw"])]
+    fns += [lambda a=a, kw=kw: map_read._band_offsets(*a, **kw)
+            for a, kw, _ in band_calls(bb)]
+    reps = DEVICE_TIMES_REPS
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for fn in fns:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+    evs = sorted((e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA),
+                 key=lambda e: e.time_range.start)
+    k5, k6 = {}, []
+    for e in evs:
+        name, ms = short_name(e.name), e.time_range.elapsed_us() / 1e3
+        if is_kernel(name, sum(PROFILE_KERNELS["anchor_search"], ())):
+            k5[name] = k5.get(name, 0.0) + ms / reps
+        elif is_kernel(name, PROFILE_KERNELS["band_offsets"][0]):
+            k6.append(ms)
+    n_k5 = sum(is_kernel(short_name(e.name),
+                         PROFILE_KERNELS["anchor_search"][0]) for e in evs)
+    if n_k5 != reps or len(k6) != 2 * reps:
+        log(f"# device-times: torch.profiler recorded {n_k5} K5 and "
+            f"{len(k6)} K6 launches of {reps} and {2 * reps} on {card}")
+        return 1
+    log("# device-times " + json.dumps({
+        "anchor_search": k5,
+        "band_offsets": [sum(k6[:reps]) / reps, sum(k6[reps:]) / reps]}))
+    return 0
+
+
+def run_child(flag: str):
+    """This script in a child process with ``flag`` (a profiler session of
+    its own, unslowed and unaffected by this process's): (exit code, its
+    standard output)."""
+    r = subprocess.run([sys.executable, os.path.abspath(__file__), flag],
+                       capture_output=True, text=True, timeout=600, cwd=HERE)
+    if r.returncode != 0:
+        log(f"# child {flag} exited {r.returncode}:\n{r.stdout[-2000:]}"
+            f"{r.stderr[-2000:]}")
+    return r.returncode, r.stdout
+
+
 def phase_anchor_band(card, bb):
     """K5 and K6 against their plain versions on the same CUDA tensors: K5
     on the bench batch's find_anchors call, K6 on the two _band_offsets
@@ -902,24 +1135,10 @@ def phase_anchor_band(card, bb):
     torch.cuda.synchronize()
     k5_err = check_equal(bb["anchors"], ref, fields, "K5 bench batch")
     k5_ms = cuda_ms(lambda: find_anchors(*args, **akw), 20)
+    k5_spin = device_ms(lambda: find_anchors(*args, **akw), 20)
     k5_plain = cuda_ms(lambda: find_anchors_plain(*args, **akw), 3)
     k5_bound = anchors_bound(bb["anchors"], bb["rlen2"], bb["kw"])
-    B, L, O = bb["anchors"].hits_t.shape
-    log(f"# K5 == plain on the bench batch (B={B}, L={L}, O={O}, "
-        f"A={bb['anchors'].q.shape[1]}): every field exact, "
-        f"{int(bb['anchors'].valid.sum())} valid anchors; kernel "
-        f"{k5_ms:.3f} ms, plain {k5_plain:.3f} ms, bound "
-        f"{k5_bound[0]:.4f} ms ({k5_bound[1]}) on {card}")
-
-    calls = []
-    inner = capture_calls(map_read, "_band_offsets", calls)
-    try:
-        map_read.map_batch(bb["ix"], bb["reads"], bb["rl"], *bb["pos"],
-                           **bb["kw"])
-        torch.cuda.synchronize()
-    finally:
-        map_read._band_offsets = inner
-    assert len(calls) == 2, f"map_batch made {len(calls)} band-offset calls"
+    calls = band_calls(bb)
     k6_err = 0.0
     k6 = []
     for i, (a, kw, out) in enumerate(calls):
@@ -928,13 +1147,38 @@ def phase_anchor_band(card, bb):
         k6_err = max(k6_err, check_equal([out], [ref], ("offsets",),
                                          f"K6 call {i + 1}"))
         kms = cuda_ms(lambda: map_read._band_offsets(*a, **kw), 20)
+        spin = device_ms(lambda: map_read._band_offsets(*a, **kw), 20)
         pms = cuda_ms(lambda: map_read._band_offsets_plain(*a, **kw), 3)
-        kb = k6_bound(*a, **kw)
-        k6.append((kms, pms, kb))
+        k6.append((kms, pms, k6_bound(*a, **kw), spin))
+
+    # each kernel's own device time on the same calls, by torch.profiler
+    # in a child process
+    rc, out = run_child("--device-times")
+    dt = None
+    for line in out.splitlines():
+        if line.startswith("# device-times "):
+            dt = json.loads(line[len("# device-times "):])
+    assert rc == 0 and dt is not None, "--device-times recorded nothing"
+    k5_dev = sum(dt["anchor_search"].values())
+    B, L, O = bb["anchors"].hits_t.shape
+    log(f"# K5 == plain on the bench batch (B={B}, L={L}, O={O}, "
+        f"A={bb['anchors'].q.shape[1]}): every field exact, "
+        f"{int(bb['anchors'].valid.sum())} valid anchors; call "
+        f"{k5_ms:.4f} ms (events around 20 back to back), device "
+        + " + ".join(f"{k} {v:.4f}" for k, v in dt["anchor_search"].items())
+        + f" = {k5_dev:.4f} ms (torch.profiler), {k5_spin:.4f} ms behind a "
+        f"spin (events), host share of the call "
+        f"{max(0.0, 1 - k5_dev / k5_ms):.2f}; plain {k5_plain:.3f} ms, "
+        f"bound {k5_bound[0]:.4f} ms ({k5_bound[1]}) on {card}")
+    for i, ((a, kw, _), (kms, pms, kb, spin)) in enumerate(zip(calls, k6)):
+        dev_ms = dt["band_offsets"][i]
+        k6[i] = (kms, pms, kb, dev_ms)
         log(f"# K6 == plain on map_batch's call {i + 1} (N={a[0].shape[0]}, "
             f"MC={a[0].shape[1]}, L={a[3]}, F={a[6].shape[-1]}): exact; "
-            f"kernel {kms:.3f} ms, plain {pms:.3f} ms, bound {kb[0]:.4f} ms "
-            f"({kb[1]}) on {card}")
+            f"call {kms:.4f} ms (events around 20 back to back), device "
+            f"{dev_ms:.4f} ms (torch.profiler), {spin:.4f} ms behind a spin "
+            f"(events), host share {max(0.0, 1 - dev_ms / kms):.2f}; plain "
+            f"{pms:.3f} ms, bound {kb[0]:.4f} ms ({kb[1]}) on {card}")
 
     gi = build_genome_index([FastaRecord("edge", anchor_world()[0])], k=12)
     eix = map_read.DeviceIndex.from_host(gi, dev)
@@ -960,11 +1204,12 @@ def phase_anchor_band(card, bb):
             ("offsets",), f"K6 {name}"))
     log(f"# K6 == plain on the {len(BAND_CASES)} edge inputs: exact")
     unported_bounds(card, bb)
-    kms, pms, kb = k6[0]
+    kms, pms, kb, dev_ms = k6[0]
     return {
         "anchor_search": dict(err=k5_err, ms=k5_ms, plain_ms=k5_plain,
-                              bound=k5_bound),
-        "band_offsets": dict(err=k6_err, ms=kms, plain_ms=pms, bound=kb),
+                              bound=k5_bound, device_ms=k5_dev),
+        "band_offsets": dict(err=k6_err, ms=kms, plain_ms=pms, bound=kb,
+                             device_ms=dev_ms),
     }
 
 
@@ -1124,18 +1369,13 @@ def count_k4_kernels(card) -> int:
 
 def check_k4_one_kernel() -> None:
     """K4's function must issue exactly one CUDA kernel: counted by
-    ``count_k4_kernels`` in a process of its own (a profiler session of its
-    own, unslowed and unaffected by this one's: here a third session
-    recorded no device events in one run), which this waits for."""
-    r = subprocess.run([sys.executable, os.path.abspath(__file__),
-                        "--k4-kernels"], capture_output=True, text=True,
-                       timeout=600, cwd=HERE)
-    for line in r.stdout.splitlines():
+    ``count_k4_kernels`` in a child process (here a process's third
+    profiler session recorded no device events in one run)."""
+    rc, out = run_child("--k4-kernels")
+    for line in out.splitlines():
         if line.startswith("# K4:"):
             log(line)
-    assert r.returncode == 0, \
-        f"K4's function did not issue one K4 launch:\n{r.stdout[-3000:]}" \
-        f"{r.stderr[-3000:]}"
+    assert rc == 0, "K4's function did not issue one K4 launch"
 
 
 # ---------------------------------------------------------------- phase 3
@@ -1368,6 +1608,38 @@ def phase_ids(cuda_ops):
     assert steered > 0, "QV steering changed no CIGAR"
 
 
+def long_read_world():
+    """Two simulated reads of ~40 kb at 85% accuracy on a 1 Mbp genome
+    (seeds 40, 41) and the CLI's Mapper for them on the card (the default
+    ShapeConfig: bucket 65536)."""
+    from blasr_tpu_torch.index.genome import build_genome_index
+    from blasr_tpu_torch.params import MappingParams, ShapeConfig
+    from blasr_tpu_torch.pipeline.map_read import Mapper
+    from blasr_tpu_torch.sim import random_genome, simulate_reads
+    contigs = random_genome(1_000_000, seed=40)
+    gi = build_genome_index(contigs, k=12)
+    sims = simulate_reads(contigs, 2, read_len=(38_000, 42_000),
+                          accuracy=0.85, seed=41)
+    cfg = ShapeConfig()
+    assert all(cfg.bucket_for(len(s.rec.seq)) == 65536 for s in sims)
+    return sims, Mapper(gi, MappingParams().make_sane(), cfg, device="cuda")
+
+
+def long_read_calls(name: str) -> list:
+    """The calls of ``map_read.<name>`` that mapping the long-read world's
+    first read makes: [(args, kwargs)]."""
+    from blasr_tpu_torch.pipeline import map_read
+    sims, mapper = long_read_world()
+    calls = []
+    inner = capture_calls(map_read, name, calls)
+    try:
+        mapper.map_reads([sims[0].rec])
+        torch.cuda.synchronize()
+    finally:
+        setattr(map_read, name, inner)
+    return [(a, kw) for a, kw, _ in calls]
+
+
 def phase_long_reads(card, cuda_ops):
     """Two simulated reads of ~40 kb on a 1 Mbp genome mapped on the card
     through the CLI's Mapper (bucket 65536: K4's tiled slab, K5 and K6 at
@@ -1375,21 +1647,11 @@ def phase_long_reads(card, cuda_ops):
     and strand.  Every banded_traceback, window_fragment_diags_banded,
     find_anchors and _band_offsets call of the run is captured, and its
     kernel's result held to the plain version on the same CUDA tensors
-    (K6's scans cross 64 chunks of 1024 rows there)."""
-    from blasr_tpu_torch.index.genome import build_genome_index
+    (K6's rows in its global scratch there)."""
     from blasr_tpu_torch.kernels.anchor import Anchors, find_anchors_plain
-    from blasr_tpu_torch.params import MappingParams, ShapeConfig
     from blasr_tpu_torch.pipeline import map_read
-    from blasr_tpu_torch.pipeline.map_read import Mapper
-    from blasr_tpu_torch.sim import random_genome, simulate_reads
     t0 = time.time()
-    contigs = random_genome(1_000_000, seed=40)
-    gi = build_genome_index(contigs, k=12)
-    sims = simulate_reads(contigs, 2, read_len=(38_000, 42_000),
-                          accuracy=0.85, seed=41)
-    cfg = ShapeConfig()
-    assert all(cfg.bucket_for(len(s.rec.seq)) == 65536 for s in sims)
-    mapper = Mapper(gi, MappingParams().make_sane(), cfg, device="cuda")
+    sims, mapper = long_read_world()
     log(f"# long reads: 1 Mbp genome + index, reads of "
         f"{[len(s.rec.seq) for s in sims]} bases ({time.time() - t0:.1f}s)")
     from blasr_tpu_torch.kernels import sdp
@@ -1609,7 +1871,7 @@ def phase_profile(card, gi, sims, dev, use_qv: bool = False):
     if not dev_events:
         log(f"# profile ({label}): torch.profiler recorded no device "
             "events; device busy share not measured")
-        return
+        return {}
     by_name = {}
     for e in dev_events:
         n, us = by_name.get(e.name, (0, 0.0))
@@ -1624,6 +1886,25 @@ def phase_profile(card, gi, sims, dev, use_qv: bool = False):
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
     for name, (n, us) in top:
         log(f"#   {us / 1e3:9.3f} ms {n:7d} x  {name[:90]}")
+    # the port's kernels: device ms per wrapper call (all its kernels)
+    short = {}
+    for name, (n, us) in by_name.items():
+        c, t = short.get(short_name(name), (0, 0.0))
+        short[short_name(name)] = (c + n, t + us / 1e3)
+    per_call = {}
+    for key, (once, others) in PROFILE_KERNELS.items():
+        calls = sum(c for n, (c, _) in short.items() if is_kernel(n, once))
+        if calls:
+            per_call[key] = sum(ms for n, (_, ms) in short.items()
+                                if is_kernel(n, once + others)) / calls
+    log(f"# device ms per call ({label}, torch.profiler): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in per_call.items())
+        + "; by kernel: " + ", ".join(
+            f"{n} {ms / c:.4f} ({c} x)" for n, (c, ms) in short.items()
+            if is_kernel(n, sum(PROFILE_KERNELS["anchor_search"], ()))
+            or is_kernel(n, PROFILE_KERNELS["band_offsets"][0]))
+        + f" on {card}")
+    return per_call
 
 
 def main() -> int:
@@ -1656,11 +1937,15 @@ def main() -> int:
 
     if sys.argv[1:2] == ["--compare"]:
         sys.path.insert(0, os.path.join(HERE, "tests"))
-        {"K1": compare_k1, "K2": compare_k2,
-         "K3": compare_k3}[sys.argv[2]](card, sys.argv[3:])
+        {"K1": compare_k1, "K2": compare_k2, "K3": compare_k3,
+         "K5": compare_k5, "K6": compare_k6}[sys.argv[2]](card,
+                                                          sys.argv[3:])
         return 0
     if sys.argv[1:] == ["--k4-kernels"]:
         return count_k4_kernels(card)
+    if sys.argv[1:] == ["--device-times"]:
+        sys.path.insert(0, os.path.join(HERE, "tests"))
+        return k5k6_device_times(card)
     from blasr_tpu_torch.kernels import cuda_ops
     t0 = time.time()
     cuda_ops.build()
@@ -1695,8 +1980,8 @@ def main() -> int:
     qvl = phase_bench(card, cuda_ops, gi, sims, use_qv=True, dev=dev)
     log(f"# phase 4 done in {time.time() - t0:.1f}s")
     t0 = time.time()
-    phase_profile(card, gi, sims, dev)
-    phase_profile(card, gi, sims, dev, use_qv=True)
+    prof = {"distance": phase_profile(card, gi, sims, dev),
+            "qv": phase_profile(card, gi, sims, dev, use_qv=True)}
     check_k4_one_kernel()
     log(f"# phase 5 done in {time.time() - t0:.1f}s")
     assert "jax" not in sys.modules or sys.modules["jax"] is None
@@ -1716,12 +2001,27 @@ def main() -> int:
             ("anchor_search", ANCHOR_SRC, "blasr_tpu/kernels/anchor.py:74"),
             ("band_offsets", BAND_SRC,
              "blasr_tpu/pipeline/map_read.py:320")]
-    # rule 2's measure: launches per pass pair x (kernel ms - bound ms)
+    # rule 2's measure: launches per pass pair x (kernel ms - bound ms),
+    # the kernel's ms as phase 2's events time the call and as its device
+    # time alone (K5, K6: phase 2's calls by torch.profiler; the others:
+    # the profiled passes of phase 5, per launch)
+    for name, _, _ in rows:
+        if "device_ms" not in kres[name]:
+            kres[name]["device_ms"] = prof[
+                "qv" if name == "banded_dp_qv" else "distance"].get(name)
     loss = {name: launches[name] * (kres[name]["ms"] - kres[name]["bound"][0])
             for name, _, _ in rows}
-    log("# rule 2, launches per pass pair x (kernel ms - bound ms): "
-        + ", ".join(f"{name} {loss[name]:.3f}" for name in
-                    sorted(loss, key=lambda k: -loss[k])) + f" on {card}")
+    dloss = {name: (None if kres[name]["device_ms"] is None else
+                    launches[name]
+                    * (kres[name]["device_ms"] - kres[name]["bound"][0]))
+             for name, _, _ in rows}
+    log("# rule 2, launches per pass pair x (kernel ms - bound ms), call "
+        "time | device time: " + ", ".join(
+            f"{name} {loss[name]:.3f} | " + (
+                "not measured" if dloss[name] is None
+                else f"{dloss[name]:.3f}")
+            for name in sorted(loss, key=lambda k: -loss[k]))
+        + f" on {card}")
     table = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "max_abs_err": kres[name]["err"],

@@ -6,11 +6,14 @@ anchor (its output slots hold the raw values of invalid candidates), a
 saturated row (more valid candidates than A, nearly all of one length),
 seeds with more occurrences than O and than max_anchors_per_pos, O = 6 and
 48 at A = 2048, advance_exact 8, max_lcp 20, hits whose extension runs
-past the genome's end, the LUT-only and sorted-key lookups, and the word
-gathers instead of the fused records.  Band offsets: no members, one
-member, members at rows 0 and L - 1, duplicate rows, fragments outside the
-band, between_only, negative interpolation steps, no fragments and five
-fragments a row.  Every comparison is exact.  The CUDA kernels (K5, K6)
+past the genome's end, the LUT-only and sorted-key lookups, the word
+gathers instead of the fused records, a row with exactly A, A - 1 and
+A + 1 valid candidates, ties at the threshold length across radix
+digits, O = 1, 2, 5 and 64.  Band offsets: no members, one member,
+members at rows 0 and L - 1, duplicate rows, fragments outside the band,
+between_only, negative interpolation steps, no fragments, five fragments
+a row, L = 4096, 1001, 8192 and 8193, and an item whose one member is on
+its last row.  Every comparison is exact.  The CUDA kernels (K5, K6)
 meet the same inputs in ``tests/test_torch_cuda.py``.
 
 Also: on CPU tensors the two public functions never reach ``cuda_ops``,
@@ -31,8 +34,9 @@ from blasr_tpu.pipeline import map_read as jmr  # noqa: E402
 from blasr_tpu_torch.kernels import anchor as tanchor  # noqa: E402
 from blasr_tpu_torch.kernels import cuda_ops  # noqa: E402
 from blasr_tpu_torch.pipeline import map_read as tmr  # noqa: E402
-from torch_edge_cases import (ANCHOR_CASES, BAND_CASES,  # noqa: E402
-                              anchor_case, anchor_world, band_case)
+from torch_edge_cases import (ANCHOR_CASES, ANCHOR_ROW5_EXCESS,  # noqa
+                              BAND_CASES, BIG32, anchor_case, anchor_world,
+                              band_case)
 
 torch.set_num_threads(2)
 
@@ -94,10 +98,16 @@ def test_find_anchors_edges_match_jax(edge_index, name):
         assert (lens == lens.max()).mean() > 0.5
     if name == "mapp40":
         assert n_total[5] < 100     # the 60-copy seeds are skipped
-    else:
+    elif kw["occ_per_pos"] < 60:
         assert int(ta.n_clipped[5]) > 0     # nocc > O at the 60-copy unit
     if name == "maxlcp20":
         assert int(ta.l.max()) == 20
+    if name in ANCHOR_ROW5_EXCESS:
+        # the selection's boundary: exactly A, A - 1 or A + 1 valid
+        assert n_total[5] - A == ANCHOR_ROW5_EXCESS[name]
+    if name == "ties-A30":
+        # every anchor kept is one of the ties at the longest length
+        assert n_total[5] > A and (ta.l[5].numpy()[valid[5]] == 32).all()
 
 
 @pytest.mark.parametrize("name", BAND_CASES)
@@ -119,6 +129,8 @@ def test_band_offsets_edges_match_jax(name):
                            c["W"], c["w_b"], t(c["frag_diag"]), t(fv),
                            c["between_only"])
     assert to.dtype == torch.int64 and to.shape == (6, c["L"])
+    if name == "last-row-only":
+        assert (c["mq"][0] < BIG32).sum() == 1
     np.testing.assert_array_equal(np.asarray(jo), to.numpy())
     step = np.diff(to.numpy(), axis=1)
     assert (step >= 0).all() and (step <= 2).all()   # the DP's contract

@@ -398,7 +398,28 @@ ANCHOR_CASES = {
     "sorted-keys": ({}, ("bucket_pairs", "bucket_starts")),
     "words-E36": (dict(anchor_ext=36, min_match=14), ()),
     "words-no-records": ({}, ("pos_records",)),
+    # the boundaries of K5's selection (csrc/anchor_search.cu): row 5 has
+    # 99 valid candidates at the defaults (44 of length 32, then 6, 6, 18,
+    # 1, 3, 3 and 18 of lengths 31 down to 12), so A = 99 takes them all,
+    # A = 100 one invalid fill and A = 98 a radix select of 17 of the 18
+    # ties at length 12; at A = 30 the 30 selected of the 44 ties at
+    # length 32 span several top digits of their bit-reversed indices
+    "valid-eq-A99": (dict(max_anchors=99), ()),
+    "valid-A100": (dict(max_anchors=100), ()),
+    "valid-A98": (dict(max_anchors=98), ()),
+    "ties-A30": (dict(max_anchors=30), ()),
+    # O = 1 and 2 (8 and 9 index bits; seeds with 60 occurrences far above
+    # O take the strided index), O = 5 and 64 past the kernel's
+    # compile-time O = 1..4 (a deep-seed rerun's O; A = 8192: an invalid
+    # fill over several chunks, the bitonic sort above 4096 keys and a row
+    # too large to stage in shared memory)
+    "occ1-A32": (dict(occ_per_pos=1, max_anchors=32), ()),
+    "occ2-A60": (dict(occ_per_pos=2, max_anchors=60), ()),
+    "occ5-A128": (dict(occ_per_pos=5, max_anchors=128), ()),
+    "occ64-A8192": (dict(occ_per_pos=64, max_anchors=8192), ()),
 }
+# row 5's valid count minus A in the cases at that boundary
+ANCHOR_ROW5_EXCESS = {"valid-eq-A99": 0, "valid-A100": -1, "valid-A98": 1}
 
 
 def anchor_case(name):
@@ -413,7 +434,12 @@ def anchor_case(name):
 
 BAND_CASES = ("no-members", "one-member", "ends", "duplicate-rows",
               "frags-outside-band", "between-only", "negative-steps",
-              "no-frags", "five-fragments", "long-rows")
+              "no-frags", "five-fragments", "long-rows", "rows-1001",
+              "smem-rows-8192", "global-rows-8193", "last-row-only")
+# K6 (csrc/band_offsets.cu) keeps up to 8192 rows in shared memory, 256
+# threads of ceil(L / 256) rows each, and a global scratch row above
+_BAND_L = {"long-rows": 4096, "rows-1001": 1001, "smem-rows-8192": 8192,
+           "global-rows-8193": 8193}
 
 
 def band_case(name):
@@ -421,12 +447,16 @@ def band_case(name):
     members mq/mt [N, MC] (BIG32 where invalid, q-ascending as
     chain_members leaves them), window starts ws [N], fragments frag_diag /
     frag_valid [N, L, F] near the members' diagonals (or None), plus L, W,
-    w_b and between_only.  "long-rows" spans four chunks of K6's 1024-row
-    scans, with so few members that the fills carry across chunks."""
+    w_b and between_only.  "long-rows" (L = 4096) has so few members that
+    the fills carry across many threads' rows; "rows-1001" leaves the last
+    of K6's row-owning threads one row; "smem-rows-8192" and
+    "global-rows-8193" lie on either side of its shared-memory limit;
+    "last-row-only" gives item 0 one member, on row L - 1."""
     rng = np.random.default_rng(sum(map(ord, name)))
     N, L, W, w_b, MC = 6, 512, 1024, 128, 24
-    if name == "long-rows":
-        L, W = 4096, 8192
+    if name in _BAND_L:
+        L = _BAND_L[name]
+        W = 2 * L
     F = 5 if name == "five-fragments" else 3
     ws = rng.integers(1_000, 50_000, N).astype(np.int64)
     mq = np.full((N, MC), BIG32, np.int64)
@@ -444,6 +474,8 @@ def band_case(name):
         elif name == "long-rows":
             # item i's members lie in its first 4 // (1 + i % 4) chunks
             qs = rng.integers(0, L // (1 + i % 4), int(rng.integers(1, 4)))
+        elif name == "last-row-only" and i == 0:
+            qs = np.array([L - 1])
         else:
             qs = rng.integers(0, L, int(rng.integers(4, MC)))
         qs = np.sort(qs)
