@@ -3,9 +3,9 @@
 The same flow and flags as the JAX package's driver: parse options ->
 make_sane -> load/build index -> map reads in batches -> mapQV ->
 filter/nbest/hit-policy -> print.  ``--device`` picks the torch device
-(default ``cuda``; there is no silent fallback to the CPU).  Flags whose
-paths are not ported yet (BAM output, concordant/CCS, --onegap, --extend,
---affineAlign, the debug dumps) are rejected with an error.
+(default ``cuda``; there is no silent fallback to the CPU).
+``--affineAlign`` (the homopolymer-insertion band) is not ported yet and
+is rejected with an error.
 
 Run: ``python -m blasr_tpu_torch.cli.blasr reads.fa genome.fa -m 4``.
 """
@@ -435,16 +435,8 @@ def run(argv: Optional[List[str]] = None) -> int:
         sys.stderr.write("ERROR: --scoreSign 1 (higher-is-better scores) "
                          "is not supported by blasr_tpu\n")
         return 1
-    unported = [flag for flag, on in (
-        ("--bam", args.bam), ("--concordant", args.concordant),
-        ("--useccs", args.useccs), ("--useccsall", args.useccsall),
-        ("--useccsdenovo", args.useccsdenovo), ("--onegap", args.onegap),
-        ("--extend", args.extend),
-        ("--affineAlign", args.affineAlign), ("--anchors", args.anchors),
-        ("--clusters", args.clusters),
-        ("--printDotPlots", args.printDotPlots)) if on]
-    if unported:
-        sys.stderr.write(f"ERROR: {', '.join(unported)} not supported by "
+    if args.affineAlign:
+        sys.stderr.write("ERROR: --affineAlign not supported by "
                          "blasr_tpu_torch yet (use blasr_tpu)\n")
         return 1
     import torch
@@ -462,6 +454,19 @@ def run(argv: Optional[List[str]] = None) -> int:
     except ValueError as e:
         sys.stderr.write(f"{e}\n")
         return 1
+    if args.useQuality:
+        from blasr_tpu_torch.io.fasta import sniff_format
+        for path in expand_file_name_list([args.reads]):
+            try:
+                if sniff_format(path) == "fasta":
+                    # MakeSane :448-453
+                    sys.stderr.write(
+                        "ERROR, you can not use -useQuality option when "
+                        "any of the input reads files are in multi-fasta "
+                        "format.\n")
+                    return 1
+            except (FileNotFoundError, PermissionError):
+                pass
     log("started.")
 
     if args.sa:
@@ -508,6 +513,7 @@ def run(argv: Optional[List[str]] = None) -> int:
 
     reads = []
     from blasr_tpu_torch.io.fasta import sniff_format
+    ccs_groups = []
     for path in expand_file_name_list([args.reads]):
         try:
             if sniff_format(path) == "hdf":
@@ -519,16 +525,23 @@ def run(argv: Optional[List[str]] = None) -> int:
                 for part in expand_multipart(path):
                     rdr = BaxReader(part, region_path=args.regionTable)
                     try:
-                        subs = rdr.subreads(
-                            min_score=max(params.min_raw_subread_score, 0),
-                            split=not args.noSplitSubreads,
-                            use_regions=params.use_region_table,
-                            use_hq=params.use_hq_region_table)
-                        if params.min_subread_length:
-                            subs = [r for r in subs
-                                    if len(r.seq)
-                                    >= params.min_subread_length]
-                        reads.extend(subs)
+                        if (params.use_ccs and not params.use_ccs_only
+                                and rdr.passes is not None):
+                            # ccs.h5 with Passes: CCSIterator inputs
+                            ccs_groups.extend(rdr.ccs_groups(
+                                full_only=not params.use_all_subreads_in_ccs))
+                        else:
+                            subs = rdr.subreads(
+                                min_score=max(
+                                    params.min_raw_subread_score, 0),
+                                split=not args.noSplitSubreads,
+                                use_regions=params.use_region_table,
+                                use_hq=params.use_hq_region_table)
+                            if params.min_subread_length:
+                                subs = [r for r in subs
+                                        if len(r.seq)
+                                        >= params.min_subread_length]
+                            reads.extend(subs)
                     finally:
                         rdr.close()
             else:
@@ -579,24 +592,79 @@ def run(argv: Optional[List[str]] = None) -> int:
         return 1
     mapper = Mapper(gi, params, metrics=MappingMetrics(
         store_list=args.fullMetrics is not None), device=device)
+    if args.printDotPlots:
+        # per-read anchor dumps (--printDotPlots, BlasrAlignImpl.hpp:151-159)
+        for r in reads:
+            fname = r.name.replace("/", "_") + ".anchors"
+            with open(fname, "w") as df:
+                mapper.dump_debug([r], anchors_out=df)
+    if args.anchors or args.clusters:
+        af = open(args.anchors, "w") if args.anchors else None
+        cf = open(args.clusters, "w") if args.clusters else None
+        try:
+            mapper.dump_debug(reads, af, cf)
+        finally:
+            if af:
+                af.close()
+            if cf:
+                cf.close()
     prof = contextlib.nullcontext()
     if args.profileDir:
         # device-level tracing (the reference's gperftools hook analog,
         # Blasr.cpp:1428-1436): a Chrome trace of the mapping phase
         prof = _torch_trace(args.profileDir, device)
     with prof:
-        per_read = mapper.map_reads(reads)
+        if ccs_groups:
+            from blasr_tpu_torch.pipeline.zmw import map_ccs_groups
+            ccs_reads, ccs_per_read = map_ccs_groups(
+                mapper, ccs_groups, params)
+            # inputs mixing ccs.h5 with plain read files: the non-CCS
+            # records map through the standard path and are appended
+            plain_per_read = mapper.map_reads(reads) if reads else []
+            reads = list(reads) + list(ccs_reads)
+            per_read = list(plain_per_read) + list(ccs_per_read)
+            markers = None  # record list was re-derived from CCS groups
+        elif params.concordant:
+            from blasr_tpu_torch.pipeline.zmw import map_concordant
+            per_read = map_concordant(mapper, reads, params)
+        elif params.use_ccs:
+            from blasr_tpu_torch.pipeline.zmw import map_ccs
+            per_read = map_ccs(mapper, reads, params)
+        else:
+            per_read = mapper.map_reads(reads)
+    if args.onegap:
+        from blasr_tpu_torch.pipeline.onegap import join_one_gap
+        per_read = [join_one_gap(alns, params) for alns in per_read]
 
     cmdline = " ".join(argv or sys.argv[1:])
     unaligned_f = open(args.unaligned, "w") if args.unaligned else None
     try:
-        out = sys.stdout if args.out == "-" else open(args.out, "w")
-        try:
-            emit(out, unaligned_f, reads, per_read, gi, params, cmdline,
-                 markers)
-        finally:
-            if out is not sys.stdout:
-                out.close()
+        if params.print_format == "bam":
+            from blasr_tpu_torch.io.bam import BamWriter
+            fobj = open(args.out, "wb") if args.out != "-" \
+                else sys.stdout.buffer
+            movies = sorted({r.name.split("/")[0] for r in reads
+                             if "/" in r.name}) or ["default"]
+            rgs = [f"@RG\tID:{m}\tPL:PACBIO\tSM:{m}" for m in movies]
+            bw = BamWriter(fobj,
+                           formats.sam_header(gi, cmdline, read_groups=rgs),
+                           gi.seqdb.names,
+                           [int(x) for x in gi.seqdb.lengths])
+            emit(bw, unaligned_f, reads, per_read, gi, params, cmdline)
+            if markers is not None:
+                sys.stderr.write("WARNING: multi-host merge supports text "
+                                 "formats; BAM parts are left per-host\n")
+            bw.close()
+            if args.out != "-":
+                fobj.close()
+        else:
+            out = sys.stdout if args.out == "-" else open(args.out, "w")
+            try:
+                emit(out, unaligned_f, reads, per_read, gi, params, cmdline,
+                     markers)
+            finally:
+                if out is not sys.stdout:
+                    out.close()
     finally:
         if unaligned_f:
             unaligned_f.close()

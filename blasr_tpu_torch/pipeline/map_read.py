@@ -1384,14 +1384,6 @@ class Mapper:
                       if len(r.seq) > self.cfg.buckets[-1]]
         kept = [(j, r) for j, r in kept
                 if len(r.seq) <= self.cfg.buckets[-1]]
-        if long_items:
-            raise NotImplementedError(
-                f"{len(long_items)} read(s) exceed the largest bucket "
-                f"({self.cfg.buckets[-1]}): the long-read segment+stitch "
-                "path is not ported to blasr_tpu_torch")
-        if p.extend_alignments:
-            raise NotImplementedError(
-                "--extend is not ported to blasr_tpu_torch")
         buckets: Dict[int, List] = {}
         for j, r in kept:
             b = self.cfg.bucket_for(len(r.seq))
@@ -1587,4 +1579,74 @@ class Mapper:
                         weak, sens.map_reads([r for _, r in weak])):
                     if alns:
                         order[j] = alns
+        if long_items:
+            from blasr_tpu_torch.pipeline.longread import map_long_reads
+            with self.metrics.clock("longReads"):
+                res = map_long_reads(self, [r for _, r in long_items], p)
+            for (j, _), alns in zip(long_items, res):
+                order[j] = alns
+        if p.extend_alignments:
+            from blasr_tpu_torch.pipeline.extend import extend_alignment
+            with self.metrics.clock("extendAlignments"):
+                for alns in order.values():
+                    for a in alns:
+                        extend_alignment(a, self.gi, p)
         return [order[j] for j in range(len(recs))]
+
+    def dump_debug(self, recs: Sequence[FastaRecord],
+                   anchors_out=None, clusters_out=None) -> None:
+        """Debug taps: raw anchor dump (--anchors,
+        BlasrAlignImpl.hpp:62-87) and per-read cluster statistics
+        (--clusters, Blasr.cpp:1197-1204, BlasrAlignImpl.hpp:465-486).
+        The anchors (K5 on CUDA) and the chain candidates (K3) of one read
+        come to the host in one copy each."""
+        cfg, p, dev = self.cfg, self.params, self.device
+        if clusters_out is not None:
+            clusters_out.write(
+                "nBases qLength tLength nAnchors\n")
+        for rec in recs:
+            L = cfg.bucket_for(len(rec.seq))
+            arr = np.full((1, L), 4, dtype=np.int8)
+            n = min(len(rec.seq), L)
+            arr[0, :n] = rec.seq[:n]
+            reads = torch.from_numpy(arr).to(dev)
+            rlen2 = torch.tensor([n, n], dtype=torch.int32, device=dev)
+            reads2 = torch.cat([reads, _revcomp_batch(reads, rlen2[:1])])
+            anchors = find_anchors(
+                self.dev.genome, self.dev.keys_sorted, self.dev.pos_sorted,
+                reads2, rlen2, k=self.gi.k, occ_per_pos=cfg.occ_per_pos,
+                max_anchors=cfg.max_anchors, anchor_ext=cfg.anchor_ext,
+                min_match=p.min_match_length,
+                max_anchors_per_pos=p.max_anchors_per_position,
+                max_lcp=p.max_match_length,
+                bucket_starts=self.dev.bucket_starts,
+                bucket_pairs=self.dev.bucket_pairs,
+                gwords=self.dev.gwords, gnwords=self.dev.gnwords,
+                pos_records=self.dev.pos_records)
+            if anchors_out is not None:
+                q, t, ln, v = torch.stack(
+                    [anchors.q, anchors.t, anchors.l,
+                     anchors.valid.to(torch.int64)]).cpu().numpy()
+                v = v.astype(bool)
+                for strand in (0, 1):
+                    for q_, t_, l_ in zip(q[strand][v[strand]],
+                                          t[strand][v[strand]],
+                                          ln[strand][v[strand]]):
+                        anchors_out.write(
+                            f"{rec.name} {int(q_)} {int(t_) - 1} {int(l_)} "
+                            f"{strand}\n")
+            if clusters_out is not None:
+                cands = chain_anchors(anchors, rlen2, n_cand=cfg.n_candidates,
+                                      indel_rate=p.indel_rate,
+                                      global_chain=p.global_chain_type >= 1)
+                sc, na, cv = torch.stack(
+                    [cands.score.to(torch.float64),
+                     cands.n_anchors.to(torch.float64),
+                     cands.valid.to(torch.float64)]).cpu().numpy()
+                for strand in (0, 1):
+                    for c in range(sc.shape[1]):
+                        if cv[strand, c]:
+                            clusters_out.write(
+                                f"{int(sc[strand, c])} {n} "
+                                f"{int(self.gi.glen)} "
+                                f"{int(na[strand, c])}\n")

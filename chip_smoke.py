@@ -45,19 +45,32 @@ Phases (any failed check exits nonzero):
      and each kernel by torch.profiler in a child process
      (``--device-times``: one profiler session of its own);
   3. the golden worlds of tests/test_golden.py through the port's CLI with
-     ``--device cuda``, byte for byte against tests/golden/: the main path
-     (small: 60 kb, 12 reads; big: 4.6 Mbp, 11 reads; golden.{m4,sam,
-     m4.big,sam.big}, and on the big world --fastMaxInterval, the chain
-     scan with lookback 64, and --aggressiveIntervalCut:
-     golden.{m4.fastmax,m4.aggressive}) and the ``--useQuality`` path
-     (FASTQ and hp-biased
-     STR worlds; golden.{m4.fastq,sam.fastq,sam.hpstr.qv}); then the IDS
-     world of make_qvsteer, built in memory (its bax.h5 needs h5py), mapped
-     with the port's Mapper on ``cuda`` and on ``cpu``: identical
-     positions, CIGARs, scores and mapQV; then two simulated reads of
-     ~40 kb on a 1 Mbp genome (bucket 65536) mapped on the card, each on
-     its simulated interval, every K2, K4, K5 and K6 launch of that run
-     captured and held to the plain version (L = 65536);
+     ``--device cuda``, byte for byte against tests/golden/, each group
+     launching K1 or K1-QV and K2-K6: the main path (small: 60 kb, 12
+     reads; big: 4.6 Mbp, 11 reads; golden.{m4,sam,m4.big,sam.big}, and
+     on the big world --fastMaxInterval, the chain scan with lookback 64,
+     and --aggressiveIntervalCut: golden.{m4.fastmax,m4.aggressive}); the
+     ``--useQuality`` path (FASTQ and hp-biased STR worlds;
+     golden.{m4.fastq,sam.fastq,sam.hpstr.qv}); the small world's other
+     formats and mapping flags (golden.{m0,m1,m2,m3,m5,sam.hard,
+     sam.subread,m4.rb,m4.scores,m4.filter}; m4.scores with gap costs 6 and
+     7); the other inputs (golden.{m4.bwt,m4.fofn,m4.bamin,m4.xml,m4.unal,
+     m4.unal.names}); concordant mapping (golden.m4.concordant, with the
+     padded mini index's host build and upload timed); then the IDS world
+     of make_qvsteer, built in memory (its bax.h5 needs h5py), mapped with
+     the port's Mapper on ``cuda`` and on ``cpu``: identical positions,
+     CIGARs, scores and mapQV; then --onegap with --bam, and --extend, on
+     a world of a spliced read and reads with noisy ends, each equal to
+     the same run with ``--device cpu`` (decoded BAM records, m4 text; the
+     BAM also decodes to the --sam output), and the --anchors and
+     --clusters dumps of the small world, cuda == cpu; then two simulated
+     reads of ~40 kb on a 1 Mbp genome (bucket 65536) and one of ~100 kb
+     (map_long_reads: two segments at bucket 65536, stitched) mapped on
+     the card, each on its simulated interval and strand, every K2, K4,
+     K5 and K6 launch of that run captured and held to the plain version
+     (L = 65536); and
+     tests/test_longread.py's ~20 kb CLR read at buckets (1024, 2048),
+     held to its bounds and to the same read mapped on ``cpu``;
   4. the bench.py workload (4.6 Mbp genome, k=12, 512 CLR reads of
      0.5-2 kb at 85% accuracy), once in distance mode and once under
      ``--useQuality`` with per-base qualities 8-39: reads/s, per-stage
@@ -84,6 +97,7 @@ the blasr_tpu_torch package is not beside this file.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -1392,7 +1406,7 @@ def make_small(d):
             for i, s in enumerate(sims)]
     write_fasta(os.path.join(d, "genome.fa"), contigs)
     write_fasta(os.path.join(d, "reads.fa"), recs)
-    return os.path.join(d, "reads.fa"), os.path.join(d, "genome.fa")
+    return os.path.join(d, "reads.fa"), os.path.join(d, "genome.fa"), []
 
 
 def make_big(d):
@@ -1409,7 +1423,7 @@ def make_big(d):
     write_fasta(os.path.join(d, "genome_big.fa"), contigs)
     write_fasta(os.path.join(d, "reads_big.fa"), recs)
     return (os.path.join(d, "reads_big.fa"),
-            os.path.join(d, "genome_big.fa"))
+            os.path.join(d, "genome_big.fa"), [])
 
 
 def make_fastq(d):
@@ -1436,7 +1450,7 @@ def make_fastq(d):
             f.write(f"@movie/{i}/0_{len(seq)}\n{decode(seq)}\n+\n")
             f.write("".join(chr(int(x) + 33) for x in qual) + "\n")
     write_fasta(os.path.join(d, "genome_fq.fa"), contigs)
-    return path, os.path.join(d, "genome_fq.fa")
+    return path, os.path.join(d, "genome_fq.fa"), []
 
 
 def make_hpstr(d):
@@ -1463,7 +1477,130 @@ def make_hpstr(d):
             f.write(f"@movie/{i}/0_{len(seq)}\n{decode(seq)}\n+\n")
             f.write("".join(chr(int(x) + 33) for x in qual) + "\n")
     write_fasta(os.path.join(d, "genome_hp.fa"), contigs)
-    return path, os.path.join(d, "genome_hp.fa")
+    return path, os.path.join(d, "genome_hp.fa"), []
+
+
+def make_small_bwt(d, small):
+    """tests/test_golden.py::make_small_bwt's --bwt input, built with the
+    port's own BWT code (the JAX test makes it with sawriter and sa2bwt;
+    either BWT inverts to the same genome)."""
+    from blasr_tpu_torch.index.bwt import build_bwt, save_bwt
+    from blasr_tpu_torch.index.genome import concat_contigs
+    from blasr_tpu_torch.io.fasta import read_fasta
+    reads, genome, _ = small
+    codes, seqdb = concat_contigs(read_fasta(genome))
+    bwt, counts = build_bwt(codes)
+    save_bwt(os.path.join(d, "genome.bwt"), bwt, counts, seqdb.names,
+             seqdb.lengths)
+    return reads, genome, ["--bwt", os.path.join(d, "genome.bwt.npz")]
+
+
+def make_zmw(d):
+    """tests/test_golden.py::make_zmw (copied): one ZMW of four subreads
+    over a 600 b insert, alternating strands, and a one-subread ZMW."""
+    from blasr_tpu_torch.io.fasta import FastaRecord, revcomp, write_fasta
+    from blasr_tpu_torch.sim import mutate, random_genome
+    rng = np.random.default_rng(901)
+    contigs = random_genome(80_000, seed=900)
+    g = contigs[0].seq
+    insert = g[30_000:30_600]
+    recs = []
+    pos = 0
+    for p in range(4):
+        frag = insert if p % 2 == 0 else revcomp(insert)
+        sub = mutate(frag, rng, 0.03, 0.07, 0.04)
+        recs.append(FastaRecord(f"mov/7/{pos}_{pos + len(sub)}", sub))
+        pos += len(sub) + 40
+    sub2 = mutate(g[60_000:60_500], rng, 0.03, 0.07, 0.04)
+    recs.append(FastaRecord(f"mov/9/0_{len(sub2)}", sub2))
+    write_fasta(os.path.join(d, "genome_zmw.fa"), contigs)
+    write_fasta(os.path.join(d, "reads_zmw.fa"), recs)
+    return (os.path.join(d, "reads_zmw.fa"),
+            os.path.join(d, "genome_zmw.fa"), [])
+
+
+def make_dataset(d):
+    """tests/test_golden.py::make_dataset (copied): a subreadset XML over
+    FASTA reads with a length >= 300 filter."""
+    from blasr_tpu_torch.io.fasta import FastaRecord, write_fasta
+    from blasr_tpu_torch.sim import random_genome, simulate_reads
+    contigs = random_genome(40_000, seed=6661)
+    sims = simulate_reads(contigs, 8, read_len=(150, 700), accuracy=0.88,
+                          seed=6662)
+    recs = [FastaRecord(f"movie/{i}/0_{len(s.rec.seq)}", s.rec.seq)
+            for i, s in enumerate(sims)]
+    write_fasta(os.path.join(d, "ds_reads.fa"), recs)
+    write_fasta(os.path.join(d, "genome_ds.fa"), contigs)
+    xml = os.path.join(d, "ds.subreadset.xml")
+    with open(xml, "w") as f:
+        f.write("""<?xml version="1.0" encoding="utf-8"?>
+<pbds:SubreadSet xmlns:pbbase="http://pacificbiosciences.com/PacBioBaseDataModel.xsd"
+  xmlns:pbds="http://pacificbiosciences.com/PacBioDatasets.xsd">
+  <pbbase:ExternalResources>
+    <pbbase:ExternalResource ResourceId="ds_reads.fa"/>
+  </pbbase:ExternalResources>
+  <pbds:Filters>
+    <pbds:Filter>
+      <pbbase:Properties>
+        <pbbase:Property Name="length" Value="300" Operator="&gt;="/>
+      </pbbase:Properties>
+    </pbds:Filter>
+  </pbds:Filters>
+</pbds:SubreadSet>
+""")
+    return xml, os.path.join(d, "genome_ds.fa"), []
+
+
+def make_fofn(d, small):
+    """tests/test_golden.py::make_fofn (copied): a FOFN naming two FASTA
+    parts of the small world's reads."""
+    from blasr_tpu_torch.io.fasta import read_fasta, write_fasta
+    reads, genome, _ = small
+    recs = read_fasta(reads)
+    p1 = os.path.join(d, "fofn_part1.fa")
+    p2 = os.path.join(d, "fofn_part2.fa")
+    write_fasta(p1, recs[:7])
+    write_fasta(p2, recs[7:])
+    fofn = os.path.join(d, "reads.fofn")
+    with open(fofn, "w") as f:
+        f.write(p1 + "\n" + p2 + "\n")
+    return fofn, genome, []
+
+
+def make_bamin(d, small):
+    """tests/test_golden.py::make_bamin (copied): the small world's reads as
+    an unaligned BAM."""
+    from blasr_tpu_torch.io.bam import BamRecord, BamWriter
+    from blasr_tpu_torch.io.fasta import read_fasta
+    reads, genome, _ = small
+    bam = os.path.join(d, "reads_in.bam")
+    with open(bam, "wb") as f:
+        w = BamWriter(f, "@HD\tVN:1.5\tSO:unknown\n", [], [])
+        for r in read_fasta(reads):
+            w.write_record(BamRecord(r.name, 4, -1, -1, 255, [],
+                                     r.seq, None))
+        w.close()
+    return bam, genome, []
+
+
+def make_unal(d):
+    """tests/test_golden.py::make_unal (copied): six reads and two
+    unmappable junk reads."""
+    from blasr_tpu_torch.io.fasta import FastaRecord, write_fasta
+    from blasr_tpu_torch.sim import random_genome, simulate_reads
+    contigs = random_genome(60_000, seed=881, n_contigs=2)
+    sims = simulate_reads(contigs, 6, read_len=(300, 800), accuracy=0.87,
+                          seed=882)
+    recs = [FastaRecord(f"movie/{i}/0_{len(s.rec.seq)}", s.rec.seq)
+            for i, s in enumerate(sims)]
+    rng = np.random.default_rng(883)
+    for j in range(2):
+        junk = rng.integers(0, 4, 450).astype(np.int8)
+        recs.append(FastaRecord(f"movie/{90 + j}/0_450", junk))
+    write_fasta(os.path.join(d, "genome_un.fa"), contigs)
+    write_fasta(os.path.join(d, "reads_un.fa"), recs)
+    return (os.path.join(d, "reads_un.fa"),
+            os.path.join(d, "genome_un.fa"), [])
 
 
 def qvsteer_world():
@@ -1506,12 +1643,17 @@ def run_goldens(d, cases, worlds):
     from blasr_tpu_torch.cli.blasr import run
     n_ok = 0
     for name, world, flags in cases:
-        reads, genome = worlds[world]
+        reads, genome, extra = worlds[world]
         out = os.path.join(d, f"out.{name}")
+        flags = [f.replace("@D@", d) for f in flags]
         t0 = time.time()
-        rc = run([reads, genome, "--out", out, "--device", "cuda"] + flags)
+        rc = run([reads, genome, "--out", out, "--device", "cuda"] + extra
+                 + flags)
         assert rc == 0, f"CLI exit {rc} for {name}"
         text = open(out).read()
+        if "--unaligned" in flags:
+            unal = flags[flags.index("--unaligned") + 1]
+            text += "== unaligned ==\n" + open(unal).read()
         if name.startswith("sam"):
             text = "\n".join(l for l in text.splitlines()
                              if not l.startswith("@PG")) + "\n"
@@ -1534,9 +1676,15 @@ PATH_KERNELS = ("banded_traceback", "chain_scan", "sdp_window",
 
 
 def phase_goldens(d, cuda_ops):
-    worlds = {"small": make_small(d), "big": make_big(d),
-              "fastq": make_fastq(d), "hpstr": make_hpstr(d)}
-    # (label, cases, kernels it must launch, kernel it must not launch)
+    small = make_small(d)
+    worlds = {"small": small, "big": make_big(d), "fastq": make_fastq(d),
+              "hpstr": make_hpstr(d), "small_bwt": make_small_bwt(d, small),
+              "fofn": make_fofn(d, small), "bamin": make_bamin(d, small),
+              "dataset": make_dataset(d), "unal": make_unal(d),
+              "zmw": make_zmw(d)}
+    dist = PATH_KERNELS + ("banded_dp",)
+    # (label, cases, kernels it must launch, kernel it must not launch);
+    # the flags are tests/test_golden.py's
     for label, cases, needed, unused in (
             ("main path", [("m4", "small", ["-m", "4"]),
                            ("sam", "small", ["--sam", "--clipping", "soft"]),
@@ -1549,7 +1697,7 @@ def phase_goldens(d, cuda_ops):
                                                   "--fastMaxInterval"]),
                            ("m4.aggressive", "big",
                             ["-m", "4", "--aggressiveIntervalCut"])],
-             PATH_KERNELS + ("banded_dp",), "banded_dp_qv"),
+             dist, "banded_dp_qv"),
             ("--useQuality", [("m4.fastq", "fastq",
                                ["-m", "4", "--useQuality"]),
                               ("sam.fastq", "fastq",
@@ -1558,9 +1706,44 @@ def phase_goldens(d, cuda_ops):
                               ("sam.hpstr.qv", "hpstr",
                                ["--sam", "--clipping", "soft",
                                 "--useQuality"])],
-             PATH_KERNELS + ("banded_dp_qv",), "banded_dp")):
+             PATH_KERNELS + ("banded_dp_qv",), "banded_dp"),
+            # the small world's other output formats and mapping flags
+            # (m4.scores: gap costs 6 / 7, K1 off its default costs)
+            ("small world: formats and flags",
+             [("m0", "small", ["-m", "0"]), ("m1", "small", ["-m", "1"]),
+              ("m2", "small", ["-m", "2"]), ("m3", "small", ["-m", "3"]),
+              ("m5", "small", ["-m", "5"]),
+              ("sam.hard", "small", ["--sam", "--clipping", "hard"]),
+              ("sam.subread", "small", ["--sam", "--clipping", "subread"]),
+              ("m4.rb", "small", ["-m", "4", "--hitPolicy", "randombest",
+                                  "--randomSeed", "1"]),
+              ("m4.scores", "small", ["-m", "4", "--match", "-2",
+                                      "--mismatch", "3", "--insertion", "6",
+                                      "--deletion", "7"]),
+              ("m4.filter", "small", ["-m", "4", "--minPctSimilarity", "82",
+                                      "--minAlnLength", "500"])],
+             dist, "banded_dp_qv"),
+            ("other inputs",
+             [("m4.bwt", "small_bwt", ["-m", "4"]),
+              ("m4.fofn", "fofn", ["-m", "4"]),
+              ("m4.bamin", "bamin", ["-m", "4"]),
+              ("m4.xml", "dataset", ["-m", "4"]),
+              ("m4.unal", "unal", ["-m", "4", "--unaligned",
+                                   "@D@/unal.txt"]),
+              ("m4.unal.names", "unal", ["-m", "4", "--unaligned",
+                                         "@D@/unal2.txt",
+                                         "--noPrintUnalignedSeqs"])],
+             dist, "banded_dp_qv"),
+            ("concordant", [("m4.concordant", "zmw",
+                             ["-m", "4", "--concordant", "--bestn", "1"])],
+             dist, "banded_dp_qv")):
         cuda_ops.reset_launch_counts()
-        n_ok = run_goldens(d, cases, worlds)
+        if label == "concordant":
+            with mini_index_clocks() as clocks:
+                n_ok = run_goldens(d, cases, worlds)
+            report_mini_index(clocks)
+        else:
+            n_ok = run_goldens(d, cases, worlds)
         launches = dict(cuda_ops.LAUNCHES)
         log(f"# goldens ({label}) identical: {n_ok}/{len(cases)}; "
             f"launches {launches}")
@@ -1568,6 +1751,52 @@ def phase_goldens(d, cuda_ops):
         assert all(launches[k] > 0 for k in needed), \
             f"kernels not launched ({label}): {launches}"
         assert launches[unused] == 0, f"the {label} path launched {unused}"
+
+
+@contextlib.contextmanager
+def mini_index_clocks():
+    """Times each DeviceIndex.from_host call (upload and derive, the card
+    synchronised around it) and each host build of a concordant mini index
+    (zmw's build_genome_index and _pad_mini_index) while the block runs:
+    {"upload": [(genome bases, index slots, s)], "host": [s]}."""
+    from blasr_tpu_torch.pipeline import map_read, zmw
+    clocks = {"upload": [], "host": []}
+    upload, build = map_read.DeviceIndex.from_host, zmw.build_genome_index
+
+    def timed_upload(gi, device):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = upload(gi, device)
+        torch.cuda.synchronize()
+        clocks["upload"].append((len(gi.genome), len(gi.pos_sorted),
+                                 time.perf_counter() - t0))
+        return out
+
+    def timed_build(*a, **kw):
+        t0 = time.perf_counter()
+        out = build(*a, **kw)
+        clocks["host"].append(time.perf_counter() - t0)
+        return out
+
+    map_read.DeviceIndex.from_host = staticmethod(timed_upload)
+    zmw.build_genome_index = timed_build
+    try:
+        yield clocks
+    finally:
+        map_read.DeviceIndex.from_host = staticmethod(upload)
+        zmw.build_genome_index = build
+
+
+def report_mini_index(clocks):
+    """Logs the concordant run's index set-up: the genome's upload, then
+    the mini index's host build and upload (k = 12: the 4^12 + 1 LUT and
+    its pair table)."""
+    assert len(clocks["upload"]) == 2 and len(clocks["host"]) == 1, clocks
+    (g0, m0, s0), (g1, m1, s1) = clocks["upload"]
+    host = clocks["host"][0]
+    log(f"# concordant set-up: genome index upload {g0} b, {m0} slots "
+        f"{s0 * 1e3:.3f} ms; mini index: host build {host * 1e3:.3f} ms, "
+        f"upload {g1} b (padded), {m1} slots {s1 * 1e3:.3f} ms")
 
 
 def phase_ids(cuda_ops):
@@ -1608,6 +1837,118 @@ def phase_ids(cuda_ops):
     assert steered > 0, "QV steering changed no CIGAR"
 
 
+def modes_world(d):
+    """tests/test_onegap.py::test_cli_onegap_spliced_read's world (copied:
+    a 600 b read of 300 b + 300 b from loci 4 kb apart) with
+    tests/test_torch_modes.py::noisy_end_reads's six reads (copied: ~700 b
+    with noisy heads and tails, two of which align from past their start
+    until --extend grows them)."""
+    from blasr_tpu_torch.io.fasta import FastaRecord, write_fasta
+    from blasr_tpu_torch.sim import mutate, random_genome
+    contigs = random_genome(60_000, seed=201)
+    g = contigs[0].seq
+    recs = [FastaRecord("spliced/1/0_600", np.concatenate(
+        [g[10_000:10_300], g[14_300:14_600]]))]
+    rng = np.random.default_rng(53)
+    for i, (head, tail) in enumerate(((0.3, 0.3), (0.25, 0.25),
+                                      (0.35, 0.2), (0.2, 0.35), (0.3, 0.0),
+                                      (0.4, 0.4))):
+        s = 5000 + 7000 * i
+        parts = [mutate(g[s:s + 150], rng, 0.4 * head, 0.3 * head,
+                        0.3 * head),
+                 mutate(g[s + 150:s + 550], rng, 0.02, 0.02, 0.02),
+                 mutate(g[s + 550:s + 700], rng, 0.4 * tail, 0.3 * tail,
+                        0.3 * tail)]
+        recs.append(FastaRecord(f"noisy/{i}/0_700",
+                                np.concatenate(parts).astype(np.int8)))
+    write_fasta(os.path.join(d, "g_modes.fa"), contigs)
+    write_fasta(os.path.join(d, "r_modes.fa"), recs)
+    return os.path.join(d, "r_modes.fa"), os.path.join(d, "g_modes.fa")
+
+
+def cli_output(d, world, flags, device, tag):
+    """The port's CLI on ``world`` with ``flags`` on ``device``: the text
+    (SAM without @PG), or the decoded records of a BAM."""
+    from blasr_tpu_torch.cli.blasr import run
+    from blasr_tpu_torch.io.bam import read_bam
+    out = os.path.join(d, f"mode.{tag}.{device}")
+    assert run(list(world) + ["--out", out, "--device", device]
+               + flags) == 0, f"CLI exit for {tag} on {device}"
+    if "--bam" in flags:
+        text, names, lengths, recs = read_bam(out)
+        head = [l for l in text.splitlines() if not l.startswith("@PG")]
+        return head, names, lengths, [
+            (r.qname, r.flag, r.ref_id, r.pos, r.mapq, r.cigar,
+             r.seq.tolist(), None if r.qual is None else r.qual.tolist(),
+             r.tags, r.next_ref_id, r.next_pos) for r in recs]
+    return "".join(l for l in open(out) if not l.startswith("@PG"))
+
+
+def phase_modes(d, cuda_ops):
+    """--onegap with --bam, and --extend, through the port's CLI on the
+    card, each held to the same run with ``--device cpu`` (decoded BAM
+    records, m4 text): the spliced read joined over its 4 kb gap, the BAM
+    records equal to the card's --sam output of the same flags, the noisy
+    reads' alignments grown by the extension (against the card's run
+    without it); then the --anchors and --clusters dumps of the small
+    world, card == cpu."""
+    world = modes_world(d)
+    onegap = ["--onegap", "--bestn", "2", "--hitPolicy", "all"]
+    cuda_ops.reset_launch_counts()
+    card = {}
+    for tag, flags in (("onegap", ["--bam", "--clipping", "soft"] + onegap),
+                       ("extend", ["-m", "4", "--extend"])):
+        t0 = time.time()
+        card[tag] = cli_output(d, world, flags, "cuda", tag)
+        t1 = time.time()
+        on_cpu = cli_output(d, world, flags, "cpu", tag)
+        log(f"# {' '.join(flags)}: cuda == cpu: {card[tag] == on_cpu} "
+            f"(cuda {t1 - t0:.1f}s, cpu {time.time() - t1:.1f}s)")
+        assert card[tag] == on_cpu, f"--{tag} output differs, cuda vs cpu"
+    names, recs = card["onegap"][1::2]
+    assert any(("N", 4000) in r[5] for r in recs), \
+        "--onegap joined no spliced pair"
+    sam = [l.split("\t") for l in cli_output(
+        d, world, ["--sam", "--clipping", "soft"] + onegap, "cuda",
+        "sam").splitlines() if not l.startswith("@")]
+    assert len(recs) == len(sam) > 0
+    for r, f in zip(recs, sam):
+        assert (r[0], r[1], names[r[2]], r[3] + 1, r[4]) == (
+            f[0], int(f[1]), f[2], int(f[3]), int(f[4]))
+        assert "".join(f"{n}{op}" for op, n in r[5]) == f[5]
+    grown = set(card["extend"].splitlines()) - set(cli_output(
+        d, world, ["-m", "4"], "cuda", "noext").splitlines())
+    assert grown, "--extend grew no alignment"
+    log(f"# --onegap --bam: {len(recs)} records with a 4000N join, equal "
+        f"to the --sam output; --extend changed {len(grown)} m4 line(s)")
+    launches = dict(cuda_ops.LAUNCHES)
+    log(f"# modes: launches {launches}")
+    assert all(launches[k] > 0 for k in PATH_KERNELS + ("banded_dp",)), \
+        f"kernels not launched (modes): {launches}"
+    # the dumps run on every read before the mapping; --minReadLength
+    # leaves nothing to map, so the run is the dumps alone
+    reads, genome, _ = make_small(d)
+    dumps = {}
+    for device in ("cuda", "cpu"):
+        cuda_ops.reset_launch_counts()
+        t0 = time.time()
+        files = [os.path.join(d, f"{n}.{device}.txt")
+                 for n in ("anchors", "clusters")]
+        cli_output(d, (reads, genome), [
+            "--anchors", files[0], "--clusters", files[1],
+            "--minReadLength", "1000000"], device, "dumps")
+        dumps[device] = [open(f).read() for f in files]
+        launches = dict(cuda_ops.LAUNCHES)
+        log(f"# --anchors/--clusters on {device}: "
+            f"{[x.count(chr(10)) for x in dumps[device]]} lines, "
+            f"{time.time() - t0:.1f}s; launches {launches}")
+        assert (launches["anchor_search"] > 0) == (device == "cuda") \
+            and (launches["chain_scan"] > 0) == (device == "cuda") \
+            and launches["banded_dp"] == 0, launches
+    assert dumps["cuda"] == dumps["cpu"], "the dumps differ, cuda vs cpu"
+    assert all(x.count("\n") > 1 for x in dumps["cuda"])
+
+
 def long_read_world():
     """Two simulated reads of ~40 kb at 85% accuracy on a 1 Mbp genome
     (seeds 40, 41) and the CLI's Mapper for them on the card (the default
@@ -1623,6 +1964,30 @@ def long_read_world():
     cfg = ShapeConfig()
     assert all(cfg.bucket_for(len(s.rec.seq)) == 65536 for s in sims)
     return sims, Mapper(gi, MappingParams().make_sane(), cfg, device="cuda")
+
+
+def hundred_kb_read():
+    """One simulated read of ~100 kb at 85% accuracy on the long-read
+    world's 1 Mbp genome (seed 42): two segments at bucket 65536."""
+    from blasr_tpu_torch.sim import random_genome, simulate_reads
+    contigs = random_genome(1_000_000, seed=40)
+    return simulate_reads(contigs, 1, read_len=(100_000, 100_000),
+                          accuracy=0.85, seed=42)[0]
+
+
+def check_placed(s, alns, what: str):
+    """The best alignment of simulated read ``s`` lies on its interval and
+    strand; returns it."""
+    assert alns, f"{what} did not map"
+    best = min(alns, key=lambda a: a.score)
+    span = best.qend - best.qstart
+    log(f"# {what}: {len(s.rec.seq)} b, simulated strand {s.strand} "
+        f"[{s.tstart}, {s.tend}): mapped strand {best.strand} "
+        f"[{best.tstart}, {best.tend}), q [{best.qstart}, {best.qend}), "
+        f"span {span / len(s.rec.seq):.4f} of the read, score {best.score}")
+    assert (best.strand == s.strand and best.tstart < s.tend
+            and best.tend > s.tstart), f"{what} is misplaced"
+    return best
 
 
 def long_read_calls(name: str) -> list:
@@ -1643,17 +2008,22 @@ def long_read_calls(name: str) -> list:
 def phase_long_reads(card, cuda_ops):
     """Two simulated reads of ~40 kb on a 1 Mbp genome mapped on the card
     through the CLI's Mapper (bucket 65536: K4's tiled slab, K5 and K6 at
-    L = 65536): each read's best alignment lies on its simulated interval
-    and strand.  Every banded_traceback, window_fragment_diags_banded,
-    find_anchors and _band_offsets call of the run is captured, and its
-    kernel's result held to the plain version on the same CUDA tensors
-    (K6's rows in its global scratch there)."""
+    L = 65536), then a ~100 kb read, longer than the largest bucket, which
+    takes map_long_reads (two segments at bucket 65536, stitched): each
+    read's best alignment lies on its simulated interval and strand.
+    Every banded_traceback, window_fragment_diags_banded, find_anchors and
+    _band_offsets call of the run is captured, and its kernel's result
+    held to the plain version on the same CUDA tensors (K6's rows in its
+    global scratch there)."""
     from blasr_tpu_torch.kernels.anchor import Anchors, find_anchors_plain
     from blasr_tpu_torch.pipeline import map_read
     t0 = time.time()
     sims, mapper = long_read_world()
+    long_sim = hundred_kb_read()
+    assert len(long_sim.rec.seq) > mapper.cfg.buckets[-1]
     log(f"# long reads: 1 Mbp genome + index, reads of "
-        f"{[len(s.rec.seq) for s in sims]} bases ({time.time() - t0:.1f}s)")
+        f"{[len(s.rec.seq) for s in sims]} and {len(long_sim.rec.seq)} "
+        f"bases ({time.time() - t0:.1f}s)")
     from blasr_tpu_torch.kernels import sdp
     k2_calls, k4_calls, k5_calls, k6_calls = [], [], [], []
     k2_inner = capture_calls(map_read, "banded_traceback", k2_calls)
@@ -1666,6 +2036,10 @@ def phase_long_reads(card, cuda_ops):
         per_read = mapper.map_reads([s.rec for s in sims])
         torch.cuda.synchronize()
         wall = time.time() - t0
+        t0 = time.time()
+        long_alns = mapper.map_reads([long_sim.rec])[0]
+        torch.cuda.synchronize()
+        long_wall = time.time() - t0
         launches = dict(cuda_ops.LAUNCHES)
     finally:
         map_read.banded_traceback = k2_inner
@@ -1682,35 +2056,59 @@ def phase_long_reads(card, cuda_ops):
     assert launches["anchor_search"] == len(k5_calls), launches
     assert launches["band_offsets"] == sum(a[0].shape[0] > 0
                                            for a, _, _ in k6_calls), launches
+    secs = {}
+    t0 = time.time()
     for i, (a, kw, out) in enumerate(k5_calls):
         assert a[3].is_cuda and a[3].shape[1] == 65536, \
             f"long-read K5 call {i + 1} is not at L = 65536"
         check_equal(out, find_anchors_plain(*a, **kw), Anchors._fields,
                     f"K5 long-read call {i + 1}")
+    secs["K5"], t0 = time.time() - t0, time.time()
     for i, (a, kw, out) in enumerate(k6_calls):
         assert a[0].is_cuda and a[3] == 65536, \
             f"long-read K6 call {i + 1} is not at L = 65536"
         check_equal([out], [map_read._band_offsets_plain(*a, **kw)],
                     ("offsets",), f"K6 long-read call {i + 1}")
-    from blasr_tpu_torch.kernels.banded import banded_traceback_plain
+    from blasr_tpu_torch.kernels.banded import (BandedResult,
+                                                banded_traceback_plain)
+    secs["K6"], t0 = time.time() - t0, time.time()
+    # the plain walk is row-wise, so the calls of one shape and t_max walk
+    # as one batch: the time of the longest walk, not the sum of them
+    groups = {}
     for i, (a, kw, out) in enumerate(k2_calls):
         assert a[0].tbbits.is_cuda and a[0].tbbits.shape[1] == 65536, \
             f"long-read K2 call {i + 1} is not at L = 65536"
-        ref = banded_traceback_plain(*a, **kw)
-        for f in out._fields:
-            assert torch.equal(getattr(out, f), getattr(ref, f)), \
-                f"K2 long-read call {i + 1}: {f} differs from the plain walk"
+        key = (tuple(a[0].tbbits.shape[1:]), tuple(sorted(kw.items())))
+        groups.setdefault(key, []).append(i)
+    for idx in groups.values():
+        args = [a for a, _, _ in (k2_calls[i] for i in idx)]
+        res = BandedResult(*(torch.cat([getattr(a[0], f) for a in args])
+                             for f in BandedResult._fields))
+        ref = banded_traceback_plain(
+            res, *(torch.cat([a[j] for a in args]) for j in range(1, 6)),
+            **k2_calls[idx[0]][1])
+        start = 0
+        for i in idx:
+            a, _, out = k2_calls[i]
+            n = a[0].tbbits.shape[0]
+            for f in out._fields:
+                assert torch.equal(getattr(out, f),
+                                   getattr(ref, f)[start:start + n]), \
+                    f"K2 long-read call {i + 1}: {f} differs from the plain"
+            start += n
     log(f"# K2 == plain on the long reads' {len(k2_calls)} banded_traceback "
         f"call(s) (N={[a[0].tbbits.shape[0] for a, _, _ in k2_calls]}, "
         f"L=65536, t_max={[kw['t_max'] for _, kw, _ in k2_calls]}, "
         f"{[int(o.n_pairs.max()) for _, _, o in k2_calls]} steps in the "
         f"longest walk): exact")
+    secs["K2"], t0 = time.time() - t0, time.time()
     for i, (a, kw, out) in enumerate(k4_calls):
         assert a[0].is_cuda and a[0].shape[1] == 65536, \
             f"long-read K4 call {i + 1} is not at L = 65536"
         check_equal(out, sdp.window_fragment_diags_banded_plain(*a, **kw),
                     ("diag", "valid"), f"K4 long-read call {i + 1}")
     torch.cuda.synchronize()
+    secs["K4"] = time.time() - t0
     log(f"# K4 == plain on the long reads' {len(k4_calls)} "
         f"window_fragment_diags_banded call(s) (N="
         f"{[a[0].shape[0] for a, _, _ in k4_calls]}, L=65536): exact")
@@ -1719,20 +2117,59 @@ def phase_long_reads(card, cuda_ops):
         f"O={sorted({kw['occ_per_pos'] for _, kw, _ in k5_calls})}, "
         f"A={k5_calls[0][2].q.shape[1]}) and K6 == "
         f"plain on their {len(k6_calls)} _band_offsets call(s) (L=65536): "
-        f"every field exact")
+        f"every field exact; seconds of the plain checks "
+        f"{ {k: round(v, 1) for k, v in secs.items()} }")
     for s, alns in zip(sims, per_read):
-        assert alns, "a long read did not map"
-        best = min(alns, key=lambda a: a.score)
-        log(f"# long read {len(s.rec.seq)} b, simulated strand {s.strand} "
-            f"[{s.tstart}, {s.tend}): mapped strand {best.strand} "
-            f"[{best.tstart}, {best.tend}), q [{best.qstart}, {best.qend}), "
-            f"score {best.score}")
-        assert (best.strand == s.strand and best.tstart < s.tend
-                and best.tend > s.tstart), "a long read is misplaced"
-    log(f"# long reads placed 2/2 in {wall:.1f}s on {card}; launches "
-        f"{launches}")
+        check_placed(s, alns, "long read")
+    check_placed(long_sim, long_alns, "~100 kb read (map_long_reads)")
+    log(f"# long reads placed 2/2 in {wall:.1f}s and the ~100 kb read in "
+        f"{long_wall:.1f}s on {card}; launches {launches}")
     assert all(launches[k] > 0 for k in PATH_KERNELS + ("banded_dp",)), \
         f"kernels not launched (long reads): {launches}"
+
+
+def phase_clr_read(cuda_ops):
+    """tests/test_longread.py's ~20 kb CLR read at 85% accuracy (copied,
+    forward strand) with buckets (1024, 2048): segment + stitch on the
+    card, held to test_longread's bounds (span >= 0.97 of the read, the
+    simulated strand, projection within 300 b of the simulated start) and
+    to the same read mapped with ``--device cpu``."""
+    from blasr_tpu_torch.index.genome import build_genome_index
+    from blasr_tpu_torch.io.fasta import FastaRecord
+    from blasr_tpu_torch.params import MappingParams, ShapeConfig
+    from blasr_tpu_torch.pipeline.map_read import Mapper
+    from blasr_tpu_torch.sim import mutate, random_genome
+    contigs = random_genome(300_000, seed=181)
+    gi = build_genome_index(contigs, k=12)
+    rng = np.random.default_rng(182)
+    ts, tl, err = 40_000, 20_000, 0.15
+    read = mutate(contigs[0].seq[ts:ts + tl], rng, 0.2 * err, 0.5 * err,
+                  0.3 * err)
+    rec = FastaRecord(f"clr/0/0_{len(read)}", read)
+    params = MappingParams(min_read_length=50).make_sane()
+    cfg = ShapeConfig(buckets=(1024, 2048), batch_size=8)
+    out, secs = {}, {}
+    for device in ("cuda", "cpu"):
+        cuda_ops.reset_launch_counts()
+        t0 = time.time()
+        alns = Mapper(gi, params, cfg, device=device).map_reads([rec])[0]
+        secs[device] = time.time() - t0
+        out[device] = [(a.strand, a.tindex, a.tstart, a.tend, a.qstart,
+                        a.qend, list(a.cigar), a.score) for a in alns]
+        if device == "cuda":
+            launches = dict(cuda_ops.LAUNCHES)
+            best = min(alns, key=lambda a: a.score)
+    L = len(read)
+    span = best.qend - best.qstart
+    proj = best.tstart - (best.qstart if best.strand == 0 else L - best.qend)
+    log(f"# CLR read {L} b at buckets (1024, 2048): strand {best.strand}, "
+        f"span {span / L:.4f} of the read, projected start {proj} "
+        f"(simulated {ts}); cuda == cpu: {out['cuda'] == out['cpu']} (cuda "
+        f"{secs['cuda']:.1f}s, cpu {secs['cpu']:.1f}s); launches {launches}")
+    assert best.strand == 0 and span >= 0.97 * L and abs(proj - ts) < 300
+    assert out["cuda"] == out["cpu"], "the CLR read differs, cuda vs cpu"
+    assert all(launches[k] > 0 for k in PATH_KERNELS + ("banded_dp",)), \
+        f"kernels not launched (CLR read): {launches}"
 
 
 # ---------------------------------------------------------------- phase 4
@@ -1971,9 +2408,13 @@ def main() -> int:
         t0 = time.time()
         phase_goldens(d, cuda_ops)
         phase_ids(cuda_ops)
-        log(f"# phase 3 done in {time.time() - t0:.1f}s")
+        log(f"# phase 3 goldens done in {time.time() - t0:.1f}s")
+        t0 = time.time()
+        phase_modes(d, cuda_ops)
+        log(f"# phase 3 modes done in {time.time() - t0:.1f}s")
     t0 = time.time()
     phase_long_reads(card, cuda_ops)
+    phase_clr_read(cuda_ops)
     log(f"# long-read phase done in {time.time() - t0:.1f}s")
     t0 = time.time()
     dist = phase_bench(card, cuda_ops, gi, sims, use_qv=False, dev=dev)

@@ -12,20 +12,28 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from test_golden import GOLDEN_DIR, make_fastq, make_qvsteer  # noqa: E402
+from test_golden import CASES as GOLDEN_CASES  # noqa: E402
+from test_golden import GOLDEN_DIR  # noqa: E402
+from test_golden import WORLDS as GOLDEN_WORLDS  # noqa: E402
 
 torch.set_num_threads(2)
 
 
 def port_output_equals_golden(d, world, name, flags):
     """Run the port's CLI on ``world`` (reads, genome, extra args) and
-    compare its output with ``golden.<name>``."""
+    compare its output with ``golden.<name>``, as tests/test_golden.py's
+    run_case builds it (``@D@`` is ``d``; the --unaligned file is
+    appended)."""
     from blasr_tpu_torch.cli.blasr import run
     reads, genome, extra = world
     out = os.path.join(d, f"out.{name}")
+    flags = [f.replace("@D@", d) for f in flags]
     assert run([reads, genome, "--out", out, "--device", "cpu"]
                + extra + flags) == 0
     text = open(out).read()
+    if "--unaligned" in flags:
+        unal = flags[flags.index("--unaligned") + 1]
+        text += "== unaligned ==\n" + open(unal).read()
     if name.startswith("sam"):
         # drop the @PG line (embeds the command line), as run_case does
         text = "\n".join(l for l in text.splitlines()
@@ -34,7 +42,17 @@ def port_output_equals_golden(d, world, name, flags):
     assert text == want, f"port output for {name} differs from the golden"
 
 
-WORLDS = {"fastq": make_fastq, "qvsteer": make_qvsteer}
+CASES = {name: (world, flags) for name, world, flags in GOLDEN_CASES}
+
+
+def port_reproduces_golden_case(worlds, name):
+    """``port_output_equals_golden`` for tests/test_golden.py's case
+    ``name``; ``worlds`` is a module fixture's (directory, world cache)."""
+    d, cache = worlds
+    world, flags = CASES[name]
+    if world not in cache:
+        cache[world] = GOLDEN_WORLDS[world](d)
+    port_output_equals_golden(d, cache[world], name, flags)
 
 
 @pytest.fixture(scope="module")
@@ -52,5 +70,5 @@ def worlds(tmp_path_factory):
 def test_port_cli_reproduces_qv_golden(worlds, name, world, flags):
     d, cache = worlds
     if world not in cache:
-        cache[world] = WORLDS[world](d)
+        cache[world] = GOLDEN_WORLDS[world](d)
     port_output_equals_golden(d, cache[world], name, flags)
