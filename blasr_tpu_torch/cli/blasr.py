@@ -4,8 +4,6 @@ The same flow and flags as the JAX package's driver: parse options ->
 make_sane -> load/build index -> map reads in batches -> mapQV ->
 filter/nbest/hit-policy -> print.  ``--device`` picks the torch device
 (default ``cuda``; there is no silent fallback to the CPU).
-``--affineAlign`` (the homopolymer-insertion band) is not ported yet and
-is rejected with an error.
 
 Run: ``python -m blasr_tpu_torch.cli.blasr reads.fa genome.fa -m 4``.
 """
@@ -435,10 +433,6 @@ def run(argv: Optional[List[str]] = None) -> int:
         sys.stderr.write("ERROR: --scoreSign 1 (higher-is-better scores) "
                          "is not supported by blasr_tpu\n")
         return 1
-    if args.affineAlign:
-        sys.stderr.write("ERROR: --affineAlign not supported by "
-                         "blasr_tpu_torch yet (use blasr_tpu)\n")
-        return 1
     import torch
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -585,11 +579,6 @@ def run(argv: Optional[List[str]] = None) -> int:
             markers = [markers[i] for i, _ in keep]
 
     from blasr_tpu_torch.pipeline.metrics import MappingMetrics
-    from blasr_tpu_torch.kernels.pallas_banded import two_valued
-    if device.type == "cuda" and not two_valued(params.score_matrix):
-        sys.stderr.write("ERROR: a general --scoreMatrix runs only with "
-                         "--device cpu in blasr_tpu_torch\n")
-        return 1
     mapper = Mapper(gi, params, metrics=MappingMetrics(
         store_list=args.fullMetrics is not None), device=device)
     if args.printDotPlots:

@@ -12,6 +12,12 @@
 //     per occurrence slot o < O: the strided rotating index
 //       idx = clamp(lo + (nocc > O ? (o*(nocc/O) + o*(nocc%O)/O + q)
 //                                      % max(nocc, 1) : o), 0, M - 1),
+//     or, in the block mode (occ_block_sample, the JAX branch at
+//     blasr_tpu/kernels/anchor.py:167-192), a contiguous window from
+//       base = lo + (nocc > O ? int32(q * 97) mod (nocc - O + 1) : 0),
+//       idx = clamp(base + o, 0, M - 1), and the record of row
+//       clamp(base, 0, rec_rows - O) + o (one O-row slice, RECORDS_PAD
+//       rows included in rec_rows),
 //     the 24-byte record (or the separate gathers), the containment prune
 //     (periodic representatives every E/2), the 16-base XOR/ctz extension,
 //     the length (clamped to max_lcp), hits_t / hits_valid, and
@@ -121,6 +127,8 @@ struct Index {
   long long G, M;
   int lookup;   // 0 paired LUT rows, 1 LUT, 2 sorted-key search
   int use_rec;  // fused 24-byte records
+  int block;    // occ_block_sample: a contiguous occurrence window
+  long long rec_rows;  // rows of the records table (>= M)
 };
 
 struct Shape {
@@ -220,7 +228,8 @@ __device__ __forceinline__ void lookup(const Index& ix, uint32_t key,
 template <int G, int OT, bool WIDE>
 __device__ __forceinline__ void slots(
     const Index& ix, const Shape& s, int q, int o0, long long lo,
-    long long nocc, uint32_t n_div, uint32_t n_mod, uint32_t q_mod,
+    long long nocc, long long bbase, uint32_t n_div, uint32_t n_mod,
+    uint32_t q_mod,
     bool pos_ok, bool periodic, int rprev, float seed, const int8_t* s_read,
     int sq, const uint32_t* c_rw, const uint32_t* c_rn, size_t gbase,
     int64_t* __restrict__ hits_t, uint8_t* __restrict__ hits_valid,
@@ -235,8 +244,12 @@ __device__ __forceinline__ void slots(
   for (int g = 0; g < G; ++g) {
     const int o = o0 + g;
     live[g] = OT > 0 || o < O;
-    long long occ_off = o;
-    if (nocc > O) {
+    long long occ_off = o, row;
+    if (ix.block) {
+      // the window's slot o; its record from the clipped slice start
+      occ_off = bbase - lo + o;
+      row = min(max(bbase, 0LL), ix.rec_rows - O) + o;
+    } else if (nocc > O) {
       if (WIDE) {
         const long long st0 = (long long)o * floordiv(nocc, O) +
                               floordiv((long long)o * floormod(nocc, O), O);
@@ -249,8 +262,9 @@ __device__ __forceinline__ void slots(
       }
     }
     const long long idx = clampll(lo + occ_off, 0, ix.M - 1);
+    if (!ix.block) row = idx;
     if (ix.use_rec) {
-      const int2* rec = reinterpret_cast<const int2*>(ix.records) + 3 * idx;
+      const int2* rec = reinterpret_cast<const int2*>(ix.records) + 3 * row;
       if (live[g]) {
         r01[g] = __ldg(rec);
         r23[g] = __ldg(rec + 1);
@@ -358,23 +372,29 @@ __global__ void __launch_bounds__(CAND_THREADS) anchor_candidates(
     for (int j = 0; j < CACHED_WORDS; ++j) {
       if (j < n_words) read_word(s_read, sq + k + 16 * j, c_rw[j], c_rn[j]);
     }
-    // the 32-bit strided index: nocc / O, nocc % O and q % nocc, once
+    // the block mode's window base; the 32-bit strided index: nocc / O,
+    // nocc % O and q % nocc, once
+    long long bbase = lo;
     uint32_t n_div = 0, n_mod = 0, q_mod = 0;
-    if (!WIDE && nocc > O) {
+    if (ix.block) {
+      if (nocc > O)
+        bbase += floormod((long long)(int)((uint32_t)q * 97u), nocc - O + 1);
+    } else if (!WIDE && nocc > O) {
       n_div = (uint32_t)nocc / (uint32_t)O;
       n_mod = (uint32_t)nocc - n_div * (uint32_t)O;
       q_mod = (uint32_t)q % (uint32_t)nocc;
     }
     const size_t gbase = ((size_t)b * L + q) * O;
     if constexpr (OT > 0) {
-      slots<OT, OT, WIDE>(ix, s, q, 0, lo, nocc, n_div, n_mod, q_mod, pos_ok,
-                          periodic, rprev, seed, s_read, sq, c_rw, c_rn,
-                          gbase, hits_t, hits_valid, meta, cnlogp);
-    } else {
-      for (int o0 = 0; o0 < O; o0 += 4)
-        slots<4, 0, WIDE>(ix, s, q, o0, lo, nocc, n_div, n_mod, q_mod,
+      slots<OT, OT, WIDE>(ix, s, q, 0, lo, nocc, bbase, n_div, n_mod, q_mod,
                           pos_ok, periodic, rprev, seed, s_read, sq, c_rw,
                           c_rn, gbase, hits_t, hits_valid, meta, cnlogp);
+    } else {
+      for (int o0 = 0; o0 < O; o0 += 4)
+        slots<4, 0, WIDE>(ix, s, q, o0, lo, nocc, bbase, n_div, n_mod,
+                          q_mod, pos_ok, periodic, rprev, seed, s_read, sq,
+                          c_rw, c_rn, gbase, hits_t, hits_valid, meta,
+                          cnlogp);
     }
   }
   // the block's share of n_clipped (unsigned: wraps as the int32 sum does)
@@ -778,9 +798,8 @@ cudaError_t candidates_for(const Index& ix, const Shape& s, cudaStream_t st,
   }
 }
 
-}  // namespace
-
-extern "C" int blasr_anchor_search(
+int anchor_search(
+    int block, long long rec_rows,
     const int8_t* reads, const int32_t* read_len, const int8_t* genome,
     const int64_t* keys_sorted, const int64_t* pos_sorted,
     const int32_t* bucket_starts, const int32_t* bucket_pairs,
@@ -793,7 +812,8 @@ extern "C" int blasr_anchor_search(
     uint8_t* out_valid, float* out_nlogp, int32_t* n_total,
     int32_t* n_clipped, void* stream) {
   const Index ix{genome, keys_sorted, pos_sorted, bucket_starts, bucket_pairs,
-                 records, gwords, gnwords, G, M, lookup_mode, use_rec};
+                 records, gwords, gnwords, G, M, lookup_mode, use_rec,
+                 block, rec_rows};
   int P = 32;
   while (P < A_out) P <<= 1;
   const int nblk = (L + CAND_THREADS - 1) / CAND_THREADS;
@@ -831,4 +851,37 @@ extern "C" int blasr_anchor_search(
       s, hits_t, meta, cnlogp, clip_part, out_q, out_t, out_l, out_valid,
       out_nlogp, n_total, n_clipped);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+#define ANCHOR_SEARCH_ARGS                                                    \
+  const int8_t *reads, const int32_t *read_len, const int8_t *genome,         \
+      const int64_t *keys_sorted, const int64_t *pos_sorted,                  \
+      const int32_t *bucket_starts, const int32_t *bucket_pairs,              \
+      const int32_t *records, const int64_t *gwords, const int64_t *gnwords,  \
+      long long G, long long M, int lookup_mode, int use_rec, int B, int L,   \
+      int O, int k, int E, int min_match, long long mapp, int max_lcp,        \
+      int advance_exact, int A_out, int nbits, int lmax, float m_total,       \
+      int64_t *hits_t, uint8_t *hits_valid, uint32_t *meta, float *cnlogp,    \
+      uint32_t *clip_part, int64_t *out_q, int64_t *out_t, int64_t *out_l,    \
+      uint8_t *out_valid, float *out_nlogp, int32_t *n_total,                 \
+      int32_t *n_clipped, void *stream
+#define ANCHOR_SEARCH_PASS                                                    \
+  reads, read_len, genome, keys_sorted, pos_sorted, bucket_starts,            \
+      bucket_pairs, records, gwords, gnwords, G, M, lookup_mode, use_rec, B,  \
+      L, O, k, E, min_match, mapp, max_lcp, advance_exact, A_out, nbits,      \
+      lmax, m_total, hits_t, hits_valid, meta, cnlogp, clip_part, out_q,      \
+      out_t, out_l, out_valid, out_nlogp, n_total, n_clipped, stream
+
+// the default strided occurrence sampling
+extern "C" int blasr_anchor_search(ANCHOR_SEARCH_ARGS) {
+  return anchor_search(0, M, ANCHOR_SEARCH_PASS);
+}
+
+// the block mode (occ_block_sample): the same arguments, then the rows of
+// the records table (its slices are clipped to them)
+extern "C" int blasr_anchor_search_block(ANCHOR_SEARCH_ARGS,
+                                         long long rec_rows) {
+  return anchor_search(1, rec_rows, ANCHOR_SEARCH_PASS);
 }

@@ -1,10 +1,12 @@
-// K1: guided banded DP, forward pass, in two compile-time modes.
+// K1: guided banded DP, forward pass, in compile-time modes.
 //
 // Replaces blasr_tpu/kernels/pallas_banded.py::pallas_banded_align (the
 // Pallas TPU kernel, `_kernel` / `_block_body`, defined at
-// pallas_banded.py:388) in both of its modes, and reproduces
-// blasr_tpu/kernels/banded.py::_align_one bit for bit: the same M/I/D
-// min-cost recurrence, the same <= tie-breaks in the order M, I, D,
+// pallas_banded.py:388) in both of its modes, and the XLA forward pass
+// blasr_tpu/kernels/banded.py::banded_align (banded.py:362) in the forms
+// the Pallas kernel does not take (the hp band, a general matrix); it
+// reproduces banded.py::_align_one bit for bit: the same M/I/D (and H)
+// min-cost recurrence, the same <= tie-breaks in the order M, I, D, H,
 // INF = 1e30, and the same int32 cell word per banded cell (layout in
 // blasr_tpu_torch/kernels/banded.py).
 //   * distance mode (QV = false, "K1"): affine gaps from the arguments.
@@ -22,11 +24,25 @@
 //     of row qa's cd over the window from ta (the XLA kernel's cumz form):
 //     the sum over ta..o_r-1 plus the in-band scan of cd at the cells'
 //     own window positions t_abs < W.
+//   * HP (HP = true, "K1-HP", the --affineAlign path, distance costs only):
+//     a fourth state H, the homopolymer-insertion band.  An inserted base
+//     equal to the previous read base (read[r] == read[r-1] < 4; code 4
+//     before row 0, and at r == qa > 0 a base outside the aligned range)
+//     opens from M at hp_open or extends H at hp_ext; H is a fourth
+//     diagonal source (last in the tie order), base = min(M, I, H) feeds
+//     D, and the final state is chosen four ways.  d_from_m still compares
+//     M with I only, as the reference does; h_open is cell bit 6.
+//   * GEN (GEN = true, "K1-GEN", a general --scoreMatrix, in the distance,
+//     HP and QV forms): sub = submat[rb * 5 + tgt] for any 5x5 matrix, the
+//     N row (read N) and N column (window N, the pad past W) included; eq
+//     stays rb == tgt < 4.  In QV form a match costs the matrix's diagonal
+//     entry of its base and a mismatch still comes from the tracks.
 //
-// Contract (as the Pallas kernel's): band width 128, a two-valued score
-// matrix (match on the ACGT diagonal, one mismatch value elsewhere), and a
-// band offset that advances by 0, 1 or 2 per active row.  The wrapper
-// (kernels/cuda_ops.py) checks all three.
+// Contract (as the Pallas kernel's): band width 128 and a band offset that
+// advances by 0, 1 or 2 per active row; without GEN a two-valued score
+// matrix (match on the ACGT diagonal, one mismatch value elsewhere).  The
+// wrappers (kernels/cuda_ops.py, kernels/pallas_banded.py) check them and
+// pick the mode.
 //
 // Layout: one CTA of three warps per item, decoupled through shared
 // memory by double-buffered rings of R = 16-row tiles, each slot with a
@@ -34,10 +50,12 @@
 //   * Warp 0, the row-input stage, loads a tile's offsets, read bytes and
 //     QV words (lane i holds row r0 + i) and, per row, the window bytes
 //     under the band, and writes one 32-bit word per cell: eq, in_t,
-//     in_t_i, and in QV mode the substitution and deletion tag matches and
-//     the prefix sum S of cd (its own 5-step shuffle scan); plus the row's
-//     offset, shift s and QV costs, and at row qa the boundary deletion
-//     profile.
+//     in_t_i, in QV mode the substitution and deletion tag matches and
+//     the prefix sum S of cd (its own 5-step shuffle scan), in HP mode
+//     in_t_i & hp_ok, in GEN mode the target code; plus the row's offset,
+//     shift s and QV costs, (GEN) the read base's five matrix entries in
+//     a ring of their own past the others, and at row qa the boundary
+//     deletion profile.
 //   * Warp 1, the recurrence, runs only what crosses rows: lane l holds
 //     band cells 4l..4l+3 and their M/I/D carries; per row one 16-byte
 //     shared load of its four cell words, the diagonal / vertical
@@ -45,7 +63,9 @@
 //     selects: no branch around a shuffle), M and I, the exclusive
 //     prefix-min of the deletion closed form (a 4-cell serial scan, then a
 //     5-step __shfl_up scan), D, and a byte per cell of what the cell word
-//     needs from them.
+//     needs from them.  HP mode carries H beside them (one more pair of
+//     shifts a row); GEN mode reads each cell's cost from the row's five
+//     entries in shared memory by its target code.
 //   * Warp 2 packs the cell words: it carries the M-run counter (a chain of
 //     its own, one integer add or select per cell and row), and each tile's
 //     words (R * 512 bytes) leave through shared memory in one
@@ -79,9 +99,13 @@ constexpr unsigned FULL = 0xffffffffu;
 constexpr int ST_M = 0, ST_I = 1, ST_D = 2;
 constexpr int RUN_CAP = 63;
 
-// cell-word flags of the row-input stage
+constexpr int ST_H = 3;
+
+// cell-word flags of the row-input stage: bits 0-5, the target code (GEN)
+// at bits 8-10, the QV prefix sum S at bits 16-31
 constexpr unsigned F_EQ = 1u, F_IN_T = 2u, F_IN_TI = 4u, F_STAG = 8u,
-                   F_DTAG = 16u;
+                   F_DTAG = 16u, F_IN_TH = 32u;
+constexpr int F_TGT_SHIFT = 8;
 
 // a row's scalars: offset, shift, QV costs
 struct RowScalars {
@@ -100,6 +124,14 @@ struct Smem {
   unsigned long long full[2], empty[2];    // row inputs <-> recurrence
   unsigned long long full2[2], empty2[2];  // recurrence <-> cell words
 };
+
+// GEN: the rows' matrix entries, sub[tgt] = submat[rb * 5 + tgt] for each
+// row of the ring, in the dynamic shared memory past Smem (so the other
+// modes keep Smem's layout)
+constexpr int GEN_SUB = 5;
+__device__ __forceinline__ float* gen_sub(Smem& sm, int slot, int i) {
+  return reinterpret_cast<float*>(&sm + 1) + (slot * R + i) * GEN_SUB;
+}
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return (unsigned)__cvta_generic_to_shared(p);
@@ -197,6 +229,8 @@ struct Args {
   const int32_t *qa, *qb, *ta, *tb, *qv1, *qv2;
   int N, L, W;
   float match, mismatch, ins_open, ins_ext, del_open, del_ext;
+  float hp_open, hp_ext;
+  float submat[25];  // GEN: the whole matrix, read base major
   float* score;
   int32_t* tbbits;
   int32_t* state;
@@ -204,7 +238,7 @@ struct Args {
 };
 
 // Warp 0: the row-input stage of item n.
-template <bool QV>
+template <bool QV, bool HP, bool GEN>
 __device__ void row_inputs(const Args& a, Smem& sm, int n, int lane) {
   const int L = a.L, W = a.W;
   const int qa = a.qa[n], qb = a.qb[n], ta = a.ta[n], tb = a.tb[n];
@@ -217,13 +251,14 @@ __device__ void row_inputs(const Args& a, Smem& sm, int n, int lane) {
     const int slot = t & 1, use = t >> 1;
     if (use > 0) mbar_wait(&sm.empty[slot], (use - 1) & 1);
     const int r0 = t * R, nr = min(R, L - r0);
-    int my_o = 0, my_prev = 0, my_rb = 4;
+    int my_o = 0, my_prev = 0, my_rb = 4, my_rbp = 4;
     unsigned my_w1 = 0, my_w2 = 0;
     if (lane < nr && r0 + lane >= qa && r0 + lane < qb) {
       const int r = r0 + lane;
       my_o = __ldg(off + r);
       my_prev = r > 0 ? __ldg(off + r - 1) : 0;
       my_rb = __ldg(rd + r);
+      if constexpr (HP) my_rbp = r > 0 ? __ldg(rd + r - 1) : 4;
       if constexpr (QV) {
         my_w1 = (unsigned)__ldg(a.qv1 + (size_t)n * L + r);
         my_w2 = (unsigned)__ldg(a.qv2 + (size_t)n * L + r);
@@ -239,6 +274,15 @@ __device__ void row_inputs(const Args& a, Smem& sm, int n, int lane) {
       RowScalars sc{o_r, first ? 0 : o_r - prev, 0.f, 0.f, 0.f, 0.f, 0.f,
                     0.f};
       int dtag = 7, stag = 7;
+      bool hp_ok = false;
+      if constexpr (HP) {
+        const int rbp = __shfl_sync(FULL, my_rbp, i);
+        hp_ok = rb == rbp && rbp < 4;
+      }
+      if constexpr (GEN) {
+        if (lane < GEN_SUB)
+          gen_sub(sm, slot, i)[lane] = a.submat[rb * GEN_SUB + lane];
+      }
       if constexpr (QV) {
         const unsigned w1 = __shfl_sync(FULL, my_w1, i);
         const unsigned w2 = __shfl_sync(FULL, my_w2, i);
@@ -265,6 +309,10 @@ __device__ void row_inputs(const Args& a, Smem& sm, int n, int lane) {
           fl[j] |= (tgt == stag ? F_STAG : 0u) | (tgt == dtag ? F_DTAG : 0u);
           cd[j] = tgt == dtag ? sc.delq : sc.dpri;
         }
+        if constexpr (HP) {
+          if (hp_ok && t_abs >= ta - 1 && t_abs < tb) fl[j] |= F_IN_TH;
+        }
+        if constexpr (GEN) fl[j] |= (unsigned)tgt << F_TGT_SHIFT;
       }
       if constexpr (QV) {
         float S[4];
@@ -316,25 +364,26 @@ __device__ void row_inputs(const Args& a, Smem& sm, int n, int lane) {
 }
 
 // cell code of the recurrence, one byte per cell: the cell word's bits
-// 0-3 and 5 (msrc, iopen, d_open, eq) and, at bit 6, M <= I, which is the
-// next cell's d_from_m
-constexpr unsigned C_MLEI = 64u;
+// 0-3 and 5 (msrc, iopen, d_open, eq), at bit 6 M <= I, which is the next
+// cell's d_from_m, and at bit 7 (HP) h_open, cell-word bit 6
+constexpr unsigned C_MLEI = 64u, C_HOPEN = 128u;
 
-// Warp 1: the recurrence of item n.  Only the M/I/D carries cross rows
-// here; the cell word's run counter and packing are warp 2's.
-template <bool QV>
+// Warp 1: the recurrence of item n.  Only the M/I/D (and H) carries cross
+// rows here; the cell word's run counter and packing are warp 2's.
+template <bool QV, bool HP, bool GEN>
 __device__ void recurrence(const Args& a, Smem& sm, int n, int lane) {
   const int L = a.L;
   const int qa = a.qa[n], qb = a.qb[n], ta = a.ta[n], tb = a.tb[n];
   const float match = a.match, mismatch = a.mismatch;
   const float ins_open = a.ins_open, ins_ext = a.ins_ext;
   const float del_open = a.del_open, del_ext = a.del_ext;
+  const float hp_open = a.hp_open, hp_ext = a.hp_ext;
   const int c0 = 4 * lane;
 
-  float pM[4], pI[4], pD[4];
+  float pM[4], pI[4], pD[4], pH[4];
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
-    pM[j] = INF_F; pI[j] = INF_F; pD[j] = INF_F;
+    pM[j] = INF_F; pI[j] = INF_F; pD[j] = INF_F; pH[j] = INF_F;
   }
   float fin_score = INF_F;
   int fin_state = ST_M;
@@ -359,15 +408,17 @@ __device__ void recurrence(const Args& a, Smem& sm, int n, int lane) {
           pM[j] = (o_r + c0 + j == ta - 1) ? 0.0f : INF_F;
           pI[j] = INF_F;
           pD[j] = sm.bd[c0 + j];
+          pH[j] = INF_F;
         }
       }
       {
-        float dM[4], dI[4], dD[4], vM[4], vI[4];
+        float dM[4], dI[4], dD[4], vM[4], vI[4], dH[4], vH[4];
         band_shift(pM, s, INF_F, lane, dM, vM);
         band_shift(pI, s, INF_F, lane, dI, vI);
         band_shift(pD, s, INF_F, lane, dD);
+        if constexpr (HP) band_shift(pH, s, INF_F, lane, dH, vH);
 
-        float M[4], I[4], base[4], g[4], S[4], cd[4];
+        float M[4], I[4], H[4], base[4], g[4], S[4], cd[4];
         unsigned code[4];
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
@@ -376,13 +427,28 @@ __device__ void recurrence(const Args& a, Smem& sm, int n, int lane) {
           const bool in_t_i = fl[j] & F_IN_TI;
           const bool eq = fl[j] & F_EQ;
           float sub, ifm, ifi;
-          if constexpr (QV) {
+          if constexpr (GEN) {
+            // the row's matrix entry of this cell's target base; in QV form
+            // only a match (its base's diagonal entry) takes it
+            const float gs =
+                gen_sub(sm, slot, i)[(fl[j] >> F_TGT_SHIFT) & 7u];
+            if constexpr (QV) {
+              sub = eq ? gs : ((fl[j] & F_STAG) ? sc.subq : sc.spri);
+            } else {
+              sub = gs;
+            }
+          } else if constexpr (QV) {
             sub = eq ? match : ((fl[j] & F_STAG) ? sc.subq : sc.spri);
           } else {
             sub = eq ? match : mismatch;
           }
-          const float db = fminf(dM[j], fminf(dI[j], dD[j]));
-          const int msrc = dM[j] <= db ? ST_M : (dI[j] <= db ? ST_I : ST_D);
+          float db = fminf(dM[j], fminf(dI[j], dD[j]));
+          int last = ST_D;
+          if constexpr (HP) {
+            db = fminf(db, dH[j]);
+            last = dD[j] <= db ? ST_D : ST_H;
+          }
+          const int msrc = dM[j] <= db ? ST_M : (dI[j] <= db ? ST_I : last);
           M[j] = in_t ? sub + db : INF_F;
           if constexpr (QV) {
             ifm = vM[j] + sc.insq;
@@ -392,7 +458,15 @@ __device__ void recurrence(const Args& a, Smem& sm, int n, int lane) {
             ifi = vI[j] + ins_ext;
           }
           I[j] = in_t_i ? fminf(ifm, ifi) : INF_F;
-          base[j] = fminf(M[j], I[j]);
+          bool hopen = false;
+          if constexpr (HP) {
+            const float hfm = vM[j] + hp_open, hfh = vH[j] + hp_ext;
+            H[j] = (fl[j] & F_IN_TH) ? fminf(hfm, hfh) : INF_F;
+            hopen = hfm <= hfh;
+            base[j] = fminf(fminf(M[j], I[j]), H[j]);
+          } else {
+            base[j] = fminf(M[j], I[j]);
+          }
           if constexpr (QV) {
             S[j] = (float)(fl[j] >> 16);
             cd[j] = (fl[j] & F_DTAG) ? sc.delq : sc.dpri;
@@ -401,7 +475,8 @@ __device__ void recurrence(const Args& a, Smem& sm, int n, int lane) {
             g[j] = base[j] < HALF_INF ? base[j] - del_ext * (float)c : INF_F;
           }
           code[j] = (unsigned)msrc | (ifm <= ifi ? 4u : 0u) |
-                    (eq ? 32u : 0u) | (M[j] <= I[j] ? C_MLEI : 0u);
+                    (eq ? 32u : 0u) | (M[j] <= I[j] ? C_MLEI : 0u) |
+                    (hopen ? C_HOPEN : 0u);
         }
         // exclusive prefix-min of g over the 128-cell band
         float incl[4];
@@ -450,10 +525,16 @@ __device__ void recurrence(const Args& a, Smem& sm, int n, int lane) {
             const float cM = __shfl_sync(FULL, cM0, wf >> 2);
             const float cI = __shfl_sync(FULL, cI0, wf >> 2);
             const float cD = __shfl_sync(FULL, cD0, wf >> 2);
-            const float cbest = fminf(cM, fminf(cI, cD));
+            float cbest = fminf(cM, fminf(cI, cD));
+            int clast = ST_D;
+            if constexpr (HP) {
+              const float cH = __shfl_sync(FULL, pick4(H, jj), wf >> 2);
+              cbest = fminf(cbest, cH);
+              clast = cD <= cbest ? ST_D : ST_H;
+            }
             if (cbest < HALF_INF) {
               fin_score = cbest;
-              fin_state = cM <= cbest ? ST_M : (cI <= cbest ? ST_I : ST_D);
+              fin_state = cM <= cbest ? ST_M : (cI <= cbest ? ST_I : clast);
               fin_ok = true;
             }
           }
@@ -461,6 +542,7 @@ __device__ void recurrence(const Args& a, Smem& sm, int n, int lane) {
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           pM[j] = M[j]; pI[j] = I[j]; pD[j] = Dn[j];
+          if constexpr (HP) pH[j] = H[j];
         }
       }
     }
@@ -480,6 +562,7 @@ __device__ void recurrence(const Args& a, Smem& sm, int n, int lane) {
 // the diagonal predecessor's.  No field overflows: mrun <= RUN_CAP,
 // meq <= mrun and, with s <= 2, ssum <= 2 * mrun < 127, so the saturation
 // at 127 never applies.  Each tile's words leave in one bulk store.
+template <bool HP>
 __device__ void cell_words(const Args& a, Smem& sm, int n, int lane) {
   const int L = a.L;
   const int qa = a.qa[n], qb = a.qb[n];
@@ -520,6 +603,7 @@ __device__ void cell_words(const Args& a, Smem& sm, int n, int lane) {
           pC[j] = fresh ? (msrc << 7) | add : dC[j] + add;
           bits[j] = pC[j] | (int)(code & 47u) |
                     ((left & C_MLEI) ? 16 : 0) | (s << 21);
+          if constexpr (HP) bits[j] |= (int)((code & C_HOPEN) >> 1);
         }
         sm.out[slot][i][lane] = make_int4(bits[0], bits[1], bits[2], bits[3]);
       }
@@ -540,7 +624,7 @@ __device__ void cell_words(const Args& a, Smem& sm, int n, int lane) {
   if (lane == 0) asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
 }
 
-template <bool QV>
+template <bool QV, bool HP, bool GEN>
 __global__ void __launch_bounds__(96) banded_dp_kernel(Args a) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
@@ -556,22 +640,23 @@ __global__ void __launch_bounds__(96) banded_dp_kernel(Args a) {
   }
   __syncthreads();
   if (warp == 0) {
-    row_inputs<QV>(a, sm, n, lane);
+    row_inputs<QV, HP, GEN>(a, sm, n, lane);
   } else if (warp == 1) {
-    recurrence<QV>(a, sm, n, lane);
+    recurrence<QV, HP, GEN>(a, sm, n, lane);
   } else {
-    cell_words(a, sm, n, lane);
+    cell_words<HP>(a, sm, n, lane);
   }
 }
 
-template <bool QV>
+template <bool QV, bool HP = false, bool GEN = false>
 int launch(const Args& a, void* stream) {
-  const size_t smem = sizeof(Smem);
+  const size_t smem =
+      sizeof(Smem) + (GEN ? 2 * R * GEN_SUB * sizeof(float) : 0);
   cudaError_t err = cudaFuncSetAttribute(
-      banded_dp_kernel<QV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      banded_dp_kernel<QV, HP, GEN>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  banded_dp_kernel<QV><<<a.N, 96, smem, (cudaStream_t)stream>>>(a);
+  banded_dp_kernel<QV, HP, GEN><<<a.N, 96, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -586,7 +671,7 @@ extern "C" int blasr_banded_dp(
     void* stream) {
   const Args a{reads, windows, offsets, qa, qb, ta, tb, nullptr, nullptr,
                N, L, W, match, mismatch, ins_open, ins_ext, del_open,
-               del_ext, score, tbbits, final_state, valid};
+               del_ext, 0.0f, 0.0f, {}, score, tbbits, final_state, valid};
   return launch<false>(a, stream);
 }
 
@@ -599,7 +684,36 @@ extern "C" int blasr_banded_dp_qv(
     int W, float match, float* score, int32_t* tbbits, int32_t* final_state,
     uint8_t* valid, void* stream) {
   const Args a{reads, windows, offsets, qa, qb, ta, tb, qv1, qv2, N, L, W,
-               match, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, score, tbbits,
-               final_state, valid};
+               match, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, {}, score,
+               tbbits, final_state, valid};
   return launch<true>(a, stream);
+}
+
+// K1-HP and the GEN forms: hp != 0 takes the hp band (distance costs, no
+// QV tracks), gen != 0 the general matrix ``submat`` (25 floats in host
+// memory, read base major; copied into the launch's arguments) in place
+// of match / mismatch, qv1/qv2 non-null the QV form (with gen only).
+extern "C" int blasr_banded_dp_mode(
+    const int8_t* reads, const int8_t* windows, const int32_t* offsets,
+    const int32_t* qa, const int32_t* qb, const int32_t* ta,
+    const int32_t* tb, const int32_t* qv1, const int32_t* qv2, int N, int L,
+    int W, int hp, int gen, const float* submat, float match,
+    float mismatch, float ins_open, float ins_ext, float del_open,
+    float del_ext, float hp_open, float hp_ext, float* score,
+    int32_t* tbbits, int32_t* final_state, uint8_t* valid, void* stream) {
+  const bool qv = qv1 != nullptr;
+  Args a{reads, windows, offsets, qa, qb, ta, tb, qv1, qv2, N, L, W,
+         match, mismatch, ins_open, ins_ext, del_open, del_ext, hp_open,
+         hp_ext, {}, score, tbbits, final_state, valid};
+  if (gen)
+    for (int k = 0; k < 25; ++k) a.submat[k] = submat[k];
+  if (hp && !qv) {
+    return gen ? launch<false, true, true>(a, stream)
+               : launch<false, true, false>(a, stream);
+  }
+  if (gen && !hp) {
+    return qv ? launch<true, false, true>(a, stream)
+              : launch<false, false, true>(a, stream);
+  }
+  return (int)cudaErrorInvalidValue;
 }

@@ -4,13 +4,13 @@
 to K5 (``csrc/anchor_search.cu``, one call of two kernels), CPU tensors
 to ``find_anchors_plain``.
 
-``find_anchors_plain`` is plain PyTorch on the default branch of the JAX
-``find_anchors``: the paired LUT
-rows (or the LUT / a sorted-key search), strided rotating occurrence
-sampling, the fused 24-byte per-slot records (or separate word gathers),
-the containment prune, the 16-base XOR extension, top-A selection and the
-final genome-position order.  The contiguous ``occ_block_sample`` layout
-and the ``profile_stop`` hooks are not ported.
+``find_anchors_plain`` is plain PyTorch on the JAX ``find_anchors``: the
+paired LUT rows (or the LUT / a sorted-key search), strided rotating
+occurrence sampling or, with ``occ_block_sample``, a contiguous window of
+O occurrences whose base rotates with the read position, the fused
+24-byte per-slot records (or separate word gathers), the containment
+prune, the 16-base XOR extension, top-A selection and the final
+genome-position order.  The ``profile_stop`` hooks are not ported.
 
 The JAX package holds k-mer keys and packed genome words as uint32.  Here
 they are int64 holding the same 32-bit patterns (masked with 0xFFFFFFFF
@@ -92,15 +92,16 @@ def _bit_reverse_spread(n: int):
 def find_anchors(genome, keys_sorted, pos_sorted, reads, read_len, *,
                  k: int, occ_per_pos: int, max_anchors: int, anchor_ext: int,
                  min_match: int, max_anchors_per_pos: int, max_lcp: int = 0,
-                 advance_exact: int = 0, bucket_starts=None,
-                 bucket_pairs=None, gwords=None, gnwords=None,
-                 pos_records=None) -> Anchors:
+                 advance_exact: int = 0, occ_block_sample: bool = False,
+                 bucket_starts=None, bucket_pairs=None, gwords=None,
+                 gnwords=None, pos_records=None) -> Anchors:
     """The anchor search: K5 on CUDA tensors, the plain version on CPU
     tensors (same contract as :func:`find_anchors_plain`)."""
     kw = dict(k=k, occ_per_pos=occ_per_pos, max_anchors=max_anchors,
               anchor_ext=anchor_ext, min_match=min_match,
               max_anchors_per_pos=max_anchors_per_pos, max_lcp=max_lcp,
-              advance_exact=advance_exact, bucket_starts=bucket_starts,
+              advance_exact=advance_exact,
+              occ_block_sample=occ_block_sample, bucket_starts=bucket_starts,
               bucket_pairs=bucket_pairs, gwords=gwords, gnwords=gnwords,
               pos_records=pos_records)
     return on_device(
@@ -119,12 +120,14 @@ def find_anchors_plain(genome, keys_sorted, pos_sorted, reads, read_len, *,
                        k: int, occ_per_pos: int, max_anchors: int,
                        anchor_ext: int, min_match: int,
                        max_anchors_per_pos: int, max_lcp: int = 0,
-                       advance_exact: int = 0, bucket_starts=None,
-                       bucket_pairs=None, gwords=None, gnwords=None,
-                       pos_records=None) -> Anchors:
+                       advance_exact: int = 0, occ_block_sample: bool = False,
+                       bucket_starts=None, bucket_pairs=None, gwords=None,
+                       gnwords=None, pos_records=None) -> Anchors:
     """See ``blasr_tpu.kernels.anchor.find_anchors``: anchor significance
     is -log P = log(M/n) + (l-k)*log(4) for a seed occurring n times in an
-    M-slot index and extending to length l."""
+    M-slot index and extending to length l.  ``occ_block_sample`` samples
+    an over-abundant seed's occurrences as O consecutive slots from a base
+    lo + (q * 97) % (nocc - O + 1) instead of the strided picket."""
     if gwords is None:
         raise NotImplementedError(
             "find_anchors needs the packed genome words (DeviceIndex)")
@@ -151,18 +154,33 @@ def find_anchors_plain(genome, keys_sorted, pos_sorted, reads, read_len, *,
     nocc = hi - lo
     pos_ok = kvalid & (nocc > 0) & (nocc <= max_anchors_per_pos)
 
-    # strided occurrence sampling with a phase rotating with q
     occ3 = torch.arange(O, dtype=i64, device=dev)[None, None, :]
     nocc3 = nocc[:, :, None]
     q = torch.arange(L, dtype=i64, device=dev)[None, :, None].expand(B, L, O)
     use_rec = pos_records is not None and anchor_ext <= 32
-    stride0 = occ3 * (nocc3 // O) + (occ3 * (nocc3 % O)) // O
-    strided = (stride0 + q) % torch.clamp(nocc3, min=1)
-    occ_off = torch.where(nocc3 > O, strided, occ3)
-    idx = (lo[:, :, None] + occ_off).clamp(0, M_slots - 1)      # [B, L, O]
+    if occ_block_sample:
+        # a contiguous window of O slots from a base rotating with q inside
+        # [lo, hi - O]; (q * 97) wraps as the JAX package's int32 does
+        q2 = torch.arange(L, dtype=i64, device=dev)[None, :]
+        span = torch.clamp(nocc - O + 1, min=1)
+        q97 = (q2 * 97).to(torch.int32).to(i64)
+        base = lo + torch.where(nocc > O, q97 % span, 0)
+        idx = (base[:, :, None] + occ3).clamp(0, M_slots - 1)
+        # the records come as one O-row slice from base, its start clipped
+        # to the table's rows (RECORDS_PAD included), not slot by slot
+        rec_rows = (None if not use_rec else
+                    base.clamp(0, pos_records.shape[0] - O)[:, :, None]
+                    + occ3)
+    else:
+        # strided occurrence sampling with a phase rotating with q
+        stride0 = occ3 * (nocc3 // O) + (occ3 * (nocc3 % O)) // O
+        strided = (stride0 + q) % torch.clamp(nocc3, min=1)
+        occ_off = torch.where(nocc3 > O, strided, occ3)
+        idx = (lo[:, :, None] + occ_off).clamp(0, M_slots - 1)  # [B, L, O]
+        rec_rows = idx
     cand_valid = pos_ok[:, :, None] & (occ3 < nocc3)
     if use_rec:
-        rec = pos_records[idx].to(i64) & MASK32                 # [B,L,O,6]
+        rec = pos_records[rec_rows].to(i64) & MASK32            # [B,L,O,6]
         t = rec[..., 0]
         gprev = rec[..., 1]
     else:

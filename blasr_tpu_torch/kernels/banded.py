@@ -1,6 +1,7 @@
 """Guided banded affine alignment: the DP forward pass and the run-length
-traceback (port of ``blasr_tpu/kernels/banded.py``: the distance and the
-QV-steered modes of the forward pass; the hp band is not ported).
+traceback (port of ``blasr_tpu/kernels/banded.py``: the forward pass in
+its distance, homopolymer-insertion (hp band) and QV-steered modes, each
+with any 5x5 score matrix).
 
 Both functions keep the JAX package's contracts bit for bit: the int32
 cell-word layout below, ``BandedResult`` / ``TracebackResult``, and the
@@ -35,7 +36,7 @@ INF = 1e30
 #   bit 4   : D opened from M (else from I)
 #   bit 5   : read base == target base at this cell
 #   bit 6   : h_open (homopolymer-insertion band opened from M; always 0
-#             in distance mode)
+#             without the hp band)
 #   bits 7-8:  run-exit state — m_src at the start of this cell's M run
 #   bits 9-14: M-run length (consecutive state-M cells chained by
 #              m_src==M diagonal links, capped at RUN_CAP)
@@ -45,7 +46,7 @@ INF = 1e30
 #   bits 23-29: ssum — sum of s over the M-run's rows (<= 2*RUN_CAP,
 #              127 flags a saturated jump)
 ST_M, ST_I, ST_D = 0, 1, 2
-ST_H = 3
+ST_H = 3  # homopolymer-insertion state (the hp band; bit 6 = h_open)
 RUN_CAP = 63
 
 _TB_CHUNK = 64    # the JAX walk's while_loop chunk: P rounds up to 2x this
@@ -117,22 +118,29 @@ def unpack_qv(qv1: torch.Tensor, qv2: torch.Tensor):
 
 def banded_align(reads, windows, offsets, qa, qb, ta, tb, submat,
                  ins_open, ins_ext, del_open, del_ext, *,
-                 w_b: int = 128, qv1=None, qv2=None) -> BandedResult:
+                 w_b: int = 128, use_hp: bool = False, hp_open=0.0,
+                 hp_ext=0.0, qv1=None, qv2=None) -> BandedResult:
     """Batched guided banded alignment (plain PyTorch).
 
     reads   int8  [N, L]     query codes
     windows int8  [N, W]     target window codes
     offsets int   [N, L]     band start per row (window coordinates)
     qa..tb  int   [N]        global alignment ranges (window coords for t)
-    submat  float32 [25]     flattened 5x5 score matrix (integer-valued)
+    submat  float32 [25]     flattened 5x5 score matrix (integer-valued),
+                             read base major: sub = submat[rb * 5 + tgt]
+    use_hp                   the homopolymer-insertion band (the affine
+                             path): an inserted base equal to the previous
+                             read base opens at ``hp_open`` from M or
+                             extends at ``hp_ext``, in a fourth state H
     qv1/qv2 int32 [N, L]     packed per-row QV cost tracks (layout in
                              :func:`unpack_qv`); given, they switch on the
                              QV-steered mode: mismatch, insertion and
                              per-cell linear deletion costs come from the
-                             tracks and the gap costs are unused
+                             tracks and the gap costs are unused; a match
+                             costs the matrix's diagonal entry of the base
 
     Row-for-row the recurrence of ``blasr_tpu.kernels.banded._align_one``
-    in its distance and QV modes (the hp band is not ported); any offsets
+    in all its modes (QV excludes the hp band, as there); any offsets
     path is accepted (band shifts use the clamped dynamic-slice
     semantics)."""
     dev = reads.device
@@ -151,6 +159,15 @@ def banded_align(reads, windows, offsets, qa, qb, ta, tb, submat,
     w_idx = lane.to(f32)
     full_inf = torch.full((N, w_b), INF, dtype=f32, device=dev)
     use_qv = qv1 is not None
+    if use_qv and use_hp:
+        raise ValueError("the QV-steered DP uses linear gaps (no hp band)")
+    hp_open, hp_ext = float(hp_open), float(hp_ext)
+    if use_hp:
+        # hp_ok[:, r]: read[r] repeats read[r-1] (code 4 before row 0), an
+        # ACGT base; at r == qa > 0 the previous base lies outside [qa, qb)
+        rprev = torch.cat([torch.full((N, 1), 4, dtype=i64, device=dev),
+                           reads64[:, :-1]], dim=1)
+        hp_ok = (reads64 == rprev) & (rprev < 4)
     if use_qv:
         q = unpack_qv(qv1, qv2)
         # leading-deletion boundary profile: running sum, from ta, of row
@@ -163,7 +180,7 @@ def banded_align(reads, windows, offsets, qa, qb, ta, tb, submat,
                           torch.cumsum(c0, dim=1)], dim=1)       # [N, W+1]
         cumz_ta = cumz.gather(1, ta.clamp(0, W)[:, None])
 
-    pM, pI, pD = full_inf, full_inf, full_inf
+    pM, pI, pD, pH = full_inf, full_inf, full_inf, full_inf
     zi = torch.zeros((N, w_b), dtype=i32, device=dev)
     pR, pE, pX, pS = zi, zi, zi, zi
     po = torch.zeros(N, dtype=i64, device=dev)
@@ -192,6 +209,7 @@ def banded_align(reads, windows, offsets, qa, qb, ta, tb, submat,
         pM_ = torch.where(f1, bM, pM)
         pI_ = torch.where(f1, full_inf, pI)
         pD_ = torch.where(f1, bD, pD)
+        pH_ = torch.where(f1, full_inf, pH)
         s = torch.where(first, 0, o_r - po)
 
         pMp, pIp, pDp = _pad_row(pM_, INF), _pad_row(pI_, INF), \
@@ -203,6 +221,9 @@ def banded_align(reads, windows, offsets, qa, qb, ta, tb, submat,
         dX = _shift(_pad_row(pX, 0), s - 1, w_b)
         dS = _shift(_pad_row(pS, 0), s - 1, w_b)
         vM, vI = _shift(pMp, s, w_b), _shift(pIp, s, w_b)
+        if use_hp:
+            pHp = _pad_row(pH_, INF)
+            dH, vH = _shift(pHp, s - 1, w_b), _shift(pHp, s, w_b)
 
         in_t = (t_abs >= ta[:, None]) & (t_abs < tb[:, None])
         in_t_i = (t_abs >= ta[:, None] - 1) & (t_abs < tb[:, None])
@@ -219,8 +240,14 @@ def banded_align(reads, windows, offsets, qa, qb, ta, tb, submat,
                                                    qr["subq"], qr["spri"]))
 
         diag_best = torch.minimum(dM, torch.minimum(dI, dD))
+        if use_hp:
+            # the fourth source, last in the tie order M, I, D, H
+            diag_best = torch.minimum(diag_best, dH)
+            last = torch.where(dD <= diag_best, ST_D, ST_H)
+        else:
+            last = ST_D
         m_src = torch.where(dM <= diag_best, ST_M,
-                            torch.where(dI <= diag_best, ST_I, ST_D)).to(i32)
+                            torch.where(dI <= diag_best, ST_I, last)).to(i32)
         M = torch.where(in_t, sub + diag_best, full_inf)
 
         if use_qv:
@@ -233,7 +260,18 @@ def banded_align(reads, windows, offsets, qa, qb, ta, tb, submat,
         I = torch.where(in_t_i, torch.minimum(i_from_m, i_from_i), full_inf)
         i_open = i_from_m <= i_from_i
 
-        base = torch.minimum(M, I)
+        if use_hp:
+            # an inserted base repeating the previous read base: opens
+            # from M at hp_open or extends H at hp_ext
+            h_from_m = vM + hp_open
+            h_from_h = vH + hp_ext
+            H = torch.where(in_t_i & hp_ok[:, r][:, None],
+                            torch.minimum(h_from_m, h_from_h), full_inf)
+            h_open = (h_from_m <= h_from_h).to(i32)
+            base = torch.minimum(torch.minimum(M, I), H)
+        else:
+            h_open = 0
+            base = torch.minimum(M, I)
         base_prev = _prev(base, INF)
         if use_qv:
             # per-cell linear deletion costs: deletionQV where the deleted
@@ -256,6 +294,8 @@ def banded_align(reads, windows, offsets, qa, qb, ta, tb, submat,
                             + (del_open - del_ext), full_inf)
             D = torch.minimum(D, full_inf)
             d_open = D >= base_prev + del_open
+        # D opens from M or I only: H is left out of this bit, as in the
+        # reference kernel, though it feeds base
         d_from_m = _prev(M, INF) <= _prev(I, INF)
 
         from_m = m_src == ST_M
@@ -274,6 +314,7 @@ def banded_align(reads, windows, offsets, qa, qb, ta, tb, submat,
                 | (d_open.to(i32) << 3)
                 | (d_from_m.to(i32) << 4)
                 | (eq_i << 5)
+                | (h_open << 6)
                 | (rexit << 7)
                 | (mrun << 9)
                 | (meq << 15)
@@ -285,6 +326,8 @@ def banded_align(reads, windows, offsets, qa, qb, ta, tb, submat,
         pM = torch.where(a1, M, pM)
         pI = torch.where(a1, I, pI)
         pD = torch.where(a1, D, pD)
+        if use_hp:
+            pH = torch.where(a1, H, pH)
         pR = torch.where(a1, mrun, pR)
         pE = torch.where(a1, meq, pE)
         pX = torch.where(a1, rexit, pX)
@@ -298,8 +341,14 @@ def banded_align(reads, windows, offsets, qa, qb, ta, tb, submat,
         cM, cI, cD = (M.gather(1, wf_c)[:, 0], I.gather(1, wf_c)[:, 0],
                       D.gather(1, wf_c)[:, 0])
         cbest = torch.minimum(cM, torch.minimum(cI, cD))
+        if use_hp:
+            cH = H.gather(1, wf_c)[:, 0]
+            cbest = torch.minimum(cbest, cH)
+            clast = torch.where(cD <= cbest, ST_D, ST_H)
+        else:
+            clast = ST_D
         cstate = torch.where(cM <= cbest, ST_M,
-                             torch.where(cI <= cbest, ST_I, ST_D)).to(i32)
+                             torch.where(cI <= cbest, ST_I, clast)).to(i32)
         hit = (qb - 1 == r) & active & ok_wf & (cbest < INF * 0.5)
         fin_score = torch.where(hit, cbest, fin_score)
         fin_state = torch.where(hit, cstate, fin_state)

@@ -24,6 +24,7 @@ import threading
 from pathlib import Path
 from typing import Optional
 
+import numpy as np
 import torch
 
 from blasr_tpu_torch.kernels.anchor import Anchors
@@ -41,9 +42,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # kernel launches since the last reset, one entry per wrapper
-LAUNCHES = {"banded_dp": 0, "banded_dp_qv": 0, "banded_traceback": 0,
-            "chain_scan": 0, "sdp_window": 0, "anchor_search": 0,
-            "band_offsets": 0}
+LAUNCHES = {"banded_dp": 0, "banded_dp_qv": 0, "banded_dp_hp": 0,
+            "banded_dp_gen": 0, "banded_dp_hp_gen": 0, "banded_dp_qv_gen": 0,
+            "banded_traceback": 0, "chain_scan": 0, "sdp_window": 0,
+            "anchor_search": 0, "anchor_search_block": 0, "band_offsets": 0}
 
 # shared memory a block may opt into on sm_90 (227 KB), less a margin for
 # the kernels' static arrays; K3 keeps 42 bytes per anchor there (above
@@ -137,6 +139,8 @@ _P, _I, _F, _LL = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
 ARGTYPES = {
     "blasr_banded_dp": (_I, [_P] * 7 + [_I] * 3 + [_F] * 6 + [_P] * 4 + [_P]),
     "blasr_banded_dp_qv": (_I, [_P] * 9 + [_I] * 3 + [_F] + [_P] * 4 + [_P]),
+    "blasr_banded_dp_mode": (_I, [_P] * 9 + [_I] * 5 + [_P] + [_F] * 8
+                             + [_P] * 4 + [_P]),
     "blasr_banded_traceback": (_I, [_P] * 8 + [_I] * 3 + [_P] * 7 + [_P]),
     "blasr_chain_scan": (_I, [_P] * 3 + [_I] + [_P] * 3 + [_I] * 5
                          + [_F] * 3 + [_I, _F, _I, _I] + [_P] * 10
@@ -146,6 +150,9 @@ ARGTYPES = {
     "blasr_sdp_window_smem": (ctypes.c_size_t, [_I] * 3),
     "blasr_anchor_search": (_I, [_P] * 10 + [_LL] * 2 + [_I] * 8 + [_LL]
                             + [_I] * 5 + [_F] + [_P] * 12 + [_P]),
+    "blasr_anchor_search_block": (_I, [_P] * 10 + [_LL] * 2 + [_I] * 8
+                                  + [_LL] + [_I] * 5 + [_F] + [_P] * 12
+                                  + [_P] + [_LL]),
     "blasr_band_offsets": (_I, [_P] * 5 + [_I] * 7 + [_P] * 2 + [_P]),
 }
 
@@ -183,14 +190,29 @@ def _launched(rc: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA launch failed with error {rc}")
 
 
+def dp_launch_key(use_qv: bool, use_hp: bool, gen: bool) -> str:
+    """The :data:`LAUNCHES` key of a K1 mode: ``banded_dp`` with ``_qv``,
+    ``_hp`` and ``_gen`` (a general matrix) as they apply."""
+    return ("banded_dp" + ("_qv" if use_qv else "") + ("_hp" if use_hp else "")
+            + ("_gen" if gen else ""))
+
+
 def banded_dp_launch(reads, windows, offsets, qa, qb, ta, tb, *,
                      match: float, mismatch: float, ins_open: float,
                      ins_ext: float, del_open: float, del_ext: float,
-                     qv1=None, qv2=None) -> BandedResult:
+                     qv1=None, qv2=None, submat=None, use_hp: bool = False,
+                     hp_open: float = 0.0,
+                     hp_ext: float = 0.0) -> BandedResult:
     """K1 on CUDA tensors: reads/windows int8 [N, L]/[N, W], offsets int32
     [N, L] (slope 0..2 per active row), qa..tb int32 [N].  With qv1/qv2
     (int32 [N, L] packed QV tracks) it launches K1-QV, which takes its
-    costs from the tracks and only ``match`` from the arguments."""
+    costs from the tracks and only ``match`` from the arguments.
+    ``use_hp`` adds the homopolymer-insertion band at ``hp_open`` /
+    ``hp_ext`` (K1-HP; not with the QV tracks).  ``submat`` (25 floats on
+    the host, read base major) is a general matrix: the GEN form of the
+    mode (K1-GEN, K1-HP-GEN, K1-QV-GEN), which takes every substitution
+    cost from it instead of ``match`` / ``mismatch``.  Each form counts
+    its own launches."""
     dev = reads.device
     if dev.type != "cuda":
         raise ValueError("banded_dp_launch needs CUDA tensors")
@@ -207,6 +229,14 @@ def banded_dp_launch(reads, windows, offsets, qa, qb, ta, tb, *,
             raise ValueError("K1-QV needs both qv1 and qv2")
         _check(qv1, "qv1", torch.int32, (N, L), dev)
         _check(qv2, "qv2", torch.int32, (N, L), dev)
+        if use_hp:
+            raise ValueError("K1's QV mode has no hp band (linear gaps)")
+    gen = submat is not None
+    if gen:
+        m = np.ascontiguousarray(submat, dtype=np.float32).reshape(-1)
+        if m.shape != (25,):
+            raise ValueError(f"submat has {m.size} entries, expected 25")
+    key = dp_launch_key(use_qv, use_hp, gen)
     score = torch.empty(N, dtype=torch.float32, device=dev)
     tbbits = torch.empty((N, L, 128), dtype=torch.int32, device=dev)
     state = torch.empty(N, dtype=torch.int32, device=dev)
@@ -220,7 +250,15 @@ def banded_dp_launch(reads, windows, offsets, qa, qb, ta, tb, *,
            qa.data_ptr(), qb.data_ptr(), ta.data_ptr(), tb.data_ptr())
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if use_qv:
+        if use_hp or gen:
+            rc = lib.blasr_banded_dp_mode(
+                *ins, qv1.data_ptr() if use_qv else None,
+                qv2.data_ptr() if use_qv else None, N, L, W, int(use_hp),
+                int(gen), m.ctypes.data if gen else None, float(match),
+                float(mismatch), float(ins_open), float(ins_ext),
+                float(del_open), float(del_ext), float(hp_open),
+                float(hp_ext), *outs, stream)
+        elif use_qv:
             rc = lib.blasr_banded_dp_qv(
                 *ins, qv1.data_ptr(), qv2.data_ptr(), N, L, W, float(match),
                 *outs, stream)
@@ -229,7 +267,6 @@ def banded_dp_launch(reads, windows, offsets, qa, qb, ta, tb, *,
                 *ins, N, L, W, float(match), float(mismatch),
                 float(ins_open), float(ins_ext), float(del_open),
                 float(del_ext), *outs, stream)
-    key = "banded_dp_qv" if use_qv else "banded_dp"
     _launched(rc, key)
     LAUNCHES[key] += 1
     return BandedResult(score, tbbits, state, valid)
@@ -389,7 +426,8 @@ def anchor_search_launch(genome, keys_sorted, pos_sorted, reads, read_len, *,
                          k: int, occ_per_pos: int, max_anchors: int,
                          anchor_ext: int, min_match: int,
                          max_anchors_per_pos: int, max_lcp: int = 0,
-                         advance_exact: int = 0, bucket_starts=None,
+                         advance_exact: int = 0,
+                         occ_block_sample: bool = False, bucket_starts=None,
                          bucket_pairs=None, gwords=None, gnwords=None,
                          pos_records=None, lib=None) -> Anchors:
     """K5 on CUDA tensors: reads int8 [B, L], read_len int32 [B] and the
@@ -399,8 +437,10 @@ def anchor_search_launch(genome, keys_sorted, pos_sorted, reads, read_len, *,
     lookup is the paired LUT rows if given, else the LUT, else the sorted
     keys; the records serve the fetch when given and anchor_ext <= 32.
     Returns the Anchors of ``find_anchors_plain``, every field in its
-    dtype.  ``lib`` launches another build of the same C interface
-    (``chip_smoke.py --compare K5``) instead of the package's."""
+    dtype.  ``occ_block_sample`` launches K5's block mode (counted apart
+    as ``anchor_search_block``).  ``lib`` launches another build of the
+    same C interface (``chip_smoke.py --compare K5``) instead of the
+    package's."""
     dev = reads.device
     if dev.type != "cuda":
         raise ValueError("anchor_search_launch needs CUDA tensors")
@@ -433,8 +473,9 @@ def anchor_search_launch(genome, keys_sorted, pos_sorted, reads, read_len, *,
     if use_rec:
         _check(pos_records, "pos_records", torch.int32,
                (pos_records.shape[0], 6), dev)
-        if pos_records.shape[0] < M:
-            raise ValueError("pos_records has fewer rows than pos_sorted")
+        if pos_records.shape[0] < max(M, O if occ_block_sample else 0):
+            raise ValueError("pos_records has fewer rows than pos_sorted "
+                             "(or, in the block mode, than O)")
     n = L * O
     A_out = min(max_anchors, n)
     nbits = max(1, (n - 1).bit_length())
@@ -473,10 +514,7 @@ def anchor_search_launch(genome, keys_sorted, pos_sorted, reads, read_len, *,
             lib = _load()
         big = (1 << 63) - 1
         meta = scratch.data_ptr()
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            rc = lib.blasr_anchor_search(
-                reads.data_ptr(), read_len.data_ptr(), genome.data_ptr(),
+        args = (reads.data_ptr(), read_len.data_ptr(), genome.data_ptr(),
                 ptr(keys_sorted if mode == 2 else None),
                 pos_sorted.data_ptr(),
                 ptr(bucket_starts if mode == 1 else None),
@@ -489,10 +527,18 @@ def anchor_search_launch(genome, keys_sorted, pos_sorted, reads, read_len, *,
                 hits_t.data_ptr(), hits_valid.data_ptr(), meta,
                 meta + 4 * B * n, meta + 8 * B * n, q.data_ptr(),
                 t.data_ptr(), l.data_ptr(), valid.data_ptr(),
-                nlogp.data_ptr(), n_total.data_ptr(), n_clipped.data_ptr(),
-                stream)
-        _launched(rc, "anchor_search")
-        LAUNCHES["anchor_search"] += 1
+                nlogp.data_ptr(), n_total.data_ptr(), n_clipped.data_ptr())
+        key = "anchor_search_block" if occ_block_sample else "anchor_search"
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            if occ_block_sample:
+                rc = lib.blasr_anchor_search_block(
+                    *args, stream,
+                    pos_records.shape[0] if use_rec else M)
+            else:
+                rc = lib.blasr_anchor_search(*args, stream)
+        _launched(rc, key)
+        LAUNCHES[key] += 1
     return Anchors(q=q, t=t, l=l, valid=valid, n_total=n_total,
                    nlogp=nlogp, hits_t=hits_t, hits_valid=hits_valid,
                    n_clipped=n_clipped)

@@ -1,12 +1,15 @@
-"""The banded-DP fast path (port of ``blasr_tpu/kernels/pallas_banded.py``).
+"""The banded DP on the card (port of ``blasr_tpu/kernels/pallas_banded.py``
+and of the forms of ``blasr_tpu/kernels/banded.py::banded_align`` that the
+Pallas kernel does not take).
 
-``banded_align_cuda`` has ``pallas_banded_align``'s contract: band width
-128, a two-valued score matrix (match on the ACGT diagonal, one mismatch
-value elsewhere) and a band offset that advances by 0, 1 or 2 per row.  On
-CUDA tensors it launches the hand-written kernel K1
-(``csrc/banded_dp.cu``) in its distance mode, or K1-QV when the packed
-QV tracks ``qv1``/``qv2`` are given; on CPU tensors it runs the plain
-version, :func:`blasr_tpu_torch.kernels.banded.banded_align`.
+``banded_align_cuda`` has ``banded_align``'s contract with band width 128
+and a band offset that advances by 0, 1 or 2 per row.  On CUDA tensors it
+launches the hand-written kernel K1 (``csrc/banded_dp.cu``) in the mode
+its arguments ask for: distance (K1), the packed QV tracks ``qv1``/``qv2``
+(K1-QV), the homopolymer-insertion band ``use_hp`` (K1-HP), each with a
+two-valued score matrix (match on the ACGT diagonal, one mismatch value
+elsewhere) or, in its GEN form, any 5x5 matrix; on CPU tensors it runs
+the plain version, :func:`blasr_tpu_torch.kernels.banded.banded_align`.
 """
 
 from __future__ import annotations
@@ -29,8 +32,8 @@ def slope_limit_offsets(offs: torch.Tensor, w_b: int) -> torch.Tensor:
 
 def two_valued(submat) -> bool:
     """True for a 5x5 matrix with one match value on the ACGT diagonal and
-    one mismatch value everywhere else (N included): the fast path's
-    scoring contract."""
+    one mismatch value everywhere else (N included): what K1's forms
+    without GEN take (match and mismatch as two scalars)."""
     m5 = np.asarray(torch.as_tensor(submat).detach().cpu(),
                     dtype=np.float32).reshape(5, 5)
     return bool(np.all(np.diag(m5)[:4] == m5[0, 0])
@@ -52,13 +55,14 @@ def check_slope(offsets: torch.Tensor, qa: torch.Tensor,
 
 def banded_align_cuda(reads, windows, offsets, qa, qb, ta, tb, submat,
                       ins_open, ins_ext, del_open, del_ext, *,
-                      w_b: int = 128, qv1=None, qv2=None) -> BandedResult:
-    """Same contract as ``banded_align`` (forward pass, distance or QV
-    mode) plus the fast path's requirements (module docstring)."""
+                      w_b: int = 128, use_hp: bool = False, hp_open=0.0,
+                      hp_ext=0.0, qv1=None, qv2=None) -> BandedResult:
+    """Same contract as ``banded_align`` (forward pass in any of its
+    modes) plus band width 128 and the slope limit (module docstring).
+    A two-valued matrix runs K1's two-valued form, any other its GEN
+    form."""
     if w_b != 128:
         raise ValueError(f"banded_align_cuda needs w_b == 128, got {w_b}")
-    if not two_valued(submat):
-        raise ValueError("banded_align_cuda needs a two-valued score matrix")
     def launch(ops):
         check_slope(offsets, qa, qb)
         m = np.asarray(torch.as_tensor(submat).detach().cpu(),
@@ -67,11 +71,14 @@ def banded_align_cuda(reads, windows, offsets, qa, qb, ta, tb, submat,
             reads, windows, offsets, qa, qb, ta, tb,
             match=float(m[0]), mismatch=float(m[1]), ins_open=float(ins_open),
             ins_ext=float(ins_ext), del_open=float(del_open),
-            del_ext=float(del_ext), qv1=qv1, qv2=qv2)
+            del_ext=float(del_ext), qv1=qv1, qv2=qv2,
+            submat=None if two_valued(m) else m, use_hp=use_hp,
+            hp_open=float(hp_open), hp_ext=float(hp_ext))
 
     return on_device(
         "banded_align_cuda", reads.device,
         lambda: banded_align(reads, windows, offsets, qa, qb, ta, tb, submat,
                              ins_open, ins_ext, del_open, del_ext, w_b=w_b,
+                             use_hp=use_hp, hp_open=hp_open, hp_ext=hp_ext,
                              qv1=qv1, qv2=qv2),
         launch)

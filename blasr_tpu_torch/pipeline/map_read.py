@@ -395,19 +395,24 @@ def map_batch(index: DeviceIndex, reads, read_len, submat, gap_costs,
               advance_exact: int = 0, k_sdp: int = 0, sdp_occ: int = 2,
               between_only: bool = False, guide_drift: float = 1.0,
               cand_drift: float = 0.0, full_widen: bool = False,
-              tb_cap: int = 0, use_qv: bool = False,
-              qv_score_type: int = 0) -> PackedBatch:
+              tb_cap: int = 0, use_hp: bool = False, use_qv: bool = False,
+              qv_score_type: int = 0,
+              occ_block_sample: bool = False) -> PackedBatch:
     """One batch through the device pipeline (the JAX ``map_batch``
-    without its hp-band and profiling options).
+    without its profiling options).
 
     reads int8 [B, L] and read_len int32 [B] live on the index's device;
-    ``submat`` is the flattened 5x5 matrix, ``gap_costs`` the four floats
-    (ins_open, ins_ext, del_open, del_ext).  ``use_pallas`` selects the
-    two-valued fast path (K1 on CUDA).  ``use_qv`` runs the QV-steered DP
-    (K1-QV on CUDA) on the packed per-read cost tracks qv1/qv2 (int32
-    [B, L], forward orientation); with ``qv_score_type`` 0 the reported
-    score of a traced row is the distance rescore of its path with
-    ``qv_rescore`` (float32 [4]: match, mismatch, ins, del)."""
+    ``submat`` is the flattened 5x5 matrix (numpy, host), ``gap_costs`` the
+    six floats (ins_open, ins_ext, del_open, del_ext, hp_open, hp_ext).
+    ``use_pallas`` (band width 128) sends the DP to K1 on CUDA, in the
+    mode the other flags ask for: ``use_hp`` the homopolymer-insertion
+    band (K1-HP), ``use_qv`` the QV-steered DP (K1-QV) on the packed
+    per-read cost tracks qv1/qv2 (int32 [B, L], forward orientation), a
+    matrix that is not two-valued the GEN form of either; with
+    ``qv_score_type`` 0 the reported score of a traced row is the distance
+    rescore of its path with ``qv_rescore`` (float32 [4]: match, mismatch,
+    ins, del).  ``occ_block_sample`` samples over-abundant seeds as a
+    contiguous occurrence window (K5's block mode)."""
     dev = reads.device
     f32, i32, i64 = torch.float32, torch.int32, torch.int64
     B = reads.shape[0]
@@ -423,6 +428,7 @@ def map_batch(index: DeviceIndex, reads, read_len, submat, gap_costs,
         k=cfg_k, occ_per_pos=O, max_anchors=A, anchor_ext=E,
         min_match=min_match, max_anchors_per_pos=max_anchors_per_pos,
         max_lcp=max_lcp, advance_exact=advance_exact,
+        occ_block_sample=occ_block_sample,
         bucket_starts=index.bucket_starts, bucket_pairs=index.bucket_pairs,
         gwords=index.gwords, gnwords=index.gnwords,
         pos_records=index.pos_records)
@@ -581,6 +587,9 @@ def map_batch(index: DeviceIndex, reads, read_len, submat, gap_costs,
                offs.to(i32).contiguous(), qa.to(i32), qb.to(i32),
                ta.to(i32), tb.to(i32))
     g = [float(x) for x in gap_costs[:4]]
+    # the homopolymer-insertion band of the affine path (QV mode has none)
+    hp = (dict(use_hp=True, hp_open=float(gap_costs[4]),
+               hp_ext=float(gap_costs[5])) if use_hp else {})
     qv = {}
     if use_qv:
         # QV-steered DP: per-read packed cost tracks, reversed by read_len
@@ -592,14 +601,13 @@ def map_batch(index: DeviceIndex, reads, read_len, submat, gap_costs,
                   qv2=qv2_2[read_row].contiguous())
     if use_pallas:
         from blasr_tpu_torch.kernels.pallas_banded import banded_align_cuda
-        res = banded_align_cuda(*dp_args, submat, *g, w_b=w_b, **qv)
+        res = banded_align_cuda(*dp_args, submat, *g, w_b=w_b, **hp, **qv)
     elif dev.type == "cpu":
-        res = banded_align(*dp_args, submat, *g, w_b=w_b, **qv)
+        res = banded_align(*dp_args, submat, *g, w_b=w_b, **hp, **qv)
     else:
         raise NotImplementedError(
-            "a general --scoreMatrix or band width runs only on the CPU "
-            "in blasr_tpu_torch (the CUDA kernel takes a two-valued "
-            "matrix and band 128)")
+            "a band width other than 128 runs only on the CPU in "
+            "blasr_tpu_torch (K1 takes band 128)")
     valid_sel = sel_valid & res.valid
     _mark("banded_dp", dev)
 
@@ -910,10 +918,10 @@ class Mapper:
                  cfg: Optional[ShapeConfig] = None, metrics=None, dev=None,
                  rescue: Optional["Mapper"] = None, device=None):
         from blasr_tpu_torch.pipeline.metrics import MappingMetrics
-        if rescue is not None:
-            raise NotImplementedError(
-                "the cross-index rescue Mapper is not ported to "
-                "blasr_tpu_torch")
+        # rescue: a second Mapper over a more sensitive index (e.g. k=12
+        # when this one uses the k=14 large-genome LUT); reads that end up
+        # unmapped or weakly mapped re-run through it and keep the better
+        # result.  It runs on this Mapper's device.
         self.rescue = rescue
         self._anchor_totals: Dict[int, int] = {}
         self._ambiguity_rescue = True
@@ -921,9 +929,6 @@ class Mapper:
         self.gi = gi
         self.params = params.make_sane()
         self.cfg = cfg or ShapeConfig(n_candidates=self.params.n_candidates)
-        if self.cfg.occ_block_sample:
-            raise NotImplementedError(
-                "occ_block_sample is not ported to blasr_tpu_torch")
         mapp = self.params.max_anchors_per_position
         if 0 < mapp <= 256 and mapp > self.cfg.occ_per_pos:
             self.cfg = dataclasses.replace(
@@ -933,10 +938,21 @@ class Mapper:
         if device is None:
             device = dev.genome.device if dev is not None else "cuda"
         self.device = torch.device(device)
+        if rescue is not None and rescue.device != self.device:
+            raise ValueError(f"the rescue Mapper runs on {rescue.device}, "
+                             f"this one on {self.device}")
+        # K1 takes band 128 in every mode; other widths run the plain DP,
+        # on CPU tensors only
+        if self.device.type == "cuda" and self.cfg.band_width != 128:
+            raise NotImplementedError(
+                f"band width {self.cfg.band_width} runs only on the CPU in "
+                "blasr_tpu_torch (K1 takes band 128)")
         self.dev = (dev if dev is not None
                     else DeviceIndex.from_host(gi, self.device))
         m = np.asarray(self.params.score_matrix, dtype=np.float32).reshape(25)
-        self.submat = torch.from_numpy(m.copy()).to(self.device)
+        # the host matrix: K1 takes it by value, so a batch reads no
+        # device copy of it
+        self.submat = m
         self.submat_np = m
         p = self.params
         # QV-steered DP (--useQuality): the IDS/QV score function runs
@@ -948,16 +964,18 @@ class Mapper:
         self.qv_rescore = torch.tensor([m[0], m[1], p.indel, p.indel],
                                        dtype=torch.float32,
                                        device=self.device)
+        # K1 on CUDA (the plain DP on CPU tensors) in every mode: distance,
+        # QV, the affine path's hp band, each with any matrix
+        self.use_pallas = self.cfg.band_width == 128
         if p.affine_align:
-            raise NotImplementedError(
-                "--affineAlign (the homopolymer-insertion band) is not "
-                "ported to blasr_tpu_torch")
-        from blasr_tpu_torch.kernels.pallas_banded import two_valued
-        # the CUDA kernel takes a two-valued matrix and band 128; other
-        # matrices run the plain DP, on CPU tensors only
-        self.use_pallas = (two_valued(m) and self.cfg.band_width == 128)
-        self.gap_costs = [float(p.insertion), float(p.insertion),
-                          float(p.deletion), float(p.deletion)]
+            gaps = [p.affine_open + p.insertion, max(p.affine_extend, 1),
+                    p.affine_open + p.deletion, max(p.affine_extend, 1),
+                    # hp ins open/extend = indel+2 / indel-3
+                    # (AffineKBandAlign call, BlasrAlignImpl.hpp:1262-1263)
+                    p.indel + 2, max(p.indel - 3, 1)]
+        else:
+            gaps = [p.insertion, p.insertion, p.deletion, p.deletion, 0, 0]
+        self.gap_costs = [float(x) for x in gaps]
 
     def _chain_lookback(self) -> int:
         """Transition-window size for the chain DP: --fastMaxInterval
@@ -983,12 +1001,12 @@ class Mapper:
         return int(max(1, min(self.cfg.batch_size, b, b2)))
 
     def _batch_call_args(self, L: int, tb_cap: int = 0):
-        """(positional args after reads/lens, keyword args) of the
-        map_batch call for bucket L."""
+        """(positional args after reads/lens, static kwargs) of the
+        map_batch call for bucket L — shared by dispatch and warmup."""
         cfg, p = self.cfg, self.params
         W = cfg.window_len(L)
         sig = float(np.log(2.0 * max(self.gi.glen, 2) * L))
-        pos = (self.submat_np, self.gap_costs, np.float32(sig),
+        pos = (self.submat, self.gap_costs, np.float32(sig),
                np.float32(p.min_interval_weight),
                np.float32(p.sdp_bypass_threshold))
         kw = dict(
@@ -1008,9 +1026,13 @@ class Mapper:
             k_sdp=min(p.sdp_tuple_size, 16),
             sdp_occ=1 if p.fast_sdp else 2,
             between_only=p.refine_between_anchors_only,
+            use_hp=p.affine_align and not self.use_qv,
+            use_qv=self.use_qv, qv_score_type=p.score_type,
+            occ_block_sample=(cfg.occ_block_sample or bool(int(
+                os.environ.get("BLASR_TPU_OCC_BLOCK", "0")))),
             cand_drift=p.candidate_drift_penalty,
             full_widen=cfg.full_widen,
-            tb_cap=tb_cap, use_qv=self.use_qv, qv_score_type=p.score_type)
+            tb_cap=tb_cap)
         return pos, kw
 
     _TAG_CODE = None

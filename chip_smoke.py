@@ -9,7 +9,8 @@ Run from the repository root on a machine with a CUDA card:
 The second form only builds the named kernel from each given source (K1
 banded_dp.cu, K2 banded_traceback.cu, K3 chain_scan.cu, K5
 anchor_search.cu, K6 band_offsets.cu; e.g. a parent commit's unpacked
-beside this one's), holds their outputs equal on phase 2's inputs (K3:
+beside this one's), holds their outputs equal on phase 2's inputs (K1:
+K1 and K1-QV, then K1-HP and the GEN forms of the sources that have them; K3:
 the bench batch and A = 8192; K5: the bench batch's find_anchors call and
 a long read's at L = 65536; K6: the bench batch's two _band_offsets calls
 and a long read's) and times them in turns, A B B A (see ``compare_k1``
@@ -19,7 +20,8 @@ and by the call's.  ``--device-times`` (run by phase 2 as a child) and
 
 Phases (any failed check exits nonzero):
   1. header: torch / CUDA / nvcc versions, the card's name and power limit;
-     build the hand-written kernels K1 (banded DP, distance and QV modes),
+     build the hand-written kernels K1 (banded DP: distance, QV, hp band,
+     each with a two-valued or a general matrix),
      K2 (traceback walk), K3 (chain scan), K4 (SDP window pass), K5 (anchor
      search) and K6 (band offsets) from ``blasr_tpu_torch/csrc``, one nvcc
      per source, all at once;
@@ -29,7 +31,12 @@ Phases (any failed check exits nonzero):
      and K2 at N=640 items, L=2048 rows, W=3072 window (K2 warm, and cold
      with the L2 flushed before each call), K1 and K1-QV also on the edge
      shapes of their 16-row tiles, K2 on their cell words and on planted
-     walks at the edges of its own 16-row tiles; K3 on the anchors of the
+     walks at the edges of its own 16-row tiles; K1-HP (the affine path's
+     homopolymer-insertion band) and K1's GEN forms (a general matrix in
+     the distance, hp and QV forms) on the same N=640 inputs, timed back
+     to back and behind a spin kernel, and on the tile-edge shapes and the
+     homopolymer world of tests/torch_edge_cases.py, K2 on their hp cell
+     words; K3 on the anchors of the
      bench workload's first batch (2B=64 strand-rows, A=512) in its
      candidate and guide passes, a lookback-64 global chain and the edge
      inputs of tests/torch_edge_cases.py; K4 (the whole
@@ -38,15 +45,16 @@ Phases (any failed check exits nonzero):
      read k-mers, and on the edge inputs; K3 at A=8192 (past one
      block's shared memory) and K4 at L=65536 (a row over 64 CTAs); K5
      on the bench batch (the
-     find_anchors call of its map_batch) and K6 on the two _band_offsets
+     find_anchors call of its map_batch, and the same call in K5's block
+     mode, occ_block_sample) and K6 on the two _band_offsets
      calls of that batch's map_batch, captured, both also on the edge
-     inputs; K5's and K6's calls timed three ways: the call (events around
+     inputs (K5's block-* ones in its block mode); K5's and K6's calls timed three ways: the call (events around
      20 back to back), the device behind a spin kernel (``device_ms``)
      and each kernel by torch.profiler in a child process
      (``--device-times``: one profiler session of its own);
   3. the golden worlds of tests/test_golden.py through the port's CLI with
      ``--device cuda``, byte for byte against tests/golden/, each group
-     launching K1 or K1-QV and K2-K6: the main path (small: 60 kb, 12
+     launching K1 (or K1-QV, K1-HP) and K2-K6: the main path (small: 60 kb, 12
      reads; big: 4.6 Mbp, 11 reads; golden.{m4,sam,m4.big,sam.big}, and
      on the big world --fastMaxInterval, the chain scan with lookback 64,
      and --aggressiveIntervalCut: golden.{m4.fastmax,m4.aggressive}); the
@@ -56,14 +64,20 @@ Phases (any failed check exits nonzero):
      sam.subread,m4.rb,m4.scores,m4.filter}; m4.scores with gap costs 6 and
      7); the other inputs (golden.{m4.bwt,m4.fofn,m4.bamin,m4.xml,m4.unal,
      m4.unal.names}); concordant mapping (golden.m4.concordant, with the
-     padded mini index's host build and upload timed); then the IDS world
+     padded mini index's host build and upload timed); the affine path
+     (golden.{m4.affine,m4.hpstr.affine}: K1-HP and never K1); then the
+     IDS world
      of make_qvsteer, built in memory (its bax.h5 needs h5py), mapped with
      the port's Mapper on ``cuda`` and on ``cpu``: identical positions,
      CIGARs, scores and mapQV; then --onegap with --bam, and --extend, on
      a world of a spliced read and reads with noisy ends, each equal to
      the same run with ``--device cpu`` (decoded BAM records, m4 text; the
      BAM also decodes to the --sam output), and the --anchors and
-     --clusters dumps of the small world, cuda == cpu; then two simulated
+     --clusters dumps of the small world, cuda == cpu; the Mapper options
+     of this slice, each on cuda (its kernel launched) == cpu:
+     --affineAlign --useQuality (K1-QV), --scoreMatrix alone, with
+     --affineAlign and with --useQuality (K1-GEN, K1-HP-GEN, K1-QV-GEN), a
+     rescue Mapper and occ_block_sample (K5's block mode); then two simulated
      reads of ~40 kb on a 1 Mbp genome (bucket 65536) and one of ~100 kb
      (map_long_reads: two segments at bucket 65536, stitched) mapped on
      the card, each on its simulated interval and strand, every K2, K4,
@@ -72,11 +86,12 @@ Phases (any failed check exits nonzero):
      tests/test_longread.py's ~20 kb CLR read at buckets (1024, 2048),
      held to its bounds and to the same read mapped on ``cpu``;
   4. the bench.py workload (4.6 Mbp genome, k=12, 512 CLR reads of
-     0.5-2 kb at 85% accuracy), once in distance mode and once under
-     ``--useQuality`` with per-base qualities 8-39: reads/s, per-stage
+     0.5-2 kb at 85% accuracy), once in distance mode, once under
+     ``--useQuality`` with per-base qualities 8-39 and once with
+     ``--affineAlign`` (K1-HP): reads/s, launches per read, per-stage
      device times, and the share of reads placed on their simulated
      interval (>= 95%).  Launch counts are zeroed just before each of the
-     two runs and read just after it: K3 and K6 launch twice per batch
+     three runs and read just after it: K3 and K6 launch twice per batch
      dispatch (candidate and guide passes; band offsets before and after
      the SDP pass), K4 and K5 once;
   5. torch.profiler over one more pass in each mode: launches per read, the
@@ -282,7 +297,8 @@ def device_ms(fn, reps: int) -> float:
 
 def short_name(name: str) -> str:
     """A kernel's name as torch.profiler records it, without its return
-    type, namespace and parameter list: 'banded_dp_kernel<false>'."""
+    type, namespace and parameter list:
+    'banded_dp_kernel<false, false, false>'."""
     name = name.replace("(anonymous namespace)::", "")
     if name.startswith("void "):
         name = name[5:]
@@ -440,6 +456,8 @@ def phase_kernels(card):
         f"ms, bound {qv_bound[0]:.3f} ms ({qv_bound[1]}) per call (N={N}, "
         f"L={L}) on {card}")
 
+    modes = k1_modes(card, args, qv, k1_bytes, cells)
+
     from torch_edge_cases import (BANDED_CASES, BANDED_QV_SEED,
                                   TRACEBACK_CASES, banded_case,
                                   traceback_case)
@@ -468,6 +486,7 @@ def phase_kernels(card):
     log(f"# K1 and K1-QV == plain on the {len(BANDED_CASES)} edge shapes of "
         f"their 16-row tiles: exact; K2 == plain on their cell words at "
         f"t_max = 3T/8 and T: exact")
+    tb_err = max(tb_err, k1_mode_edges(modes))
     for name in TRACEBACK_CASES:
         tbb, st, ok, *rest, t_e = traceback_case(name)
         res_e = BandedResult(torch.zeros(len(st), device=dev),
@@ -514,17 +533,112 @@ def phase_kernels(card):
             f"({tb_times[t_max][2][1]}) on {card}")
     assert n_ovf[(3 * T) // 8] > 0, "the overflow path of K2 was not exercised"
     kms, pms, kb, _ = tb_times[(3 * T) // 8]
-    hp_bound = bound(k1_bytes, cells * HP_OPS_PER_CELL)
-    log(f"# not ported: banded_align with the hp band at these shapes "
-        f"(N={N}, L={L}, W={W}, {cells:.0f} active cells): bound "
-        f"{hp_bound[0]:.4f} ms ({hp_bound[1]})")
     return {
+        **modes,
         "banded_dp": dict(err=dp_err, ms=dp_ms, plain_ms=dp_plain_ms,
                           bound=dp_bound),
         "banded_dp_qv": dict(err=qv_err, ms=qv_ms, plain_ms=qv_plain_ms,
                              bound=qv_bound),
         "banded_traceback": dict(err=tb_err, ms=kms, plain_ms=pms, bound=kb),
     }
+
+
+# K1's modes beyond distance and QV (tests/torch_edge_cases.py::K1_MODES)
+# that phase 2 times, with their float32 operations per active cell (the
+# hp band's ~10 more; a matrix entry is a shared-memory read)
+K1_MODE_OPS = {"hp": HP_OPS_PER_CELL, "gen": K1_OPS_PER_CELL,
+               "hp-gen": HP_OPS_PER_CELL, "qv-gen": K1QV_OPS_PER_CELL}
+
+
+def k1_mode_launch_kw(mode, qv):
+    """(banded_align arguments after the gap costs, banded_dp_launch's
+    keyword arguments, the matrix, the gap costs, the launch key) of a
+    K1 mode."""
+    from blasr_tpu_torch.kernels.cuda_ops import dp_launch_key
+    from blasr_tpu_torch.kernels.pallas_banded import two_valued
+    from torch_edge_cases import K1_MODES, k1_mode_kwargs
+    sub, gaps, kw = k1_mode_kwargs(mode)
+    if K1_MODES[mode][3]:
+        kw = dict(kw, **qv)
+    gen = not two_valued(sub)
+    lkw = dict(match=float(sub[0]), mismatch=float(sub[1]),
+               ins_open=gaps[0], ins_ext=gaps[1], del_open=gaps[2],
+               del_ext=gaps[3], submat=sub if gen else None, **kw)
+    key = dp_launch_key(K1_MODES[mode][3], "use_hp" in kw, gen)
+    return kw, lkw, sub, gaps, key
+
+
+def k1_modes(card, args, qv, k1_bytes, cells):
+    """K1-HP and the GEN forms (distance, hp, QV) on phase 2's inputs
+    (N=640, L=2048): each exact against the plain DP, one launch of its
+    own count; the launch timed back to back and behind a spin kernel,
+    the plain DP timed on its one call."""
+    from blasr_tpu_torch.kernels import cuda_ops
+    from blasr_tpu_torch.kernels.banded import ST_H, banded_align
+    from blasr_tpu_torch.kernels.pallas_banded import banded_align_cuda
+    out = {}
+    launch = args[:7]
+    for mode, ops in K1_MODE_OPS.items():
+        kw, lkw, sub, gaps, key = k1_mode_launch_kw(mode, qv)
+        margs = (*launch, sub, *gaps)
+        before = cuda_ops.LAUNCHES[key]
+        k1 = banded_align_cuda(*margs, **kw)
+        torch.cuda.synchronize()
+        assert cuda_ops.LAUNCHES[key] == before + 1, f"{key} not launched"
+        ref, pms = timed(lambda: banded_align(*margs, **kw))
+        err = check_dp(k1, ref, key)
+        fn = lambda: cuda_ops.banded_dp_launch(*launch, **lkw)  # noqa
+        kms = cuda_ms(fn, 5)
+        dms = device_ms(fn, 5)
+        qv_bytes = 8 * launch[0].numel() if "qv" in mode else 0
+        kb = bound(k1_bytes + qv_bytes, cells * ops)
+        n_h = int(((k1.tbbits & 3) == ST_H).sum())
+        out[key] = dict(err=err, ms=kms, plain_ms=pms, bound=kb,
+                        device_ms=dms)
+        log(f"# {key} ({mode}) == plain: score/valid/final_state/tbbits "
+            f"exact ({int(k1.valid.sum())}/{k1.valid.numel()} valid, {n_h} "
+            f"cells with H as their diagonal source); kernel {kms:.4f} ms "
+            f"back to back, {dms:.4f} ms behind a spin, plain {pms:.1f} ms, "
+            f"bound {kb[0]:.4f} ms ({kb[1]}) per call on {card}")
+    return out
+
+
+def k1_mode_edges(modes) -> float:
+    """K1's modes on the tile-edge shapes and the homopolymer world
+    (tests/torch_edge_cases.py::K1_MODE_CASES), exact; K2 on the hp
+    cell words of each shape at t_max = 3T/8 and T.  Folds each mode's
+    error into ``modes``; returns K2's."""
+    from blasr_tpu_torch.kernels.banded import banded_align
+    from blasr_tpu_torch.kernels.pallas_banded import banded_align_cuda
+    from torch_edge_cases import (BANDED_QV_SEED, K1_MODE_CASES, K1_MODES,
+                                  banded_case)
+    from blasr_tpu_torch.params import MappingParams
+    dev = torch.device("cuda")
+    params = MappingParams().make_sane()
+    tb_err = 0.0
+    for name in K1_MODE_CASES:
+        e = [torch.from_numpy(x).to(dev) for x in banded_case(name)]
+        n_e, l_e = e[0].shape
+        w_e = e[1].shape[1]
+        q1, q2 = qv_words(np.random.default_rng(BANDED_QV_SEED), n_e, l_e,
+                          params, 6)
+        qv = dict(qv1=torch.from_numpy(q1).to(dev),
+                  qv2=torch.from_numpy(q2).to(dev))
+        for mode in K1_MODES:
+            kw, _, sub, gaps, key = k1_mode_launch_kw(mode, qv)
+            k1 = banded_align_cuda(*e, sub, *gaps, **kw)
+            modes[key]["err"] = max(modes[key]["err"], check_dp(
+                k1, banded_align(*e, sub, *gaps, **kw), f"{key} {name}"))
+            if mode == "hp" or name == "hp-runs" and K1_MODES[mode][2]:
+                for t_e in ((3 * (l_e + w_e)) // 8, l_e + w_e):
+                    tb_err = max(tb_err, check_walk(
+                        k1, e[2:], t_e,
+                        f"K2 on {key} {name} t_max={t_e}")[1])
+    log(f"# K1-HP and the GEN forms == plain in the {len(K1_MODES)} modes "
+        f"of tests/torch_edge_cases.py on the {len(K1_MODE_CASES)} shapes "
+        f"(the tile edges and the homopolymer world): exact; K2 == plain on "
+        f"their hp cell words at t_max = 3T/8 and T: exact")
+    return tb_err
 
 
 def build_source(kernel: str, src: str):
@@ -566,7 +680,9 @@ def in_turns(card, what: str, sources, run, reps: int, mode="warm"):
 
 def compare_k1(card, sources, reps: int = 5) -> None:
     """K1 and K1-QV from each given banded_dp.cu on phase 2's inputs
-    (N=640, L=2048), every output held to the first source's."""
+    (N=640, L=2048), every output held to the first source's; then K1-HP
+    and the GEN forms from each source that has them (its
+    ``blasr_banded_dp_mode``), held to the first such source's."""
     import ctypes
     from blasr_tpu_torch.params import MappingParams
     libs = []
@@ -611,6 +727,46 @@ def compare_k1(card, sources, reps: int = 5) -> None:
                     f"{sources[0]} (qv={use_qv})"
         in_turns(card, f"K1{'-QV' if use_qv else ''} (N={N}, L={L})",
                  sources, lambda i: run(libs[i], use_qv), reps)
+
+    with_modes = [i for i, lib in enumerate(libs)
+                  if hasattr(lib, "blasr_banded_dp_mode")]
+    for i in with_modes:
+        libs[i].blasr_banded_dp_mode.argtypes = ([P] * 9 + [I] * 5 + [P]
+                                                 + [F] * 8 + [P] * 5)
+
+    def run_mode(lib, mode):
+        from blasr_tpu_torch.kernels.pallas_banded import two_valued
+        from torch_edge_cases import K1_MODES, k1_mode_kwargs
+        sub, gaps, kw = k1_mode_kwargs(mode)
+        m = np.ascontiguousarray(sub, np.float32)
+        use_qv = K1_MODES[mode][3]
+        outs = (torch.empty(N, dtype=torch.float32, device=dev),
+                torch.empty((N, L, 128), dtype=torch.int32, device=dev),
+                torch.empty(N, dtype=torch.int32, device=dev),
+                torch.empty(N, dtype=torch.bool, device=dev))
+        rc = lib.blasr_banded_dp_mode(
+            *[x.data_ptr() for x in ins],
+            q1.data_ptr() if use_qv else None,
+            q2.data_ptr() if use_qv else None, N, L, W,
+            int(kw.get("use_hp", False)), int(not two_valued(m)),
+            m.ctypes.data, float(m[0]), float(m[1]), *gaps,
+            kw.get("hp_open", 0.0), kw.get("hp_ext", 0.0),
+            *[x.data_ptr() for x in outs],
+            torch.cuda.current_stream().cuda_stream)
+        assert rc == 0, f"launch failed: {rc}"
+        return outs
+
+    if with_modes:
+        srcs = [sources[i] for i in with_modes]
+        for mode in K1_MODE_OPS:
+            key = k1_mode_launch_kw(mode, {})[4]
+            ref = run_mode(libs[with_modes[0]], mode)
+            for i in with_modes[1:]:
+                for a, b in zip(run_mode(libs[i], mode), ref):
+                    assert torch.equal(a, b), f"{sources[i]} differs " \
+                        f"from {srcs[0]} ({key})"
+            in_turns(card, f"{key} (N={N}, L={L})", srcs,
+                     lambda j: run_mode(libs[with_modes[j]], mode), reps)
 
 
 def compare_k2(card, sources, reps: int = 5) -> None:
@@ -1057,8 +1213,8 @@ def band_calls(bb) -> list:
 # the kernels of each wrapper as torch.profiler names them (short_name):
 # (those of which a call launches exactly one, the call's other kernels)
 PROFILE_KERNELS = {
-    "banded_dp": (("banded_dp_kernel<false>",), ()),
-    "banded_dp_qv": (("banded_dp_kernel<true>",), ()),
+    "banded_dp": (("banded_dp_kernel<false, false, false>",), ()),
+    "banded_dp_qv": (("banded_dp_kernel<true, false, false>",), ()),
     "banded_traceback": (("banded_traceback_kernel",), ()),
     "chain_scan": (("chain_scan_kernel<false>", "chain_scan_kernel<true>"),
                    ()),
@@ -1152,6 +1308,26 @@ def phase_anchor_band(card, bb):
     k5_spin = device_ms(lambda: find_anchors(*args, **akw), 20)
     k5_plain = cuda_ms(lambda: find_anchors_plain(*args, **akw), 3)
     k5_bound = anchors_bound(bb["anchors"], bb["rlen2"], bb["kw"])
+    # K5's block mode (occ_block_sample) on the same call
+    from blasr_tpu_torch.kernels import cuda_ops
+    bkw = dict(akw, occ_block_sample=True)
+    before = cuda_ops.LAUNCHES["anchor_search_block"]
+    blk = find_anchors(*args, **bkw)
+    torch.cuda.synchronize()
+    assert cuda_ops.LAUNCHES["anchor_search_block"] == before + 1
+    kb_err = check_equal(blk, find_anchors_plain(*args, **bkw), fields,
+                         "K5 block mode, bench batch")
+    kb_ms = cuda_ms(lambda: find_anchors(*args, **bkw), 20)
+    kb_spin = device_ms(lambda: find_anchors(*args, **bkw), 20)
+    kb_plain = cuda_ms(lambda: find_anchors_plain(*args, **bkw), 3)
+    kb_bound = anchors_bound(blk, bb["rlen2"], bb["kw"])
+    moved = int((blk.hits_t != bb["anchors"].hits_t).sum())
+    log(f"# K5 block mode == plain on the bench batch: every field exact, "
+        f"{int(blk.valid.sum())} valid anchors, {moved} raw hits differ "
+        f"from the strided mode's; call {kb_ms:.4f} ms (events around 20 "
+        f"back to back), device {kb_spin:.4f} ms behind a spin; plain "
+        f"{kb_plain:.3f} ms, bound {kb_bound[0]:.4f} ms ({kb_bound[1]}) on "
+        f"{card}")
     calls = band_calls(bb)
     k6_err = 0.0
     k6 = []
@@ -1204,10 +1380,14 @@ def phase_anchor_band(card, bb):
         kw = dict(kw, bucket_starts=ix.bucket_starts,
                   bucket_pairs=ix.bucket_pairs, gwords=ix.gwords,
                   gnwords=ix.gnwords, pos_records=ix.pos_records)
-        k5_err = max(k5_err, check_equal(find_anchors(*a, **kw),
-                                         find_anchors_plain(*a, **kw),
-                                         fields, f"K5 {name}"))
-    log(f"# K5 == plain on the {len(ANCHOR_CASES)} edge inputs: exact")
+        err = check_equal(find_anchors(*a, **kw),
+                          find_anchors_plain(*a, **kw), fields, f"K5 {name}")
+        if kw.get("occ_block_sample"):
+            kb_err = max(kb_err, err)
+        else:
+            k5_err = max(k5_err, err)
+    log(f"# K5 == plain on the {len(ANCHOR_CASES)} edge inputs (the block-* "
+        f"ones in its block mode): exact")
     for name in BAND_CASES:
         c = band_case(name)
         a = [None if c[f] is None else torch.from_numpy(c[f]).to(dev)
@@ -1222,6 +1402,8 @@ def phase_anchor_band(card, bb):
     return {
         "anchor_search": dict(err=k5_err, ms=k5_ms, plain_ms=k5_plain,
                               bound=k5_bound, device_ms=k5_dev),
+        "anchor_search_block": dict(err=kb_err, ms=kb_ms, plain_ms=kb_plain,
+                                    bound=kb_bound, device_ms=kb_spin),
         "band_offsets": dict(err=k6_err, ms=kms, plain_ms=pms, bound=kb,
                              device_ms=dev_ms),
     }
@@ -1676,6 +1858,9 @@ PATH_KERNELS = ("banded_traceback", "chain_scan", "sdp_window",
 
 
 def phase_goldens(d, cuda_ops):
+    """Every golden whose world needs no h5py through the port's CLI on the
+    card, in groups by path, each launching its kernels; returns the
+    worlds."""
     small = make_small(d)
     worlds = {"small": small, "big": make_big(d), "fastq": make_fastq(d),
               "hpstr": make_hpstr(d), "small_bwt": make_small_bwt(d, small),
@@ -1683,6 +1868,7 @@ def phase_goldens(d, cuda_ops):
               "dataset": make_dataset(d), "unal": make_unal(d),
               "zmw": make_zmw(d)}
     dist = PATH_KERNELS + ("banded_dp",)
+    n_card = 0
     # (label, cases, kernels it must launch, kernel it must not launch);
     # the flags are tests/test_golden.py's
     for label, cases, needed, unused in (
@@ -1736,7 +1922,14 @@ def phase_goldens(d, cuda_ops):
              dist, "banded_dp_qv"),
             ("concordant", [("m4.concordant", "zmw",
                              ["-m", "4", "--concordant", "--bestn", "1"])],
-             dist, "banded_dp_qv")):
+             dist, "banded_dp_qv"),
+            # the affine path: the hp band, K1-HP and never K1
+            ("--affineAlign", [("m4.affine", "small",
+                                ["-m", "4", "--affineAlign", "--affineOpen",
+                                 "8", "--affineExtend", "1"]),
+                               ("m4.hpstr.affine", "hpstr",
+                                ["-m", "4", "--affineAlign"])],
+             PATH_KERNELS + ("banded_dp_hp",), "banded_dp")):
         cuda_ops.reset_launch_counts()
         if label == "concordant":
             with mini_index_clocks() as clocks:
@@ -1751,6 +1944,145 @@ def phase_goldens(d, cuda_ops):
         assert all(launches[k] > 0 for k in needed), \
             f"kernels not launched ({label}): {launches}"
         assert launches[unused] == 0, f"the {label} path launched {unused}"
+        n_card += n_ok
+    log(f"# goldens identical on the card: {n_card} (every golden whose "
+        f"world needs no h5py)")
+    return worlds
+
+
+# tests/test_cli_features.py's --scoreMatrix (uneven mismatches, N row and
+# column of their own)
+SCORE_MATRIX = [[-5 if i == j and i < 4 else 6 + (i + j) % 2
+                 for j in range(5)] for i in range(5)]
+
+
+def mapper_fields(per_read):
+    return [[(a.strand, a.tindex, a.tstart, a.tend, a.qstart, a.qend,
+              list(a.cigar), a.score, a.n_match, a.n_mismatch, a.n_ins,
+              a.n_del, a.map_qv) for a in alns] for alns in per_read]
+
+
+def rescue_world():
+    """tests/test_torch_mapper_rescue.py's world (copied): a 40 kb genome,
+    four reads at 90% and four at 70% accuracy."""
+    from blasr_tpu_torch.io.fasta import FastaRecord
+    from blasr_tpu_torch.sim import random_genome, simulate_reads
+    contigs = random_genome(40_000, seed=71)
+    sims = simulate_reads(contigs, 4, read_len=(400, 700), accuracy=0.9,
+                          seed=72)
+    sims += simulate_reads(contigs, 4, read_len=(400, 700), accuracy=0.7,
+                           seed=73)
+    return contigs, [FastaRecord(f"r/{i}/0_{len(s.rec.seq)}", s.rec.seq)
+                     for i, s in enumerate(sims)]
+
+
+def block_world():
+    """tests/test_torch_mapper_block.py's world (copied):
+    a 30 kb genome with an eight-copy 400 b repeat, five reads and the
+    repeat unit."""
+    from blasr_tpu_torch.io.fasta import FastaRecord
+    from blasr_tpu_torch.sim import simulate_reads
+    rng = np.random.default_rng(81)
+    g = rng.integers(0, 4, 30_000).astype(np.int8)
+    unit = rng.integers(0, 4, 400).astype(np.int8)
+    for c in range(8):
+        g[2_000 + 3_000 * c:2_400 + 3_000 * c] = unit
+    contigs = [FastaRecord("rep", g)]
+    sims = simulate_reads(contigs, 5, read_len=(400, 800), accuracy=0.88,
+                          seed=82)
+    recs = [FastaRecord(f"b/{i}/0_{len(s.rec.seq)}", s.rec.seq)
+            for i, s in enumerate(sims)]
+    return contigs, recs + [FastaRecord("b/5/0_400", unit.copy())]
+
+
+def phase_mapper_modes(worlds, cuda_ops):
+    """The Mapper options this slice brought to the card, each mapped on
+    cuda (launch counts zeroed just before and read just after) and held
+    to the same run on cpu, every alignment's fields: --affineAlign
+    --useQuality (K1-QV, not K1-HP), a general --scoreMatrix in the
+    distance, hp and QV forms (K1-GEN, K1-HP-GEN, K1-QV-GEN), a rescue
+    Mapper and occ_block_sample (K5's block mode) on the worlds of
+    tests/test_torch_mapper_*.py.  Returns each run's launches."""
+    from blasr_tpu_torch.index.genome import build_genome_index
+    from blasr_tpu_torch.io.fasta import read_sequences
+    from blasr_tpu_torch.params import MappingParams, ShapeConfig
+    from blasr_tpu_torch.pipeline.map_read import Mapper
+    cfg = ShapeConfig(buckets=(1024,), batch_size=8)
+    idx = {}
+
+    def golden(name, sel):
+        reads, genome, _ = worlds[name]
+        if name not in idx:
+            idx[name] = build_genome_index(list(read_sequences(genome)),
+                                           k=12)
+        return idx[name], list(read_sequences(reads))[sel]
+
+    def mp(**kw):
+        return MappingParams(**kw).make_sane()
+
+    contigs, rrecs = rescue_world()
+    gi14 = build_genome_index(contigs, k=14)
+    gi12 = build_genome_index(contigs, k=12)
+    bcontigs, brecs = block_world()
+    # (label, world, params, ShapeConfig, rescue Mapper's index and
+    #  params, kernel it must launch, kernel it must not launch); the
+    # hpstr world's reads over its planted homopolymer runs
+    cases = [
+        ("--affineAlign --useQuality", golden("hpstr", slice(1, 3)),
+         mp(affine_align=True, ignore_qualities=False), cfg, None,
+         "banded_dp_qv", "banded_dp_hp"),
+        ("--scoreMatrix", golden("small", slice(0, 4)),
+         mp(score_matrix=SCORE_MATRIX), cfg, None, "banded_dp_gen",
+         "banded_dp"),
+        ("--scoreMatrix --affineAlign", golden("small", slice(0, 4)),
+         mp(score_matrix=SCORE_MATRIX, affine_align=True), cfg, None,
+         "banded_dp_hp_gen", "banded_dp_hp"),
+        ("--scoreMatrix --useQuality", golden("hpstr", slice(1, 3)),
+         mp(score_matrix=SCORE_MATRIX, ignore_qualities=False), cfg, None,
+         "banded_dp_qv_gen", "banded_dp_qv"),
+        ("rescue Mapper (k=14, minMatch 18; rescue k=12)", (gi14, rrecs),
+         mp(min_match_length=18), cfg, (gi12, mp()), "banded_dp",
+         "banded_dp_hp"),
+        # a read inside the repeat (eight alignments) and one outside it;
+        # the unit read alone takes the ambiguity rescue's deep pass,
+        # ~25 s on the cpu
+        ("occ_block_sample", (build_genome_index(bcontigs, k=12),
+                              [brecs[0], brecs[3]]),
+         mp(), ShapeConfig(buckets=(1024,), batch_size=8, occ_per_pos=3,
+                           occ_block_sample=True), None,
+         "anchor_search_block", "anchor_search"),
+    ]
+    out = {}
+    for label, (gi, recs), p, c, rescue, needed, unused in cases:
+        def run(device):
+            kw = {}
+            if rescue is not None:
+                kw["rescue"] = Mapper(rescue[0], rescue[1], c, device=device)
+            return mapper_fields(Mapper(gi, p, c, device=device,
+                                        **kw).map_reads(recs))
+        cuda_ops.reset_launch_counts()
+        t0 = time.time()
+        on_card = run("cuda")
+        torch.cuda.synchronize()
+        launches = dict(cuda_ops.LAUNCHES)
+        t1 = time.time()
+        on_cpu = run("cpu")
+        log(f"# {label}: {sum(map(len, on_card))} alignments of "
+            f"{len(recs)} reads; cuda == cpu: {on_card == on_cpu} (cuda "
+            f"{t1 - t0:.1f}s, cpu {time.time() - t1:.1f}s); launches "
+            f"{launches}")
+        assert on_card == on_cpu, f"{label}: cuda and cpu differ"
+        assert sum(map(bool, on_card)) >= len(recs) - 1, label
+        assert launches[needed] > 0, f"{label} did not launch {needed}"
+        assert launches[unused] == 0, f"{label} launched {unused}"
+        assert all(launches[k] > 0 for k in PATH_KERNELS if k != unused), \
+            launches
+        if rescue is not None:
+            alone = mapper_fields(Mapper(gi, p, c, device="cuda")
+                                  .map_reads(recs))
+            assert alone != on_card, "the rescue Mapper changed nothing"
+        out[needed] = launches
+    return out
 
 
 @contextlib.contextmanager
@@ -2184,32 +2516,40 @@ def bench_world():
     return gi, sims
 
 
-def bench_inputs(sims, use_qv: bool):
-    """The bench pass's reads and parameters: as simulated, or under
-    ``--useQuality`` with per-base qualities 8-39, drawn as make_fastq
-    draws them."""
+# the bench passes: "distance", "qv" (--useQuality) and "affine"
+# (--affineAlign), by label and the K1 mode each must launch
+BENCH_MODES = {"distance": ("distance", "banded_dp"),
+               "qv": ("--useQuality", "banded_dp_qv"),
+               "affine": ("--affineAlign", "banded_dp_hp")}
+
+
+def bench_inputs(sims, mode: str):
+    """The bench pass's reads and parameters: as simulated (``distance``,
+    and ``affine`` with --affineAlign), or under ``--useQuality`` with
+    per-base qualities 8-39, drawn as make_fastq draws them."""
     from blasr_tpu_torch.io.fasta import FastaRecord
     from blasr_tpu_torch.params import MappingParams
     recs = [s.rec for s in sims]
-    if not use_qv:
-        return recs, MappingParams().make_sane()
+    if mode != "qv":
+        return recs, MappingParams(
+            affine_align=mode == "affine").make_sane()
     rng = np.random.default_rng(13)
     recs = [FastaRecord(r.title, r.seq, rng.integers(8, 40, len(r.seq)))
             for r in recs]
     return recs, MappingParams(ignore_qualities=False).make_sane()
 
 
-def phase_bench(card, cuda_ops, gi, sims, use_qv: bool, dev=None):
-    """One bench pass (warm, then timed with launch counts zeroed just
-    before and read just after) on the device index ``dev``; returns the
-    launch counts."""
+def phase_bench(card, cuda_ops, gi, sims, mode: str, dev=None):
+    """One bench pass in ``mode`` (BENCH_MODES; warm, then timed with
+    launch counts zeroed just before and read just after) on the device
+    index ``dev``; returns the launch counts."""
     from blasr_tpu_torch.params import ShapeConfig
     from blasr_tpu_torch.pipeline import map_read
     from blasr_tpu_torch.pipeline.map_read import Mapper, StageTimer
     from blasr_tpu_torch.pipeline.metrics import MappingMetrics
 
-    label = "--useQuality" if use_qv else "distance"
-    recs, params = bench_inputs(sims, use_qv)
+    label, dp = BENCH_MODES[mode]
+    recs, params = bench_inputs(sims, mode)
     t0 = time.time()
     cfg = ShapeConfig(buckets=(1024, 2048), batch_size=32, max_anchors=512)
     mapper = Mapper(gi, params, cfg, device="cuda", dev=dev)
@@ -2265,11 +2605,14 @@ def phase_bench(card, cuda_ops, gi, sims, use_qv: bool, dev=None):
     log(f"# main-path launches ({label}): {launches}; dispatches "
         f"{json.dumps(calls)}")
     assert frac >= 0.95, f"only {100 * frac:.1f}% of reads placed ({label})"
-    dp = "banded_dp_qv" if use_qv else "banded_dp"
-    other = "banded_dp" if use_qv else "banded_dp_qv"
     assert launches[dp] > 0 and launches["banded_traceback"] > 0, \
         f"a kernel of the {label} path was not launched: {launches}"
-    assert launches[other] == 0, f"the {label} path launched {other}"
+    others = [k for k in launches if k.startswith("banded_dp") and k != dp]
+    assert not any(launches[k] for k in others), \
+        f"the {label} path launched another K1 mode: {launches}"
+    log(f"# {label}: {launches[dp] / len(recs):.4f} {dp} launches per read, "
+        f"{sum(launches.values()) / len(recs):.4f} hand-written kernel "
+        f"launches per read")
     dispatches = calls["batches"] + calls["dense_reruns"]
     assert launches["chain_scan"] == 2 * dispatches, \
         f"K3 launches {launches['chain_scan']} != 2 x {dispatches} dispatches"
@@ -2283,7 +2626,7 @@ def phase_bench(card, cuda_ops, gi, sims, use_qv: bool, dev=None):
     return launches
 
 
-def phase_profile(card, gi, sims, dev, use_qv: bool = False):
+def phase_profile(card, gi, sims, dev, mode: str = "distance"):
     """torch.profiler over one more bench pass (after a short warm pass):
     kernel launches per read, device time against the traced wall (the
     device's busy share) and the kernels that take the most device time.
@@ -2291,9 +2634,9 @@ def phase_profile(card, gi, sims, dev, use_qv: bool = False):
     from torch.profiler import ProfilerActivity, profile
     from blasr_tpu_torch.params import ShapeConfig
     from blasr_tpu_torch.pipeline.map_read import Mapper
-    label = "--useQuality" if use_qv else "distance"
+    label = BENCH_MODES[mode][0]
     cfg = ShapeConfig(buckets=(1024, 2048), batch_size=32, max_anchors=512)
-    recs, params = bench_inputs(sims, use_qv)
+    recs, params = bench_inputs(sims, mode)
     mapper = Mapper(gi, params, cfg, device="cuda", dev=dev)
     mapper.map_reads(recs[:64])
     torch.cuda.synchronize()
@@ -2406,9 +2749,12 @@ def main() -> int:
     log(f"# phase 2 done in {time.time() - t0:.1f}s")
     with tempfile.TemporaryDirectory() as d:
         t0 = time.time()
-        phase_goldens(d, cuda_ops)
+        worlds = phase_goldens(d, cuda_ops)
         phase_ids(cuda_ops)
         log(f"# phase 3 goldens done in {time.time() - t0:.1f}s")
+        t0 = time.time()
+        mode_runs = phase_mapper_modes(worlds, cuda_ops)
+        log(f"# phase 3 Mapper modes done in {time.time() - t0:.1f}s")
         t0 = time.time()
         phase_modes(d, cuda_ops)
         log(f"# phase 3 modes done in {time.time() - t0:.1f}s")
@@ -2417,29 +2763,43 @@ def main() -> int:
     phase_clr_read(cuda_ops)
     log(f"# long-read phase done in {time.time() - t0:.1f}s")
     t0 = time.time()
-    dist = phase_bench(card, cuda_ops, gi, sims, use_qv=False, dev=dev)
-    qvl = phase_bench(card, cuda_ops, gi, sims, use_qv=True, dev=dev)
+    dist = phase_bench(card, cuda_ops, gi, sims, "distance", dev=dev)
+    qvl = phase_bench(card, cuda_ops, gi, sims, "qv", dev=dev)
+    aff = phase_bench(card, cuda_ops, gi, sims, "affine", dev=dev)
     log(f"# phase 4 done in {time.time() - t0:.1f}s")
     t0 = time.time()
     prof = {"distance": phase_profile(card, gi, sims, dev),
-            "qv": phase_profile(card, gi, sims, dev, use_qv=True)}
+            "qv": phase_profile(card, gi, sims, dev, "qv")}
     check_k4_one_kernel()
     log(f"# phase 5 done in {time.time() - t0:.1f}s")
     assert "jax" not in sys.modules or sys.modules["jax"] is None
     loaded = [m for m in sys.modules if m.startswith("blasr_tpu.")]
     assert not loaded, f"JAX-package modules were loaded: {loaded}"
 
+    # the main path's counts from its two bench passes; each mode of this
+    # slice's from its own path's run (the --affineAlign bench pass, the
+    # Mapper-mode runs of phase 3)
     launches = {"banded_dp": dist["banded_dp"],
-                "banded_dp_qv": qvl["banded_dp_qv"]}
+                "banded_dp_qv": qvl["banded_dp_qv"],
+                "banded_dp_hp": aff["banded_dp_hp"]}
     for k in PATH_KERNELS:
         launches[k] = dist[k] + qvl[k]
+    for k in ("banded_dp_gen", "banded_dp_hp_gen", "banded_dp_qv_gen",
+              "anchor_search_block"):
+        launches[k] = mode_runs[k][k]
     rows = [("banded_dp", DP_SRC, "blasr_tpu/kernels/pallas_banded.py:388"),
             ("banded_dp_qv", DP_SRC,
              "blasr_tpu/kernels/pallas_banded.py:388"),
+            ("banded_dp_hp", DP_SRC, "blasr_tpu/kernels/banded.py:362"),
+            ("banded_dp_gen", DP_SRC, "blasr_tpu/kernels/banded.py:362"),
+            ("banded_dp_hp_gen", DP_SRC, "blasr_tpu/kernels/banded.py:362"),
+            ("banded_dp_qv_gen", DP_SRC, "blasr_tpu/kernels/banded.py:362"),
             ("banded_traceback", TB_SRC, "blasr_tpu/kernels/banded.py:424"),
             ("chain_scan", CHAIN_SRC, "blasr_tpu/kernels/chain.py:54"),
             ("sdp_window", SDP_SRC, "blasr_tpu/kernels/sdp.py:142"),
             ("anchor_search", ANCHOR_SRC, "blasr_tpu/kernels/anchor.py:74"),
+            ("anchor_search_block", ANCHOR_SRC,
+             "blasr_tpu/kernels/anchor.py:167"),
             ("band_offsets", BAND_SRC,
              "blasr_tpu/pipeline/map_read.py:320")]
     # rule 2's measure: launches per pass pair x (kernel ms - bound ms),

@@ -304,16 +304,20 @@ def test_slope_limit_offsets_matches_jax():
 
 
 def test_fast_path_contract():
-    """banded_align_cuda keeps pallas_banded_align's contract on every
-    device: a general matrix or band width is refused, not rerouted."""
+    """banded_align_cuda keeps pallas_banded_align's band width and slope
+    contract on every device: another band width is refused, not
+    rerouted.  A general matrix is K1's GEN form on the card, so on CPU
+    tensors it is the plain DP with that matrix."""
     rng = np.random.default_rng(2)
     arrs = _torch(_case(rng, 2, 64, 256))
     sm = _submat().copy()
     sm[7] = 3.0                                 # C->G differs: not 2-valued
     assert not tpb.two_valued(sm)
     assert tpb.two_valued(_submat())
-    with pytest.raises(ValueError):
-        tpb.banded_align_cuda(*arrs, sm, 4.0, 4.0, 5.0, 5.0)
+    gen = tpb.banded_align_cuda(*arrs, sm, 4.0, 4.0, 5.0, 5.0)
+    for f, a, b in zip(gen._fields, gen,
+                       tb.banded_align(*arrs, sm, 4.0, 4.0, 5.0, 5.0)):
+        assert torch.equal(a, b), f
     with pytest.raises(ValueError):
         tpb.banded_align_cuda(*arrs, _submat(), 4.0, 4.0, 5.0, 5.0, w_b=64)
     bad = arrs[2].clone()

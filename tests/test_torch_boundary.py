@@ -9,8 +9,9 @@
   zmw, the multihost helpers, formats) matches its original by
   ``ast.dump``, module names normalized; the differences the port needs
   are listed below.
-* Flags outside the ported slice (``--affineAlign``) are refused, never
-  run on another path; the other mapping modes' flags are accepted.
+* Every mapping flag of the JAX CLI is accepted and runs to its end on
+  the port, ``--affineAlign`` (with and without ``--useQuality``)
+  included; the Mapper takes every option of the JAX Mapper.
 """
 
 import ast
@@ -65,11 +66,11 @@ COPIES = [
 # methods of the copied Mapper, and functions of the other copies, that
 # differ on purpose:
 ALLOWED = {
-    # device seam: torch device + index upload, refuses the unported
-    # affine / rescue-index / occ_block_sample paths
+    # device seam: torch device + index upload, the host matrix and gap
+    # costs as Python values, K1 (use_pallas) in every mode at band 128
+    # (another band width raises on CUDA), the rescue Mapper on the same
+    # device
     "Mapper.__init__",
-    # no use_hp / occ_block_sample kwargs
-    "Mapper._batch_call_args",
     # builds the CUDA kernels instead of compiling XLA executables
     "Mapper.warmup",
     # torch uploads, no async device_put pipeline
@@ -195,10 +196,26 @@ def test_port_runs_without_jax(tmp_path):
 @pytest.mark.parametrize("flag", [
     ["--affineAlign", "--useQuality"], ["--affineAlign"],
 ])
-def test_unported_flags_are_refused(tmp_path, flag, capsys):
+def test_unported_flags_are_refused(tmp_path, monkeypatch, flag):
+    """The two flag sets this test once saw refused now run: the affine
+    path (the hp band) and its --useQuality form (the QV-steered DP) are
+    accepted and run to their end, on a FASTQ read shorter than
+    --minReadLength as in test_mode_flags_are_accepted.  Their outputs are
+    held to the goldens (m4.affine, m4.hpstr.affine) in
+    test_torch_golden_affine*.py and to the JAX package in
+    test_torch_mapper_modes.py."""
     from blasr_tpu_torch.cli.blasr import run
-    assert run(["r.fa", "g.fa", "--device", "cpu"] + flag) == 1
-    assert "not supported by blasr_tpu_torch" in capsys.readouterr().err
+    from blasr_tpu_torch.io.fasta import decode, write_fasta
+    from blasr_tpu_torch.sim import random_genome
+    contigs = random_genome(8_000, seed=8)
+    monkeypatch.chdir(tmp_path)
+    write_fasta("g.fa", contigs)
+    seq = decode(contigs[0].seq[1000:1300])
+    with open("r.fastq", "w") as f:
+        f.write(f"@m/1/0_300\n{seq}\n+\n{'5' * len(seq)}\n")
+    assert run(["r.fastq", "g.fa", "--out", "out", "--device", "cpu",
+                "--minReadLength", "500"] + flag) == 0
+    assert open("out").read() == ""
 
 
 def test_use_quality_with_fasta_is_refused(tmp_path, capsys):
@@ -250,15 +267,37 @@ def test_cuda_device_without_card_raises(monkeypatch):
 
 
 def test_mapper_refuses_unported_modes():
-    from blasr_tpu.index.genome import build_genome_index
-    from blasr_tpu.params import MappingParams
-    from blasr_tpu.sim import random_genome
+    """The Mapper options once refused are taken on the CPU (the affine
+    path with and without QVs, a rescue Mapper, occ_block_sample); what
+    it still refuses is a band width other than 128 on CUDA (K1 takes
+    band 128), before any upload, and a rescue Mapper on another
+    device."""
+    import dataclasses
+    from blasr_tpu_torch.index.genome import build_genome_index
+    from blasr_tpu_torch.params import MappingParams, ShapeConfig
+    from blasr_tpu_torch.sim import random_genome
     from blasr_tpu_torch.pipeline.map_read import Mapper
     gi = build_genome_index(random_genome(5_000, seed=1), k=12)
     for p in (MappingParams(affine_align=True, ignore_qualities=False),
               MappingParams(affine_align=True)):
-        with pytest.raises(NotImplementedError):
-            Mapper(gi, p, device="cpu")
+        m = Mapper(gi, p, device="cpu")
+        assert len(m.gap_costs) == 6 and m.use_pallas
+    pos, kw = m._batch_call_args(1024)
+    assert kw["use_hp"] and m.gap_costs == [14.0, 1.0, 15.0, 1.0, 7.0, 2.0]
+    rescue = Mapper(gi, MappingParams(), device="cpu")
+    assert Mapper(gi, MappingParams(), rescue=rescue,
+                  device="cpu").rescue is rescue
+    block = Mapper(gi, MappingParams(),
+                   ShapeConfig(occ_block_sample=True), device="cpu")
+    assert block._batch_call_args(1024)[1]["occ_block_sample"]
+    narrow = ShapeConfig(band_width=64)
+    assert not Mapper(gi, MappingParams(), narrow, device="cpu").use_pallas
+    with pytest.raises(NotImplementedError):
+        Mapper(gi, MappingParams(), narrow, device="cuda")
+    with pytest.raises(ValueError):
+        Mapper(gi, MappingParams(), dataclasses.replace(narrow,
+                                                        band_width=128),
+               rescue=rescue, device="cuda")
 
 
 def test_native_source_is_a_copy():

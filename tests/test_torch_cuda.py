@@ -1,11 +1,13 @@
-"""The hand-written CUDA kernels (K1 banded DP in its distance and QV
-modes, K2 traceback walk, K3 chain scan, K4 SDP window pass, K5 anchor
-search, K6 band offsets) against their plain PyTorch versions, on a card.
-Skipped without a CUDA device.  K1 in both modes and K2-K6 take the edge
-inputs of ``tests/torch_edge_cases.py`` (K2 its planted walks and K1's
-cell words on the K1 edge shapes), on which
-``tests/test_torch_banded.py``, ``tests/test_torch_chain_sdp_edges.py``
-and ``tests/test_torch_anchor_band_edges.py`` hold the plain versions to
+"""The hand-written CUDA kernels (K1 banded DP in its distance, QV, hp
+band and general-matrix modes, K2 traceback walk, K3 chain scan, K4 SDP
+window pass, K5 anchor search with its block mode, K6 band offsets)
+against their plain PyTorch versions, on a card.  Skipped without a CUDA
+device.  K1 in every mode and K2-K6 take the edge inputs of
+``tests/torch_edge_cases.py`` (K2 its planted walks and K1's cell words
+on the K1 edge shapes, the hp ones included), on which
+``tests/test_torch_banded.py``, ``tests/test_torch_banded_modes.py``,
+``tests/test_torch_chain_sdp_edges.py`` and
+``tests/test_torch_anchor_band_edges.py`` hold the plain versions to
 JAX; K3 also at A = 8192 (beyond one block's shared memory) and K4 at
 L = 65536 (a row's slab spread over many CTAs).
 
@@ -32,9 +34,10 @@ from blasr_tpu_torch.io.fasta import FastaRecord  # noqa: E402
 from blasr_tpu_torch.pipeline import map_read as tmr  # noqa: E402
 from torch_edge_cases import (ANCHOR_CASES, BAND_CASES,  # noqa: E402
                               BANDED_CASES, BANDED_QV_SEED, CHAIN_CASES,
-                              K_SDP, SDP_CASES, TRACEBACK_CASES, anchor_case,
-                              anchor_world, band_case, banded_case,
-                              chain_case, chain_rows, long_sdp_case,
+                              K1_MODE_CASES, K1_MODES, K_SDP, SDP_CASES,
+                              TRACEBACK_CASES, anchor_case, anchor_world,
+                              band_case, banded_case, chain_case,
+                              chain_rows, k1_mode_kwargs, long_sdp_case,
                               sdp_case, traceback_case)
 
 pytestmark = pytest.mark.cuda
@@ -239,6 +242,54 @@ def test_dp_kernel_edges_match_plain(cuda, name, mode):
         assert a.dtype == b.dtype and torch.equal(a, b), f
 
 
+def _k1_mode(cuda, name, mode):
+    """(K1 in ``mode`` on edge shape ``name``, the plain DP, the inputs),
+    after asserting one launch of the mode's own count and none of the
+    others'."""
+    arrs = banded_case(name)
+    N, L = arrs[0].shape
+    args = [torch.from_numpy(a).to(cuda) for a in arrs]
+    submat, gaps, kw = k1_mode_kwargs(mode)
+    if K1_MODES[mode][3]:
+        q1, q2 = qv_words(np.random.default_rng(BANDED_QV_SEED), N, L)
+        kw = dict(kw, qv1=torch.from_numpy(q1).to(cuda),
+                  qv2=torch.from_numpy(q2).to(cuda))
+    before = dict(cuda_ops.LAUNCHES)
+    k1 = tpb.banded_align_cuda(*args, submat, *gaps, **kw)
+    torch.cuda.synchronize()
+    after = dict(cuda_ops.LAUNCHES)
+    key = cuda_ops.dp_launch_key(K1_MODES[mode][3], "use_hp" in kw,
+                                 not tpb.two_valued(submat))
+    assert {k: after[k] - before[k] for k in after
+            if k.startswith("banded_dp")} == {
+        k: int(k == key) for k in after if k.startswith("banded_dp")}
+    return k1, tb.banded_align(*args, submat, *gaps, **kw), args
+
+
+@pytest.mark.parametrize("mode", list(K1_MODES))
+@pytest.mark.parametrize("name", K1_MODE_CASES)
+def test_dp_kernel_modes_match_plain(cuda, name, mode):
+    """K1-HP and the GEN forms (distance, hp, QV) against the plain DP on
+    the tile-edge shapes and the homopolymer world, every output
+    exactly, one launch of the mode's own count."""
+    k1, p1, args = _k1_mode(cuda, name, mode)
+    assert p1.valid.sum() >= args[0].shape[0] - 1
+    for f, a, b in zip(k1._fields, k1, p1):
+        assert a.dtype == b.dtype and torch.equal(a, b), f
+
+
+@pytest.mark.parametrize("frac", ["3T/8", "T"])
+@pytest.mark.parametrize("mode", ["hp", "hp-ties", "hp-gen"])
+def test_traceback_kernel_hp_words_match_plain(cuda, mode, frac):
+    """K2 over K1-HP's cell words of the homopolymer world (H states and
+    h_open bits) against the plain walk."""
+    k1, _, args = _k1_mode(cuda, "hp-runs", mode)
+    assert ((k1.tbbits & 3) == tb.ST_H).any() or mode == "hp-ties"
+    L, W = args[0].shape[1], args[1].shape[1]
+    t_max = (3 * (L + W)) // 8 if frac == "3T/8" else L + W
+    _same_walk(k1, args[2:], t_max)
+
+
 def test_wrappers_check_their_inputs(cuda):
     args = [t.to(cuda) for t in _case(np.random.default_rng(3), 4, 128,
                                       384)]
@@ -252,6 +303,11 @@ def test_wrappers_check_their_inputs(cuda):
                                   **kw)
     with pytest.raises(ValueError):
         cuda_ops.banded_dp_launch(args[0].cpu(), *args[1:], **kw)
+    q = torch.zeros(args[0].shape, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):       # the QV mode has no hp band
+        cuda_ops.banded_dp_launch(*args, **kw, qv1=q, qv2=q, use_hp=True)
+    with pytest.raises(ValueError):       # 25 matrix entries
+        cuda_ops.banded_dp_launch(*args, **kw, submat=np.zeros(24))
 
 
 def _anchors(c, dev):
@@ -420,15 +476,18 @@ def _find(fn, ix, reads, rlen, kw):
 @pytest.mark.parametrize("name", list(ANCHOR_CASES))
 def test_anchor_kernel_matches_plain(edge_index_cuda, name):
     """K5 against find_anchors_plain on the same CUDA tensors, every
-    Anchors field exactly, one launch per call."""
+    Anchors field exactly, one launch per call (the block-* cases in K5's
+    block mode, counted apart)."""
     _, reads, rlen, kw, drop = anchor_case(name)
     ix = edge_index_cuda._replace(**{f: None for f in drop})
     r = torch.from_numpy(reads).cuda()
     rl = torch.from_numpy(rlen).cuda()
-    before = cuda_ops.LAUNCHES["anchor_search"]
+    key = ("anchor_search_block" if kw.get("occ_block_sample")
+           else "anchor_search")
+    before = cuda_ops.LAUNCHES[key]
     k5 = _find(tanchor.find_anchors, ix, r, rl, kw)
     torch.cuda.synchronize()
-    assert cuda_ops.LAUNCHES["anchor_search"] == before + 1
+    assert cuda_ops.LAUNCHES[key] == before + 1
     plain = _find(tanchor.find_anchors_plain, ix, r, rl, kw)
     for f, a, b in zip(tanchor.Anchors._fields, k5, plain):
         assert a.dtype == b.dtype and torch.equal(a, b), f

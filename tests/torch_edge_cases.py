@@ -271,8 +271,8 @@ BANDED_QV_SEED = 55
 
 def banded_case(name, w_b=128):
     """Banded-DP inputs (reads, windows, offsets, qa, qb, ta, tb) at the
-    edges of K1's 16-row tiles, four items each, the read planted on a
-    noisy path into its window:
+    edges of K1's 16-row tiles, four items each (six for ``hp-runs``), the
+    read planted on a noisy path into its window:
 
     * ``L-not-tile``: L = 200, not a multiple of a tile;
     * ``tile-edges``: qa / qb on tile edges (16, 48), one past or before
@@ -281,9 +281,15 @@ def banded_case(name, w_b=128):
     * ``negative-offsets``: the band starts left of the window (o_r < 0)
       at the first rows, the first active row included;
     * ``band-past-window``: the band runs past the window's end
-      (o_r + 128 > W)."""
+      (o_r + 128 > W);
+    * ``hp-runs`` (for the hp band, :data:`K1_MODE_CASES`): homopolymer
+      runs of 4-12 bases in the reads, most insertions repeat the previous
+      read base, a few read and window bases are N; qa = 0 (row 0, whose
+      previous base is code 4), qa on a tile edge, and a qa whose base
+      repeats the one before it (outside the aligned range)."""
     rng = np.random.default_rng(sum(map(ord, name)))
-    N = 4
+    hp = name == "hp-runs"
+    N = 6 if hp else 4
     L, W = {"L-not-tile": (200, 448), "band-past-window": (256, 320)}.get(
         name, (256, 512))
     reads = rng.integers(0, 4, (N, L)).astype(np.int8)
@@ -293,6 +299,13 @@ def banded_case(name, w_b=128):
     ta = rng.integers(1, 40, N)
     if name == "tile-edges":
         qa, qb = np.array([16, 15, 32, 0]), np.array([48, 33, L, 17])
+    if hp:
+        for i in range(N):
+            for p in rng.integers(0, L - 12, 10):
+                reads[i, p:p + int(rng.integers(4, 13))] = reads[i, p]
+        qa = np.array([0, 16, 37, 0, 5, 64])
+        reads[2, 36] = reads[2, 37] = 1          # read[qa] == read[qa - 1]
+        qb = np.minimum(qa + rng.integers(L // 2, L - 8, N), L)
     slope = np.ones(L, np.int64)
     if name == "slope2-across-tile":
         slope[10:40] = 2
@@ -306,8 +319,10 @@ def banded_case(name, w_b=128):
             if slope[r] == 2 and t + 2 < W:
                 windows[i, t] = reads[i, r]
                 t += 2
-            elif rng.random() < 0.08:
-                pass                                 # an insertion
+            elif rng.random() < (0.15 if hp else 0.08):
+                if hp and r > 0:                     # a homopolymer one
+                    reads[i, r] = reads[i, r - 1]
+                # an insertion
             else:
                 if rng.random() < 0.9:
                     windows[i, t] = reads[i, r]
@@ -319,12 +334,53 @@ def banded_case(name, w_b=128):
         offs[i] = np.minimum(center - w_b // 2 + shift, hi)
         if shift >= 0:
             offs[i] = np.maximum(offs[i], 0)
+    if hp:
+        reads[3, 50] = reads[4, 100] = windows[5, 60] = 4
     r = np.arange(L)
     offs = np.maximum.accumulate(offs, axis=1)
     offs = 2 * r + np.minimum.accumulate(offs - 2 * r, axis=1)
     i32 = np.int32
     return (reads, windows, offs.astype(i32), qa.astype(i32), qb.astype(i32),
             ta.astype(i32), tb.astype(i32))
+
+
+# K1's modes beyond distance and QV (csrc/banded_dp.cu), on the tile-edge
+# shapes and the homopolymer world; the plain DP meets JAX's XLA kernel on
+# them in tests/test_torch_banded_modes.py, K1 the plain DP on the card
+K1_MODE_CASES = BANDED_CASES + ("hp-runs",)
+# the default matrix (match -5 on the ACGT diagonal, 6 elsewhere) and a
+# general one: unequal diagonal entries, uneven mismatches, an N row (read
+# N) and an N column (window N and the pad past the window) of their own
+DEFAULT_SUBMAT = np.where(np.eye(5, dtype=bool) & (np.arange(5) < 4),
+                          -5.0, 6.0).astype(np.float32).reshape(25)
+GEN_SUBMAT = np.array([[-5, 6, 7, 6, 8],
+                       [6, -4, 6, 7, 8],
+                       [7, 6, -6, 6, 8],
+                       [6, 7, 6, -3, 8],
+                       [9, 9, 9, 9, 10]], np.float32).reshape(25)
+# the Mapper's --affineAlign costs at the default parameters: insertion
+# 10 + 4 / 1, deletion 10 + 5 / 1, hp band indel + 2 / indel - 3
+AFFINE_GAPS = (14.0, 1.0, 15.0, 1.0)
+HP_COSTS = (7.0, 2.0)
+# mode -> (matrix, gap costs, hp band costs or None, QV words); "hp-ties"
+# prices H as I, so the two tie wherever H is open (the tie orders M, I,
+# D, H of the diagonal source and the final state decide)
+K1_MODES = {
+    "hp": (DEFAULT_SUBMAT, AFFINE_GAPS, HP_COSTS, False),
+    "hp-ties": (DEFAULT_SUBMAT, (7.0, 2.0, 8.0, 2.0), (7.0, 2.0), False),
+    "gen": (GEN_SUBMAT, (4.0, 4.0, 5.0, 5.0), None, False),
+    "hp-gen": (GEN_SUBMAT, AFFINE_GAPS, HP_COSTS, False),
+    "qv-gen": (GEN_SUBMAT, (4.0, 4.0, 5.0, 5.0), None, True),
+}
+
+
+def k1_mode_kwargs(mode):
+    """(matrix, gap costs, keyword arguments of banded_align but the QV
+    words) of a :data:`K1_MODES` mode."""
+    submat, gaps, hp, _ = K1_MODES[mode]
+    kw = {} if hp is None else dict(use_hp=True, hp_open=hp[0],
+                                    hp_ext=hp[1])
+    return submat, gaps, kw
 
 
 # ---------------------------------------------------------------- anchors
@@ -417,6 +473,17 @@ ANCHOR_CASES = {
     "occ2-A60": (dict(occ_per_pos=2, max_anchors=60), ()),
     "occ5-A128": (dict(occ_per_pos=5, max_anchors=128), ()),
     "occ64-A8192": (dict(occ_per_pos=64, max_anchors=8192), ()),
+    # occ_block_sample (K5's block mode): O consecutive slots from a base
+    # rotating with q, the records fetched as one slice; at O = 64 the
+    # 60-copy seeds fit (base = lo) and the slice runs past hi
+    "block-default": (dict(occ_block_sample=True), ()),
+    "block-no-records": (dict(occ_block_sample=True), ("pos_records",)),
+    "block-occ5-A128": (dict(occ_block_sample=True, occ_per_pos=5,
+                             max_anchors=128), ()),
+    "block-occ64-A8192": (dict(occ_block_sample=True, occ_per_pos=64,
+                               max_anchors=8192), ()),
+    "block-sorted-keys": (dict(occ_block_sample=True),
+                          ("bucket_pairs", "bucket_starts")),
 }
 # row 5's valid count minus A in the cases at that boundary
 ANCHOR_ROW5_EXCESS = {"valid-eq-A99": 0, "valid-A100": -1, "valid-A98": 1}
@@ -618,6 +685,11 @@ TRACEBACK_CASES = {
                                [(0, 256, 300), (0, 240, 280), (30, 250, 260),
                                 (0, 256, 300), (100, 256, 200),
                                 (0, 200, 230)], (), 20),
+    # the hp band's walks: half the items end in H, whose steps exit by
+    # their h_open bit; M runs exit to H too (rexit 3)
+    "hp-walks": (256, 640, (1, 30),
+                 [(0, 256, 300), (16, 240, 280), (3, 200, 230),
+                  (0, 128, 150), (40, 250, 230), (0, 60, 70)], (), -1),
 }
 
 
@@ -636,6 +708,8 @@ def traceback_case(name):
     off = rng.integers(0, 400, (N, L)).astype(np.int64)
     qa, qb, ta, tb = (np.zeros(N, np.int64) for _ in range(4))
     st = rng.integers(0, 3, N).astype(np.int64)
+    if name == "hp-walks":
+        st[0::2] = TB_ST_H
     valid = np.array([it is not None for it in items])
     for n, it in enumerate(items):
         qa[n], qb[n], span = it if it is not None else (0, L, 200)
