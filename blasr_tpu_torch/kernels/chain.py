@@ -1,9 +1,10 @@
 """Anchor chaining and candidate-interval selection (port of
 ``blasr_tpu/kernels/chain.py``).
 
-``chain_anchors`` dispatches on the device of its inputs: CUDA tensors go
-to K3 (``csrc/chain_scan.cu``, one launch for the scan and the
-selection), CPU tensors to ``chain_anchors_plain``.
+``chain_anchors`` and ``chain_members`` dispatch on the device of their
+inputs: CUDA tensors go to K3 (``csrc/chain_scan.cu``, one launch for the
+scan and the selection) and K7 (``csrc/chain_members.cu``, one launch),
+CPU tensors to ``chain_anchors_plain`` and ``chain_members_plain``.
 
 ``chain_anchors_plain`` is the same O(A^2) chain DP as the JAX scan, one
 Python step per anchor over full ``[B, A]`` carries (the JAX package's
@@ -223,9 +224,28 @@ def chain_anchors_plain(anchors: Anchors, read_len: torch.Tensor, *,
 
 def chain_members(candidates: Candidates, anchors: Anchors, *,
                   max_chain: int):
+    """Member anchors of each selected chain: K7 on CUDA tensors, the
+    plain version on CPU tensors (same contract as
+    :func:`chain_members_plain`)."""
+    def launch(ops):
+        return ops.chain_members_launch(
+            anchors.q.contiguous(), anchors.t.contiguous(),
+            anchors.l.contiguous(), candidates.parent.contiguous(),
+            candidates.end_idx.contiguous(), max_chain=max_chain)
+
+    return on_device(
+        "chain_members", candidates.end_idx.device,
+        lambda: chain_members_plain(candidates, anchors,
+                                    max_chain=max_chain),
+        launch)
+
+
+def chain_members_plain(candidates: Candidates, anchors: Anchors, *,
+                        max_chain: int):
     """Member anchors (q, t, l) of each selected chain, q-ascending, padded
     to ``max_chain`` with (BIG, BIG, 0); member d is the distance-d
-    ancestor of the end anchor, found by binary lifting."""
+    ancestor of the end anchor, found by binary lifting.  Returns int64
+    (mq, mt, ml) and bool mvalid, each [B, C, max_chain]."""
     B, C = candidates.end_idx.shape
     M = max_chain
     nbits = max(1, (M - 1).bit_length())

@@ -35,7 +35,8 @@ from blasr_tpu_torch.kernels.chain import Candidates
 _PKG_DIR = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG_DIR / "csrc"
 SOURCES = ("banded_dp.cu", "banded_traceback.cu", "chain_scan.cu",
-           "sdp_window.cu", "anchor_search.cu", "band_offsets.cu")
+           "sdp_window.cu", "anchor_search.cu", "band_offsets.cu",
+           "chain_members.cu")
 HEADERS = ("block_scan.cuh",)
 BUILD_DIR = _PKG_DIR.parent / "build" / "blasr_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -45,7 +46,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LAUNCHES = {"banded_dp": 0, "banded_dp_qv": 0, "banded_dp_hp": 0,
             "banded_dp_gen": 0, "banded_dp_hp_gen": 0, "banded_dp_qv_gen": 0,
             "banded_traceback": 0, "chain_scan": 0, "sdp_window": 0,
-            "anchor_search": 0, "anchor_search_block": 0, "band_offsets": 0}
+            "anchor_search": 0, "anchor_search_block": 0, "band_offsets": 0,
+            "chain_members": 0}
 
 # shared memory a block may opt into on sm_90 (227 KB), less a margin for
 # the kernels' static arrays; K3 keeps 42 bytes per anchor there (above
@@ -154,6 +156,10 @@ ARGTYPES = {
                                   + [_LL] + [_I] * 5 + [_F] + [_P] * 12
                                   + [_P] + [_LL]),
     "blasr_band_offsets": (_I, [_P] * 5 + [_I] * 7 + [_P] * 2 + [_P]),
+    "blasr_chain_members": (_I, [_P] * 3 + [_I] + [_P] * 2 + [_I] * 6
+                            + [_P] * 4 + [_P]),
+    "blasr_chain_members_smem": (ctypes.c_size_t, [_I] * 4),
+    "blasr_chain_members_max_smem": (_I, []),
 }
 
 
@@ -587,3 +593,52 @@ def band_offsets_launch(mq, mt, ws, *, L: int, W: int, w_b: int,
         _launched(rc, "band_offsets")
         LAUNCHES["band_offsets"] += 1
     return out
+
+
+def chain_members_launch(q, t, l, parent, end_idx, *, max_chain: int):
+    """K7 on CUDA tensors: anchors q/t/l [B, A], all three int32 or all
+    three int64, K3's parent pointers int64 [B, A] and chain ends int64
+    [B, C].  Returns (mq, mt, ml int64, mvalid bool), each [B, C, M], as
+    ``chain_members_plain`` returns them.  The row's parents sit in
+    shared memory while they fit beside the four warps' member buffers,
+    else the kernel reads them from global memory."""
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError("chain_members_launch needs CUDA tensors")
+    B, A = q.shape
+    C = end_idx.shape[1] if end_idx.dim() == 2 else -1
+    M = max_chain
+    pos_dt = torch.int64 if q.dtype == torch.int64 else torch.int32
+    for name, x, dt, shape in (("q", q, pos_dt, (B, A)),
+                               ("t", t, pos_dt, (B, A)),
+                               ("l", l, pos_dt, (B, A)),
+                               ("parent", parent, torch.int64, (B, A)),
+                               ("end_idx", end_idx, torch.int64, (B, C))):
+        _check(x, name, dt, shape, dev)
+    if M < 1:
+        raise ValueError(f"K7 needs max_chain >= 1, got {M}")
+    i64 = torch.int64
+    mq, mt, ml = (torch.empty((B, C, M), dtype=i64, device=dev)
+                  for _ in range(3))
+    mvalid = torch.empty((B, C, M), dtype=torch.bool, device=dev)
+    if B * C == 0:
+        return mq, mt, ml, mvalid
+    lib = _load()
+    limit = lib.blasr_chain_members_max_smem()
+    warps = min(C, 4)
+    while warps > 1 and lib.blasr_chain_members_smem(A, M, warps, 0) > limit:
+        warps //= 2
+    if lib.blasr_chain_members_smem(A, M, warps, 0) > limit:
+        raise ValueError(f"K7 keeps a chain's {M} members in shared "
+                         "memory: max_chain is too large")
+    stage = int(lib.blasr_chain_members_smem(A, M, warps, 1) <= limit)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.blasr_chain_members(
+            q.data_ptr(), t.data_ptr(), l.data_ptr(),
+            int(pos_dt == torch.int64), parent.data_ptr(),
+            end_idx.data_ptr(), B, C, A, M, warps, stage, mq.data_ptr(),
+            mt.data_ptr(), ml.data_ptr(), mvalid.data_ptr(), stream)
+    _launched(rc, "chain_members")
+    LAUNCHES["chain_members"] += 1
+    return mq, mt, ml, mvalid

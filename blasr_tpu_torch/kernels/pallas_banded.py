@@ -41,30 +41,47 @@ def two_valued(submat) -> bool:
                 and m5[4, 4] == m5[0, 1])
 
 
-def check_slope(offsets: torch.Tensor, qa: torch.Tensor,
-                qb: torch.Tensor) -> None:
-    """Raise unless every active row (qa < r < qb) advances the band by
-    0, 1 or 2 — the rows where K1's shift registers are used."""
+SLOPE_ERROR = ("banded_align_cuda needs band offsets that advance by 0, 1 "
+               "or 2 per row")
+
+
+def slope_fault(offsets: torch.Tensor, qa: torch.Tensor,
+                qb: torch.Tensor) -> torch.Tensor:
+    """A bool scalar on the offsets' device: true where some active row
+    (qa < r < qb) advances the band by other than 0, 1 or 2, the rows
+    where K1's shift registers are used.  Computing it does not wait on
+    the device."""
     s = offsets[:, 1:] - offsets[:, :-1]                     # s at row r+1
     r = torch.arange(1, offsets.shape[1], device=offsets.device)
     act = (r[None, :] > qa[:, None]) & (r[None, :] < qb[:, None])
-    if bool((((s < 0) | (s > 2)) & act).any()):
-        raise ValueError("banded_align_cuda needs band offsets that "
-                         "advance by 0, 1 or 2 per row")
+    return (((s < 0) | (s > 2)) & act).any()
+
+
+def check_slope(offsets: torch.Tensor, qa: torch.Tensor,
+                qb: torch.Tensor) -> None:
+    """Raise unless every active row advances the band by 0, 1 or 2
+    (waits for :func:`slope_fault`)."""
+    if bool(slope_fault(offsets, qa, qb)):
+        raise ValueError(SLOPE_ERROR)
 
 
 def banded_align_cuda(reads, windows, offsets, qa, qb, ta, tb, submat,
                       ins_open, ins_ext, del_open, del_ext, *,
                       w_b: int = 128, use_hp: bool = False, hp_open=0.0,
-                      hp_ext=0.0, qv1=None, qv2=None) -> BandedResult:
+                      hp_ext=0.0, qv1=None, qv2=None,
+                      slope_checked: bool = False) -> BandedResult:
     """Same contract as ``banded_align`` (forward pass in any of its
     modes) plus band width 128 and the slope limit (module docstring).
     A two-valued matrix runs K1's two-valued form, any other its GEN
-    form."""
+    form.  On CUDA the call checks the slope, which waits on the device,
+    unless the caller did so already (``slope_checked``: ``map_batch``
+    computes :func:`slope_fault` and raises when its batch is
+    unpacked)."""
     if w_b != 128:
         raise ValueError(f"banded_align_cuda needs w_b == 128, got {w_b}")
     def launch(ops):
-        check_slope(offsets, qa, qb)
+        if not slope_checked:
+            check_slope(offsets, qa, qb)
         m = np.asarray(torch.as_tensor(submat).detach().cpu(),
                        dtype=np.float32).reshape(25)
         return ops.banded_dp_launch(

@@ -27,6 +27,9 @@ from blasr_tpu_torch.kernels.anchor import find_anchors, read_kmer_keys
 from blasr_tpu_torch.kernels.banded import banded_align, banded_traceback
 from blasr_tpu_torch.kernels.chain import chain_anchors, chain_members
 from blasr_tpu_torch.kernels.dispatch import on_device
+from blasr_tpu_torch.kernels.pallas_banded import (SLOPE_ERROR,
+                                                   banded_align_cuda,
+                                                   slope_fault)
 
 BIG32 = 0x3FFFFFFF
 MASK32 = 0xFFFFFFFF
@@ -165,12 +168,18 @@ N_COLS = 17
 
 
 class PackedBatch(NamedTuple):
-    """Device-side result of map_batch (layout of the JAX PackedBatch)."""
+    """Device-side result of map_batch (layout of the JAX PackedBatch, and
+    one more word at the end of ``flat``: K1's slope fault, nonzero when
+    some active row advanced the band by other than 0, 1 or 2).
+    :func:`start_fetch` adds the host copy of ``flat`` and the event that
+    marks its end."""
 
     ints: torch.Tensor      # int32 [2B, C, N_COLS] columns per COL_*
     ops: torch.Tensor       # int32 [N_tb, P/2] RL traceback pairs
     clusters: torch.Tensor  # int32 [2B, C_stat, 2] (chain weight, gate ok)
-    flat: Optional[torch.Tensor] = None  # int32 [*]: ints+clusters+ops
+    flat: Optional[torch.Tensor] = None  # int32 [*]: ints+clusters+ops+fault
+    host: Optional[torch.Tensor] = None  # host copy of flat (start_fetch)
+    ready: Optional["torch.cuda.Event"] = None  # recorded after that copy
 
 
 class BatchResult(NamedTuple):
@@ -198,15 +207,38 @@ class BatchResult(NamedTuple):
     n_clipped: np.ndarray
 
 
+def start_fetch(pb: PackedBatch) -> PackedBatch:
+    """Start the one transfer of ``pb.flat`` to the host.  On CUDA the copy
+    goes into a pinned buffer without waiting, queued behind the batch's
+    kernels, and an event is recorded after it; on the CPU the buffer is
+    a plain tensor and the copy is done on return."""
+    flat = pb.flat
+    cuda = flat.device.type == "cuda"
+    host = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=cuda)
+    host.copy_(flat, non_blocking=cuda)
+    ready = None
+    if cuda:
+        ready = torch.cuda.Event()
+        ready.record()
+    return pb._replace(host=host, ready=ready)
+
+
 def unpack_batch(pb: PackedBatch) -> BatchResult:
-    """Fetch a PackedBatch to host numpy (one transfer of ``flat``) and
-    expand the column block."""
-    buf = pb.flat.cpu().numpy()
+    """Wait for the host copy of ``flat`` (:func:`start_fetch`, started
+    here if the caller did not) and expand the column block.  Raises
+    ValueError if the batch's DP ran on offsets K1 does not take."""
+    if pb.host is None:
+        pb = start_fetch(pb)
+    if pb.ready is not None:
+        pb.ready.synchronize()
+    buf = pb.host.numpy()
+    if buf[-1]:
+        raise ValueError(SLOPE_ERROR)
     n_i = int(np.prod(pb.ints.shape))
     n_c = int(np.prod(pb.clusters.shape))
     ints = buf[:n_i].reshape(tuple(pb.ints.shape))
     clusters = buf[n_i:n_i + n_c].reshape(tuple(pb.clusters.shape))
-    ops = buf[n_i + n_c:].reshape(tuple(pb.ops.shape))
+    ops = buf[n_i + n_c:-1].reshape(tuple(pb.ops.shape))
     c = [ints[..., i] for i in range(ints.shape[-1])]
     return BatchResult(
         score=c[10].astype(np.float32), valid=c[0] > 0,
@@ -226,11 +258,9 @@ def _revcomp_batch(reads: torch.Tensor, read_len: torch.Tensor):
     B, L = reads.shape
     pos = torch.arange(L, device=reads.device)[None, :]
     src = read_len.to(torch.int64)[:, None] - 1 - pos
-    ok = src >= 0
-    comp = torch.tensor([3, 2, 1, 0, 4], dtype=torch.int8,
-                        device=reads.device)
-    gathered = reads.gather(1, src.clamp(0, L - 1)).to(torch.int64)
-    return torch.where(ok, comp[gathered], 4).to(torch.int8)
+    g = reads.gather(1, src.clamp(0, L - 1))
+    # the complement of codes 0-3 is 3 - code; N (4) stays N
+    return torch.where((src >= 0) & (g < 4), 3 - g, 4).to(torch.int8)
 
 
 def _revcomp_qv(qv: torch.Tensor, read_len: torch.Tensor,
@@ -443,9 +473,9 @@ def map_batch(index: DeviceIndex, reads, read_len, submat, gap_costs,
                               p_value_type=p_value_type, lookback=lookback,
                               global_chain=global_chain,
                               drift_penalty=cand_drift)
-    sig = torch.tensor(float(np.float32(sig_thresh)), dtype=f32, device=dev)
-    miw = torch.tensor(float(np.float32(min_interval_weight)), dtype=f32,
-                       device=dev)
+    # float32 values as Python floats: compared in float32, no upload
+    sig = float(np.float32(sig_thresh))
+    miw = float(np.float32(min_interval_weight))
     cvalid = cands_all.valid & (cands_all.nlogp >= sig) \
         & (cands_all.score >= miw)
     if aggressive_cut:
@@ -544,8 +574,7 @@ def map_batch(index: DeviceIndex, reads, read_len, submat, gap_costs,
     frag_diag = ht - ws[:, None, None] - q3
     ratio = ((pick(cands.t_end) - ts0).to(f32)
              / torch.clamp(rlen_sel, min=1).to(f32))
-    no_bypass = ratio < torch.tensor(float(np.float32(sdp_bypass)),
-                                     dtype=f32, device=dev)
+    no_bypass = ratio < float(np.float32(sdp_bypass))
     frag_ok = (hv & (ht >= ws[:, None, None])
                & (ht < (ws + W)[:, None, None])
                & no_bypass[:, None, None])
@@ -600,9 +629,13 @@ def map_batch(index: DeviceIndex, reads, read_len, submat, gap_costs,
         qv = dict(qv1=qv1_2[read_row].contiguous(),
                   qv2=qv2_2[read_row].contiguous())
     if use_pallas:
-        from blasr_tpu_torch.kernels.pallas_banded import banded_align_cuda
-        res = banded_align_cuda(*dp_args, submat, *g, w_b=w_b, **hp, **qv)
+        # K1's slope limit, checked on the device: the flag rides in flat
+        # and unpack_batch raises on it
+        fault = slope_fault(dp_args[2], dp_args[3], dp_args[4])
+        res = banded_align_cuda(*dp_args, submat, *g, w_b=w_b, **hp, **qv,
+                                slope_checked=True)
     elif dev.type == "cpu":
+        fault = torch.zeros((), dtype=torch.bool, device=dev)
         res = banded_align(*dp_args, submat, *g, w_b=w_b, **hp, **qv)
     else:
         raise NotImplementedError(
@@ -685,7 +718,7 @@ def map_batch(index: DeviceIndex, reads, read_len, submat, gap_costs,
     ], dim=-1)
     packed = tbk.pairs
     flat = torch.cat([ints.reshape(-1), cluster_stats.reshape(-1),
-                      packed.reshape(-1)])
+                      packed.reshape(-1), fault.to(i32).reshape(1)])
     _mark("pack", dev)
     return PackedBatch(ints=ints, ops=packed, clusters=cluster_stats,
                        flat=flat)
@@ -1138,16 +1171,31 @@ class Mapper:
         W = cfg.window_len(L)
         T = L + W
         out: List[List[Alignment]] = []
+        cuda = self.device.type == "cuda"
 
-        def dispatch(arr_d, lens_d, tb_cap=0, qv=None):
+        def dispatch(arr, lens, tb_cap=0, qv=None):
             pos, kw = self._batch_call_args(L, tb_cap)
             if self.use_qv:
                 q1, q2 = qv
-                return map_batch(self.dev, arr_d, lens_d, *pos, qv1=q1,
-                                 qv2=q2, qv_rescore=self.qv_rescore, **kw)
-            return map_batch(self.dev, arr_d, lens_d, *pos, **kw)
+                return map_batch(self.dev, arr, lens, *pos, qv1=q1, qv2=q2,
+                                 qv_rescore=self.qv_rescore, **kw)
+            return map_batch(self.dev, arr, lens, *pos, **kw)
 
-        for base in range(0, len(recs), batch):
+        def upload(a: np.ndarray) -> torch.Tensor:
+            # pinned on CUDA, so the copy neither waits nor stages
+            h = torch.from_numpy(a)
+            if cuda:
+                h = h.pin_memory()
+            return h.to(self.device, non_blocking=cuda)
+
+        # sliding-window pipeline: input transfers are staged LOOKAHEAD
+        # batches ahead of dispatch (copies from pinned buffers, queued on
+        # the stream without a wait), each result's copy to the host starts
+        # at its dispatch (start_fetch), and results are collected once
+        # more than LOOKAHEAD dispatches are in flight (collect overlaps
+        # with the queued batches' compute).  Both ends bounded: host and
+        # device memory stay O(LOOKAHEAD), not O(reads).
+        def stage(base):
             group = recs[base:base + batch]
             arr = np.full((batch, L), 4, dtype=np.int8)
             lens = np.zeros(batch, dtype=np.int32)
@@ -1155,22 +1203,22 @@ class Mapper:
                 n = min(len(r.seq), L)
                 arr[i, :n] = r.seq[:n]
                 lens[i] = n
-            arr_d = torch.from_numpy(arr).to(self.device)
-            lens_d = torch.from_numpy(lens).to(self.device)
             qv = None
             if self.use_qv:
-                qv = tuple(torch.from_numpy(q).to(self.device)
+                qv = tuple(upload(q)
                            for q in self.pack_qv_rows(group, batch, L))
-            with self.metrics.clock("mapToGenome"):
-                res = dispatch(arr_d, lens_d, qv=qv)
+            return group, lens, upload(arr), upload(lens), qv
+
+        def collect(group, lens, arr_d, lens_d, qv, res):
             with self.metrics.clock("collectAlignments"):
                 res = unpack_batch(res)
                 # dense rerun only when an overflowed traceback can reach
-                # the output (candidates without a slot are dropped)
+                # the output: candidates without a traceback slot are
+                # dropped at collection, so their truncation is harmless
                 if (res.overflow & res.valid & (res.dp_slot >= 0)).any():
                     with self.metrics.clock("mapToGenome"):
-                        res = unpack_batch(dispatch(arr_d, lens_d,
-                                                    tb_cap=T, qv=qv))
+                        res = unpack_batch(
+                            dispatch(arr_d, lens_d, tb_cap=T, qv=qv))
                 out.extend(self._collect_batch(res, group, lens, batch))
             self.metrics.add("numReads", len(group))
             self.metrics.add("totalAnchors", int(res.n_anchors.sum()))
@@ -1178,6 +1226,22 @@ class Mapper:
             self.metrics.add(
                 "cells", int((res.q_end - res.q_start)[res.valid].sum())
                 * cfg.band_width)
+
+        LOOKAHEAD = 4
+        bases = list(range(0, len(recs), batch))
+        staged = {i: stage(b) for i, b in enumerate(bases[:LOOKAHEAD])}
+        pending = []
+        for i in range(len(bases)):
+            if i + LOOKAHEAD < len(bases):
+                staged[i + LOOKAHEAD] = stage(bases[i + LOOKAHEAD])
+            group, lens, arr_d, lens_d, qv = staged.pop(i)
+            with self.metrics.clock("mapToGenome"):
+                res = start_fetch(dispatch(arr_d, lens_d, qv=qv))
+            pending.append((group, lens, arr_d, lens_d, qv, res))
+            if len(pending) > LOOKAHEAD:
+                collect(*pending.pop(0))
+        for item in pending:
+            collect(*item)
         return out
 
     def _collect_batch(self, res: BatchResult, group: Sequence[FastaRecord],

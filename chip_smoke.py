@@ -23,8 +23,8 @@ Phases (any failed check exits nonzero):
      build the hand-written kernels K1 (banded DP: distance, QV, hp band,
      each with a two-valued or a general matrix),
      K2 (traceback walk), K3 (chain scan), K4 (SDP window pass), K5 (anchor
-     search) and K6 (band offsets) from ``blasr_tpu_torch/csrc``, one nvcc
-     per source, all at once;
+     search), K6 (band offsets) and K7 (chain members) from
+     ``blasr_tpu_torch/csrc``, one nvcc per source, all at once;
   2. each kernel against its plain PyTorch version at the main path's
      shapes, exact equality, timed with CUDA events: K1, K1-QV (random QV
      words in the three flavours: IDS tracks, plain base qualities, none)
@@ -51,7 +51,10 @@ Phases (any failed check exits nonzero):
      inputs (K5's block-* ones in its block mode); K5's and K6's calls timed three ways: the call (events around
      20 back to back), the device behind a spin kernel (``device_ms``)
      and each kernel by torch.profiler in a child process
-     (``--device-times``: one profiler session of its own);
+     (``--device-times``: one profiler session of its own); K7 on the
+     bench batch's chain_members call (its guide pass's K3 parents,
+     captured from the batch's map_batch) and on the edge inputs, anchors
+     int64 and int32, its call timed as K3's;
   3. the golden worlds of tests/test_golden.py through the port's CLI with
      ``--device cuda``, byte for byte against tests/golden/, each group
      launching K1 (or K1-QV, K1-HP) and K2-K6: the main path (small: 60 kb, 12
@@ -84,7 +87,16 @@ Phases (any failed check exits nonzero):
      K5 and K6 launch of that run captured and held to the plain version
      (L = 65536); and
      tests/test_longread.py's ~20 kb CLR read at buckets (1024, 2048),
-     held to its bounds and to the same read mapped on ``cpu``;
+     held to its bounds and to the same read mapped on ``cpu``; then the
+     pairwise tools: sdpMatcher on the card and with --device cpu, stdout
+     byte for byte, on tests/test_sdp_sw.py's worlds under each of
+     -printSimilarity, -local, -noRefine, -showalign, -fixedtarget and
+     -printsw and all six, and on 64 pairs of 1-2 kb reads at 85%
+     accuracy (Lq 2048, Lt 2304), each card run launching K3 and K7 (K6,
+     K1 and K2 when it refines) and never the plain chain_members;
+     swMatcher on tests/test_sdp_sw.py's worlds; sdp_align's ms per pair
+     beside its
+     bound;
   4. the bench.py workload (4.6 Mbp genome, k=12, 512 CLR reads of
      0.5-2 kb at 85% accuracy), once in distance mode, once under
      ``--useQuality`` with per-base qualities 8-39 and once with
@@ -93,14 +105,19 @@ Phases (any failed check exits nonzero):
      interval (>= 95%).  Launch counts are zeroed just before each of the
      three runs and read just after it: K3 and K6 launch twice per batch
      dispatch (candidate and guide passes; band offsets before and after
-     the SDP pass), K4 and K5 once;
-  5. torch.profiler over one more pass in each mode: launches per read, the
-     device's busy share, the kernels with the most device time, each
-     hand-written kernel's device ms per call; over one
+     the SDP pass), K4, K5 and K7 once, and chain_members never runs as
+     plain torch; then reads/s of the distance pass under PR 9's serial
+     _run_bucket and this tree's lookahead of four, in turns (A B B A);
+  5. torch.profiler over one more pass in each mode: the host waits
+     (stream and device synchronisations, blocking copies, tensors read
+     as Python values) inside each map_batch, which must be none;
+     launches per read, the device's busy share, the kernels with the
+     most device time, each hand-written kernel's device ms per call;
+     over one
      bench-shape call of K4's function, which must be one kernel (in a
      child process, ``--k4-kernels``, with a profiler session of its
      own); then
-     rule 2's measure for K1-K6: launches per pass pair x (kernel ms -
+     rule 2's measure for K1-K7: launches per pass pair x (kernel ms -
      bound ms), with the kernel's ms as phase 2 times the call and as its
      device time alone (K5, K6: phase 2's profiled calls; K1-K4: phase 5's
      passes, per launch).
@@ -132,6 +149,7 @@ CHAIN_SRC = "blasr_tpu_torch/csrc/chain_scan.cu"
 SDP_SRC = "blasr_tpu_torch/csrc/sdp_window.cu"
 ANCHOR_SRC = "blasr_tpu_torch/csrc/anchor_search.cu"
 BAND_SRC = "blasr_tpu_torch/csrc/band_offsets.cu"
+MEMBERS_SRC = "blasr_tpu_torch/csrc/chain_members.cu"
 # published H100 SXM peaks: HBM bytes/s, float32 (non-tensor-core) ops/s
 HBM_BPS = 3.35e12
 F32_OPS = 67e12
@@ -1165,33 +1183,89 @@ def k6_bound(mq, mt, ws, L, W, w_b, frag_diag=None, frag_valid=None,
     return bound(nbytes, N * L * (30 + 8 * F))
 
 
-def unported_bounds(card, bb):
-    """Bounds of the two device programs of the JAX package that the port
-    runs as plain torch or not at all: chain_members on the bench batch
-    (its [2B*C, max_chain] member walk, timed as it runs, plain), and
-    sdp_align per pair at 2 kb reads (the sdpMatcher shapes: Lq = 2048,
-    Lt = round_up(2048 + 129, 128), 1024 fragments, 256 members)."""
-    from blasr_tpu_torch.kernels.chain import chain_anchors, chain_members
-    kw = bb["kw"]
-    cands = chain_anchors(bb["anchors"], bb["rlen2"],
-                          **dict(bb["chain_kw"], n_cand=kw["C"]))
-    B2, A = bb["anchors"].q.shape
-    C, MC = kw["C"], kw["max_chain"]
-    fn = lambda: chain_members(cands, bb["anchors"], max_chain=MC)  # noqa
-    fn()
-    pms = cuda_ms(fn, 5)
-    # end_idx and parent pointers, anchors q/t/l (int64) in; mq/mt/ml int64
-    # and the valid flags out
-    cm = bound(8 * B2 * C + 8 * B2 * A + 24 * B2 * A + 25 * B2 * C * MC, 0.0)
-    log(f"# not ported: chain_members at [{B2 * C}, {MC}] (A={A}): plain "
-        f"{pms:.3f} ms, bound {cm[0]:.5f} ms ({cm[1]}) on {card}")
-    Lq, Lt, F, M = 2048, 2304, 1024, 256
-    # per pair: the sequences and lengths in, the chain (7 scalars, three
-    # [M] member arrays) out; K3's 20 operations per fragment pair of the
-    # chain scan over F fragments
-    sa = bound(Lq + Lt + 8 + 28 + 12 * M, K3_OPS_PER_PAIR * F * (F - 1) / 2)
-    log(f"# not ported: sdp_align per pair (Lq={Lq}, Lt={Lt}, {F} "
-        f"fragments): bound {1e3 * sa[0]:.4f} us ({sa[1]})")
+def members_bound(cands, anchors, out, M: int):
+    """Bound of one chain_members call: the chain ends and the row's parent
+    pointers (int64) read once, q, t and l (int64) of each present member
+    once (this run's members, at most the whole rows), the [B, C, M]
+    members (three int64 and a flag) written once; the rank sort's
+    compares, n^2 a chain of n present members."""
+    B, A = anchors.q.shape
+    C = cands.end_idx.shape[1]
+    n = out[3].sum(dim=2).to(torch.float64)
+    present = float(n.sum())
+    nbytes = (8 * B * C + 8 * B * A + 24 * min(present, B * A)
+              + 25 * B * C * M)
+    return bound(nbytes, float((n * n).sum()) + B * C * M)
+
+
+def member_call(bb):
+    """The chain_members call of the bench batch's map_batch, captured as
+    it makes it (the guide pass's K3 parents): (args, kwargs, K7's
+    result)."""
+    from blasr_tpu_torch.pipeline import map_read
+    calls = []
+    inner = capture_calls(map_read, "chain_members", calls)
+    try:
+        map_read.map_batch(bb["ix"], bb["reads"], bb["rl"], *bb["pos"],
+                           **bb["kw"])
+        torch.cuda.synchronize()
+    finally:
+        map_read.chain_members = inner
+    assert len(calls) == 1, f"map_batch made {len(calls)} member calls"
+    return calls[0]
+
+
+def phase_members(card, bb):
+    """K7 against chain_members_plain on the same CUDA tensors: the bench
+    batch's call (its guide pass's parents, captured from its map_batch),
+    then the edge inputs in the anchors' int64 and int32."""
+    from blasr_tpu_torch.kernels import chain, cuda_ops
+    from blasr_tpu_torch.kernels.anchor import Anchors
+    from torch_edge_cases import MEMBER_CASES, member_case
+    dev = torch.device("cuda")
+    fields = ("mq", "mt", "ml", "mvalid")
+    (cands, anchors), kw, out = member_call(bb)
+    M = kw["max_chain"]
+    ref = chain.chain_members_plain(cands, anchors, max_chain=M)
+    torch.cuda.synchronize()
+    err = check_equal(out, ref, fields, "K7 bench batch")
+    fn = lambda: chain.chain_members(cands, anchors, max_chain=M)  # noqa
+    before = cuda_ops.LAUNCHES["chain_members"]
+    kms = cuda_ms(fn, 20)
+    assert cuda_ops.LAUNCHES["chain_members"] == before + 20
+    spin = device_ms(fn, 20)
+    pms = cuda_ms(lambda: chain.chain_members_plain(cands, anchors,
+                                                    max_chain=M), 5)
+    kb = members_bound(cands, anchors, out, M)
+    B, A = anchors.q.shape
+    C = cands.end_idx.shape[1]
+    log(f"# K7 == plain on the bench batch's guide members (B={B}, C={C}, "
+        f"M={M}, A={A}): exact, {int(out[3].sum())} members; call "
+        f"{kms:.4f} ms (events around 20 back to back), device {spin:.4f} ms "
+        f"behind a spin; plain {pms:.3f} ms, bound {kb[0]:.5f} ms "
+        f"({kb[1]}) on {card}")
+    for name in MEMBER_CASES:
+        c = member_case(name)
+        z = torch.zeros(c["end_idx"].shape, dtype=torch.int64, device=dev)
+        cd = chain.Candidates(
+            z, z, z, z, z.float(), z, z.float(),
+            torch.from_numpy(c["valid"]).to(dev),
+            torch.from_numpy(c["end_idx"]).to(dev),
+            torch.from_numpy(c["parent"]).to(dev))
+        for dt in (torch.int64, torch.int32):
+            an = Anchors(*(torch.from_numpy(c[f]).to(dev).to(dt)
+                           for f in ("q", "t", "l")),
+                         valid=torch.ones(c["q"].shape, dtype=torch.bool,
+                                          device=dev),
+                         n_total=None, nlogp=None)
+            err = max(err, check_equal(
+                chain.chain_members(cd, an, max_chain=c["M"]),
+                chain.chain_members_plain(cd, an, max_chain=c["M"]),
+                fields, f"K7 {name} {dt}"))
+    log(f"# K7 == plain on the {len(MEMBER_CASES)} edge inputs, anchors in "
+        f"int64 and int32: exact")
+    return {"chain_members": dict(err=err, ms=kms, plain_ms=pms, bound=kb,
+                                  spin_ms=spin)}
 
 
 def band_calls(bb) -> list:
@@ -1221,6 +1295,7 @@ PROFILE_KERNELS = {
     "sdp_window": (("sdp_window_kernel",), ()),
     "anchor_search": (("anchor_candidates",), ("anchor_select",)),
     "band_offsets": (("band_offsets_kernel", "band_offsets_rows"), ()),
+    "chain_members": (("chain_members_kernel",), ()),
 }
 DEVICE_TIMES_REPS = 20
 
@@ -1397,7 +1472,6 @@ def phase_anchor_band(card, bb):
             [map_read._band_offsets(*a)], [map_read._band_offsets_plain(*a)],
             ("offsets",), f"K6 {name}"))
     log(f"# K6 == plain on the {len(BAND_CASES)} edge inputs: exact")
-    unported_bounds(card, bb)
     kms, pms, kb, dev_ms = k6[0]
     return {
         "anchor_search": dict(err=k5_err, ms=k5_ms, plain_ms=k5_plain,
@@ -1854,7 +1928,7 @@ def run_goldens(d, cases, worlds):
 
 # the kernels both DP modes' paths launch
 PATH_KERNELS = ("banded_traceback", "chain_scan", "sdp_window",
-                "anchor_search", "band_offsets")
+                "anchor_search", "band_offsets", "chain_members")
 
 
 def phase_goldens(d, cuda_ops):
@@ -2281,6 +2355,222 @@ def phase_modes(d, cuda_ops):
     assert all(x.count("\n") > 1 for x in dumps["cuda"])
 
 
+# ---------------------------------------------------------------- pairwise
+
+SDP_FLAGS = ["-printSimilarity", "-local", "-noRefine", "-showalign",
+             "-fixedtarget", "-printsw"]
+SW_FLAGS = ["-local", "-showalign", "-fixedtarget"]
+
+
+def mutate_seq(rng, seq, sub=0.05, ins=0.03, dele=0.03):
+    """tests/test_sdp_sw.py::mutate (copied: that file imports JAX)."""
+    out = []
+    for b in seq:
+        u = rng.random()
+        if u < dele:
+            continue
+        if u < dele + ins:
+            out.append(rng.integers(0, 4))
+        if rng.random() < sub:
+            out.append((b + 1 + rng.integers(0, 3)) % 4)
+        else:
+            out.append(b)
+    return np.asarray(out, dtype=np.int8)
+
+
+def pairwise_worlds(d):
+    """{name: (queries.fa, targets.fa)}: tests/test_sdp_sw.py's worlds
+    (test_tools_cli's, with tests/test_torch_pairwise_cli.py's unrelated
+    second pair; the eight planted spans of test_sdp_recovers_planted_span;
+    the planted block of test_sdp_local_vs_global_spans and of
+    test_sw_local_finds_planted_block) and 64 pairs of 1-2 kb reads at
+    85% accuracy against 2,170 b targets (Lq 2048, Lt 2304)."""
+    from blasr_tpu_torch.io.fasta import FastaRecord, write_fasta
+    worlds = {}
+
+    def put(name, qs, ts):
+        paths = (os.path.join(d, f"pw_{name}_q.fa"),
+                 os.path.join(d, f"pw_{name}_t.fa"))
+        write_fasta(paths[0], [FastaRecord(f"q{i}", q)
+                               for i, q in enumerate(qs)])
+        write_fasta(paths[1], [FastaRecord(f"t{i}", t)
+                               for i, t in enumerate(ts)])
+        worlds[name] = paths
+
+    rng = np.random.default_rng(23)
+    t = rng.integers(0, 4, 400).astype(np.int8)
+    q = mutate_seq(rng, t[50:350])
+    other = np.random.default_rng(29)
+    put("tools", [q, other.integers(0, 4, 250).astype(np.int8)],
+        [t, other.integers(0, 4, 380).astype(np.int8)])
+    rng = np.random.default_rng(5)
+    qs, ts = [], []
+    for _ in range(8):
+        target = rng.integers(0, 4, 511).astype(np.int8)
+        pos = int(rng.integers(0, 511 - 220))
+        qs.append(mutate_seq(rng, target[pos:pos + 200])[:256])
+        ts.append(target)
+    put("planted", qs, ts)
+    rng = np.random.default_rng(9)
+    target = rng.integers(0, 4, 383).astype(np.int8)
+    put("local-global", [np.concatenate([
+        rng.integers(0, 4, 30).astype(np.int8), target[100:180],
+        rng.integers(0, 4, 18).astype(np.int8)])], [target])
+    rng = np.random.default_rng(17)
+    t = rng.integers(0, 4, 300).astype(np.int8)
+    put("sw-local", [np.concatenate([
+        rng.integers(0, 4, 20).astype(np.int8), t[100:160],
+        rng.integers(0, 4, 20).astype(np.int8)])], [t])
+    rng = np.random.default_rng(64)
+    qs, ts = [], []
+    for n in range(64):
+        tlen, qlen = 2170, (2040 if n == 0 else int(rng.integers(1000,
+                                                                 2000)))
+        t = rng.integers(0, 4, tlen).astype(np.int8)
+        pos = 0 if n == 0 else int(rng.integers(0, tlen - qlen))
+        # 85% accuracy: 5% each of substitutions, insertions, deletions
+        qs.append(mutate_seq(rng, t[pos:], 0.05, 0.05, 0.05)[:qlen])
+        ts.append(t)
+    put("pairs64", qs, ts)
+    return worlds
+
+
+def tool_output(run, argv) -> str:
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert run(argv) == 0, f"exit of {argv}"
+    return buf.getvalue()
+
+
+@contextlib.contextmanager
+def no_plain_members():
+    """Fail if chain_members_plain meets a CUDA tensor in the block (the
+    card's paths launch K7)."""
+    from blasr_tpu_torch.kernels import chain
+    inner = chain.chain_members_plain
+
+    def guard(cands, *a, **kw):
+        assert cands.end_idx.device.type != "cuda", \
+            "chain_members ran as plain torch on CUDA tensors"
+        return inner(cands, *a, **kw)
+
+    chain.chain_members_plain = guard
+    try:
+        yield
+    finally:
+        chain.chain_members_plain = inner
+
+
+def sdp_align_timing(card, world):
+    """sdp_align on the 64-pair world's pairs as sdpMatcher forms them, on
+    the card (ms per pair, events around five calls) and on the CPU (one
+    call), beside its bound per pair: the sequences and lengths read
+    once, the SDPResult written once, and K3's operations on this run's
+    predecessor tests (the fragment match's sort and searches are under
+    a microsecond of the float32 peak)."""
+    from blasr_tpu_torch.io.fasta import read_fasta
+    from blasr_tpu_torch.kernels import sdp
+    from blasr_tpu_torch.params import round_up
+    qs, ts = (read_fasta(p) for p in world)
+    N = len(qs)
+    Lq = round_up(max(len(q.seq) for q in qs), 64)
+    Lt = round_up(max(len(t.seq) for t in ts) + 129, 128)
+    qarr = np.full((N, Lq), 4, np.int8)
+    tarr = np.full((N, Lt), 4, np.int8)
+    for n, (q, t) in enumerate(zip(qs, ts)):
+        qarr[n, :len(q.seq)] = q.seq
+        tarr[n, 1:1 + len(t.seq)] = t.seq
+    ql = np.array([len(q.seq) for q in qs], np.int32)
+    tl = np.array([len(t.seq) + 1 for t in ts], np.int32)
+    host = [torch.from_numpy(a) for a in (qarr, ql, tarr, tl)]
+    args = [a.cuda() for a in host]
+    calls = []
+    inner = capture_calls(sdp, "chain_anchors", calls)
+    try:
+        res = sdp.sdp_align(*args)
+        torch.cuda.synchronize()
+    finally:
+        sdp.chain_anchors = inner
+    anchors = calls[0][0][0]
+    kb, pairs = k3_bound(anchors, 1, 0)
+    M = res.mq.shape[1]
+    sb = bound(N * (Lq + Lt + 8) + N * (7 * 8 + 1 + 25 * M),
+               K3_OPS_PER_PAIR * pairs)
+    ms = cuda_ms(lambda: sdp.sdp_align(*args), 5)
+    t0 = time.perf_counter()
+    cpu = sdp.sdp_align(*host)
+    cpu_ms = 1e3 * (time.perf_counter() - t0)
+    for f, a, b in zip(sdp.SDPResult._fields, res, cpu):
+        assert torch.equal(a.cpu(), b), f"sdp_align {f}: card != cpu"
+    log(f"# sdp_align (N={N}, Lq={Lq}, Lt={Lt}, "
+        f"{int(anchors.valid.sum())} fragments, {pairs:.0f} predecessor "
+        f"tests): card == cpu, every field; {ms / N:.5f} ms a pair on the "
+        f"card ({ms:.3f} ms a call), {cpu_ms / N:.3f} ms a pair on the "
+        f"CPU; bound {sb[0] / N:.6f} ms a pair ({sb[1]}; at 1024 "
+        f"fragments a pair {1e3 * K3_OPS_PER_PAIR * 1024 * 1023 / 2 / F32_OPS:.6f}) on {card}")
+
+
+def phase_pairwise(d, cuda_ops):
+    """sdpMatcher and swMatcher through the port's CLIs: sdpMatcher on the
+    card and with --device cpu, stdout byte for byte, on
+    tests/test_sdp_sw.py's worlds under each of its six flags and all of
+    them, and on the 64-pair world (Lq 2048, Lt 2304) refining and not;
+    each card run launches K3 and K7 (and, refining, K6, K1 and K2)
+    and never the plain chain_members.  swMatcher, host NumPy with no
+    device path, runs on the same worlds.  Then sdp_align's ms per pair
+    on the card."""
+    from blasr_tpu_torch.cli import sdp_matcher, sw_matcher
+    worlds = pairwise_worlds(d)
+    runs = [(w, [f]) for w in ("tools", "planted", "local-global",
+                               "sw-local") for f in SDP_FLAGS]
+    runs += [(w, SDP_FLAGS) for w in ("tools", "planted", "local-global",
+                                      "sw-local")]
+    runs += [("pairs64", ["-printSimilarity", "-showalign"]),
+             ("pairs64", ["-noRefine", "-fixedtarget", "-printSimilarity"])]
+    t_card = t_cpu = 0.0
+    with no_plain_members():
+        for world, flags in runs:
+            argv = [*worlds[world], "11", *flags]
+            cuda_ops.reset_launch_counts()
+            t0 = time.time()
+            card_out = tool_output(sdp_matcher.run,
+                                   argv + ["--device", "cuda"])
+            t1 = time.time()
+            n = dict(cuda_ops.LAUNCHES)
+            cpu_out = tool_output(sdp_matcher.run, argv + ["--device",
+                                                           "cpu"])
+            t_card, t_cpu = t_card + t1 - t0, t_cpu + time.time() - t1
+            assert card_out == cpu_out, \
+                f"sdpMatcher {world} {flags}: card != cpu"
+            assert card_out.count("\n") > 1
+            want = (("chain_scan", "chain_members")
+                    + (() if "-noRefine" in flags else
+                       ("band_offsets", "banded_dp", "banded_traceback")))
+            assert all(n[k] == 1 for k in want) and sum(n.values()) == \
+                len(want), f"sdpMatcher {world} {flags} launched {n}"
+            if world == "pairs64":
+                log(f"# sdpMatcher pairs64 {' '.join(flags)}: card == cpu "
+                    f"({card_out.count(chr(10))} lines; card "
+                    f"{t1 - t0:.1f}s, cpu {time.time() - t1:.1f}s); "
+                    f"launches {n}")
+    log(f"# sdpMatcher: {len(runs)} runs card == cpu byte for byte "
+        f"(card {t_card:.1f}s, cpu {t_cpu:.1f}s in all); K3, K7 and, "
+        f"refining, K6, K1, K2 launched once a run, chain_members never "
+        f"plain on the card")
+    n_sw, t0 = 0, time.time()
+    for world in ("tools", "planted", "local-global", "sw-local"):
+        for flags in [[f] for f in SW_FLAGS] + [SW_FLAGS]:
+            out = tool_output(sw_matcher.run, [*worlds[world], *flags])
+            assert out.startswith("qlen tlen score") and out.count("\n") > 2
+            n_sw += 1
+    log(f"# swMatcher: {n_sw} runs in {time.time() - t0:.1f}s (host NumPy: "
+        f"one path for card and CPU alike; held to the JAX CLI in "
+        f"tests/test_torch_pairwise_cli.py)")
+    with no_plain_members():
+        sdp_align_timing(card_line(), worlds["pairs64"])
+
+
 def long_read_world():
     """Two simulated reads of ~40 kb at 85% accuracy on a 1 Mbp genome
     (seeds 40, 41) and the CLI's Mapper for them on the card (the default
@@ -2405,7 +2695,9 @@ def phase_long_reads(card, cuda_ops):
                                                 banded_traceback_plain)
     secs["K6"], t0 = time.time() - t0, time.time()
     # the plain walk is row-wise, so the calls of one shape and t_max walk
-    # as one batch: the time of the longest walk, not the sum of them
+    # as one batch: the time of the longest walk, not the sum of them; it
+    # walks host copies (a step's ~30 small ops cost a few microseconds on
+    # the host, each a launch on the card)
     groups = {}
     for i, (a, kw, out) in enumerate(k2_calls):
         assert a[0].tbbits.is_cuda and a[0].tbbits.shape[1] == 65536, \
@@ -2415,16 +2707,16 @@ def phase_long_reads(card, cuda_ops):
     for idx in groups.values():
         args = [a for a, _, _ in (k2_calls[i] for i in idx)]
         res = BandedResult(*(torch.cat([getattr(a[0], f) for a in args])
-                             for f in BandedResult._fields))
+                             .cpu() for f in BandedResult._fields))
         ref = banded_traceback_plain(
-            res, *(torch.cat([a[j] for a in args]) for j in range(1, 6)),
-            **k2_calls[idx[0]][1])
+            res, *(torch.cat([a[j] for a in args]).cpu()
+                   for j in range(1, 6)), **k2_calls[idx[0]][1])
         start = 0
         for i in idx:
             a, _, out = k2_calls[i]
             n = a[0].tbbits.shape[0]
             for f in out._fields:
-                assert torch.equal(getattr(out, f),
+                assert torch.equal(getattr(out, f).cpu(),
                                    getattr(ref, f)[start:start + n]), \
                     f"K2 long-read call {i + 1}: {f} differs from the plain"
             start += n
@@ -2574,7 +2866,7 @@ def phase_bench(card, cuda_ops, gi, sims, mode: str, dev=None):
     map_read.map_batch = counted
     cuda_ops.reset_launch_counts()
     try:
-        with StageTimer() as st:
+        with StageTimer() as st, no_plain_members():
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             per_read = mapper.map_reads(recs)
@@ -2623,7 +2915,129 @@ def phase_bench(card, cuda_ops, gi, sims, mode: str, dev=None):
     assert launches["band_offsets"] == 2 * dispatches, \
         f"K6 launches {launches['band_offsets']} != 2 x {dispatches} " \
         "dispatches"
+    assert launches["chain_members"] == dispatches, \
+        f"K7 launches {launches['chain_members']} != {dispatches} dispatches"
     return launches
+
+
+def run_bucket_serial(self, recs, bucket: int, batch: int):
+    """PR 9's Mapper._run_bucket, for the comparison of phase 4: one batch
+    at a time, inputs copied from pageable memory, the result fetched
+    and collected before the next batch is dispatched."""
+    from blasr_tpu_torch.pipeline.map_read import map_batch, unpack_batch
+    cfg = self.cfg
+    L = bucket
+    T = L + cfg.window_len(L)
+    out = []
+
+    def dispatch(arr_d, lens_d, tb_cap=0, qv=None):
+        pos, kw = self._batch_call_args(L, tb_cap)
+        if self.use_qv:
+            q1, q2 = qv
+            return map_batch(self.dev, arr_d, lens_d, *pos, qv1=q1, qv2=q2,
+                             qv_rescore=self.qv_rescore, **kw)
+        return map_batch(self.dev, arr_d, lens_d, *pos, **kw)
+
+    for base in range(0, len(recs), batch):
+        group = recs[base:base + batch]
+        arr = np.full((batch, L), 4, dtype=np.int8)
+        lens = np.zeros(batch, dtype=np.int32)
+        for i, r in enumerate(group):
+            n = min(len(r.seq), L)
+            arr[i, :n] = r.seq[:n]
+            lens[i] = n
+        arr_d = torch.from_numpy(arr).to(self.device)
+        lens_d = torch.from_numpy(lens).to(self.device)
+        qv = None
+        if self.use_qv:
+            qv = tuple(torch.from_numpy(q).to(self.device)
+                       for q in self.pack_qv_rows(group, batch, L))
+        with self.metrics.clock("mapToGenome"):
+            res = dispatch(arr_d, lens_d, qv=qv)
+        with self.metrics.clock("collectAlignments"):
+            res = unpack_batch(res)
+            if (res.overflow & res.valid & (res.dp_slot >= 0)).any():
+                with self.metrics.clock("mapToGenome"):
+                    res = unpack_batch(dispatch(arr_d, lens_d, tb_cap=T,
+                                                qv=qv))
+            out.extend(self._collect_batch(res, group, lens, batch))
+        self.metrics.add("numReads", len(group))
+        self.metrics.add("totalAnchors", int(res.n_anchors.sum()))
+        self.metrics.add("totalCandidates", int(res.valid.sum()))
+        self.metrics.add(
+            "cells", int((res.q_end - res.q_start)[res.valid].sum())
+            * cfg.band_width)
+    return out
+
+
+def compare_lookahead(card, gi, sims, dev, rounds: int = 3):
+    """Reads/s of the distance bench pass under PR 9's serial _run_bucket
+    (A) and this tree's lookahead of four (B), in turns A B B A, three
+    rounds, after a warm pass of each, on one Mapper; the alignments and
+    MappingMetrics counters of every pass held equal."""
+    from blasr_tpu_torch.params import ShapeConfig
+    from blasr_tpu_torch.pipeline.map_read import Mapper
+    from blasr_tpu_torch.pipeline.metrics import MappingMetrics
+    recs, params = bench_inputs(sims, "distance")
+    cfg = ShapeConfig(buckets=(1024, 2048), batch_size=32, max_anchors=512)
+    mapper = Mapper(gi, params, cfg, device="cuda", dev=dev)
+    ahead = Mapper._run_bucket
+
+    def one(serial: bool):
+        Mapper._run_bucket = run_bucket_serial if serial else ahead
+        try:
+            mapper.metrics = MappingMetrics()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            per_read = mapper.map_reads(recs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            Mapper._run_bucket = ahead
+        return (len(recs) / wall, mapper_fields(per_read),
+                dict(mapper.metrics.counters))
+
+    one(True), one(False)
+    order = (True, False, False, True) * rounds
+    runs = [one(serial) for serial in order]
+    assert all(r[1:] == runs[0][1:] for r in runs), \
+        "the lookahead changed the bench pass's alignments or counters"
+    a = [r[0] for r, serial in zip(runs, order) if serial]
+    b = [r[0] for r, serial in zip(runs, order) if not serial]
+    log(f"# bench (distance), reads/s in turns A B B A x {rounds}, A = PR "
+        f"9's serial _run_bucket, B = the lookahead: "
+        + ", ".join(f"{'A' if serial else 'B'} {r[0]:.2f}"
+                    for r, serial in zip(runs, order))
+        + f"; mean A {sum(a) / len(a):.2f}, B {sum(b) / len(b):.2f} "
+        f"(alignments and counters equal) on {card}")
+
+
+# the CUDA runtime calls that make the host wait on the device
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+              "cudaEventSynchronize", "cudaMemcpy", "cudaMemcpy2D",
+              "aten::_local_scalar_dense")
+
+
+def syncs_in_map_batch(prof) -> tuple:
+    """(map_batch calls, host waits inside them, runtime calls inside
+    them) in a profiled pass whose map_batch calls are marked by
+    ``torch.profiler.record_function("map_batch")``: the waits are the
+    SYNC_CALLS (aten::_local_scalar_dense is a tensor read as a Python
+    value)."""
+    evs = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CPU]
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in evs if e.name == "map_batch")
+    waits, calls = {}, 0
+    for e in evs:
+        t = e.time_range.start
+        if not any(a <= t <= b for a, b in spans):
+            continue
+        if e.name.startswith("cuda"):
+            calls += 1
+        if e.name in SYNC_CALLS:
+            waits[e.name] = waits.get(e.name, 0) + 1
+    return len(spans), waits, calls
 
 
 def phase_profile(card, gi, sims, dev, mode: str = "distance"):
@@ -2631,8 +3045,9 @@ def phase_profile(card, gi, sims, dev, mode: str = "distance"):
     kernel launches per read, device time against the traced wall (the
     device's busy share) and the kernels that take the most device time.
     Measurement only: no check depends on it."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
     from blasr_tpu_torch.params import ShapeConfig
+    from blasr_tpu_torch.pipeline import map_read
     from blasr_tpu_torch.pipeline.map_read import Mapper
     label = BENCH_MODES[mode][0]
     cfg = ShapeConfig(buckets=(1024, 2048), batch_size=32, max_anchors=512)
@@ -2640,14 +3055,34 @@ def phase_profile(card, gi, sims, dev, mode: str = "distance"):
     mapper = Mapper(gi, params, cfg, device="cuda", dev=dev)
     mapper.map_reads(recs[:64])
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        mapper.map_reads(recs)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+    inner = map_read.map_batch
+
+    def marked(*a, **kw):
+        with record_function("map_batch"):
+            return inner(*a, **kw)
+
+    map_read.map_batch = marked
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            mapper.map_reads(recs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        map_read.map_batch = inner
+    n_mb, waits, calls = syncs_in_map_batch(prof)
+    blocking = sum(waits.values())
+    log(f"# profile ({label}): {n_mb} map_batch calls, {calls} CUDA "
+        f"runtime calls inside them, host waits inside them {waits}: "
+        + ("not measured (no runtime calls recorded)" if not calls else
+           f"{blocking / max(n_mb, 1):.2f} per map_batch") + f" on {card}")
+    assert not calls or blocking == 0, \
+        f"map_batch waited on the device: {waits}"
+    # (the map_batch marks appear on the device's timeline too: not work)
     dev_events = [e for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and e.name != "map_batch"]
     if not dev_events:
         log(f"# profile ({label}): torch.profiler recorded no device "
             "events; device busy share not measured")
@@ -2746,6 +3181,7 @@ def main() -> int:
     dev = bb["ix"]
     kres.update(phase_chain_sdp(card, gi, bb))
     kres.update(phase_anchor_band(card, bb))
+    kres.update(phase_members(card, bb))
     log(f"# phase 2 done in {time.time() - t0:.1f}s")
     with tempfile.TemporaryDirectory() as d:
         t0 = time.time()
@@ -2758,6 +3194,9 @@ def main() -> int:
         t0 = time.time()
         phase_modes(d, cuda_ops)
         log(f"# phase 3 modes done in {time.time() - t0:.1f}s")
+        t0 = time.time()
+        phase_pairwise(d, cuda_ops)
+        log(f"# phase 3 pairwise tools done in {time.time() - t0:.1f}s")
     t0 = time.time()
     phase_long_reads(card, cuda_ops)
     phase_clr_read(cuda_ops)
@@ -2766,6 +3205,7 @@ def main() -> int:
     dist = phase_bench(card, cuda_ops, gi, sims, "distance", dev=dev)
     qvl = phase_bench(card, cuda_ops, gi, sims, "qv", dev=dev)
     aff = phase_bench(card, cuda_ops, gi, sims, "affine", dev=dev)
+    compare_lookahead(card, gi, sims, dev)
     log(f"# phase 4 done in {time.time() - t0:.1f}s")
     t0 = time.time()
     prof = {"distance": phase_profile(card, gi, sims, dev),
@@ -2801,7 +3241,9 @@ def main() -> int:
             ("anchor_search_block", ANCHOR_SRC,
              "blasr_tpu/kernels/anchor.py:167"),
             ("band_offsets", BAND_SRC,
-             "blasr_tpu/pipeline/map_read.py:320")]
+             "blasr_tpu/pipeline/map_read.py:320"),
+            ("chain_members", MEMBERS_SRC,
+             "blasr_tpu/kernels/chain.py:325")]
     # rule 2's measure: launches per pass pair x (kernel ms - bound ms),
     # the kernel's ms as phase 2's events time the call and as its device
     # time alone (K5, K6: phase 2's calls by torch.profiler; the others:

@@ -6,7 +6,8 @@
 * Every module, function and class the port copied from ``blasr_tpu``
   (params, sim, the io and index modules, the native helpers, the host
   half of map_read, metrics, scoring, select, longread, extend, onegap,
-  zmw, the multihost helpers, formats) matches its original by
+  zmw, the multihost helpers, formats, the full SW and swMatcher)
+  matches its original by
   ``ast.dump``, module names normalized; the differences the port needs
   are listed below.
 * Every mapping flag of the JAX CLI is accepted and runs to its end on
@@ -61,6 +62,8 @@ COPIES = [
     ("io/formats.py", "io/formats.py", None),
     ("dist/multihost.py", "dist/multihost.py",
      ["shard_reads", "shard_path"]),
+    ("kernels/sw.py", "kernels/sw.py", "module"),
+    ("cli/sw_matcher.py", "cli/sw_matcher.py", "module"),
 ]
 
 # methods of the copied Mapper, and functions of the other copies, that
@@ -73,7 +76,8 @@ ALLOWED = {
     "Mapper.__init__",
     # builds the CUDA kernels instead of compiling XLA executables
     "Mapper.warmup",
-    # torch uploads, no async device_put pipeline
+    # torch tensors: pinned non-blocking uploads and start_fetch in place
+    # of device_put and copy_to_host_async (same lookahead of 4)
     "Mapper._run_bucket",
     # type(self)(...) instead of Mapper(...) (sub-mappers stay on the port)
     "Mapper._expanded",

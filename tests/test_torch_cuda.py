@@ -1,14 +1,16 @@
 """The hand-written CUDA kernels (K1 banded DP in its distance, QV, hp
 band and general-matrix modes, K2 traceback walk, K3 chain scan, K4 SDP
-window pass, K5 anchor search with its block mode, K6 band offsets)
-against their plain PyTorch versions, on a card.  Skipped without a CUDA
+window pass, K5 anchor search with its block mode, K6 band offsets, K7
+chain members) against their plain PyTorch versions, on a card; and the
+pairwise SDP path (``sdp_align``, the ``sdpMatcher`` CLI) on the card
+against the same calls on the CPU.  Skipped without a CUDA
 device.  K1 in every mode and K2-K6 take the edge inputs of
 ``tests/torch_edge_cases.py`` (K2 its planted walks and K1's cell words
 on the K1 edge shapes, the hp ones included), on which
 ``tests/test_torch_banded.py``, ``tests/test_torch_banded_modes.py``,
 ``tests/test_torch_chain_sdp_edges.py`` and
-``tests/test_torch_anchor_band_edges.py`` hold the plain versions to
-JAX; K3 also at A = 8192 (beyond one block's shared memory) and K4 at
+``tests/test_torch_anchor_band_edges.py`` and ``tests/test_torch_sdp.py``
+(K7's) hold the plain versions to JAX; K3 also at A = 8192 (beyond one block's shared memory) and K4 at
 L = 65536 (a row's slab spread over many CTAs).
 
 The GPU machine has no JAX, and tests/conftest.py imports it, so run this
@@ -34,11 +36,12 @@ from blasr_tpu_torch.io.fasta import FastaRecord  # noqa: E402
 from blasr_tpu_torch.pipeline import map_read as tmr  # noqa: E402
 from torch_edge_cases import (ANCHOR_CASES, BAND_CASES,  # noqa: E402
                               BANDED_CASES, BANDED_QV_SEED, CHAIN_CASES,
-                              K1_MODE_CASES, K1_MODES, K_SDP, SDP_CASES,
+                              K1_MODE_CASES, K1_MODES, K_SDP,
+                              MEMBER_CASES, SDP_CASES,
                               TRACEBACK_CASES, anchor_case, anchor_world,
                               band_case, banded_case, chain_case,
                               chain_rows, k1_mode_kwargs, long_sdp_case,
-                              sdp_case, traceback_case)
+                              member_case, sdp_case, traceback_case)
 
 pytestmark = pytest.mark.cuda
 
@@ -546,3 +549,137 @@ def test_anchor_and_band_wrappers_check_their_inputs(edge_index_cuda):
     with pytest.raises(ValueError):         # rows past 16 bits
         cuda_ops.band_offsets_launch(*m, **dict(geo, L=1 << 17))
     assert cuda_ops.LAUNCHES == before
+
+
+def _member_inputs(c, dev, dtype=torch.int64):
+    B, A = c["q"].shape
+    C = c["end_idx"].shape[1]
+    z = torch.zeros((B, C), dtype=torch.int64, device=dev)
+    cands = tchain.Candidates(
+        z, z, z, z, z.float(), z, z.float(),
+        torch.from_numpy(c["valid"]).to(dev),
+        torch.from_numpy(c["end_idx"]).to(dev),
+        torch.from_numpy(c["parent"]).to(dev))
+    anchors = tanchor.Anchors(
+        *(torch.from_numpy(c[f]).to(dev).to(dtype) for f in ("q", "t", "l")),
+        valid=torch.ones((B, A), dtype=torch.bool, device=dev),
+        n_total=torch.full((B,), A, dtype=torch.int32, device=dev),
+        nlogp=torch.zeros((B, A), device=dev))
+    return cands, anchors
+
+
+@pytest.mark.parametrize("dtype", [torch.int64, torch.int32],
+                         ids=["int64", "int32"])
+@pytest.mark.parametrize("name", list(MEMBER_CASES))
+def test_members_kernel_matches_plain(cuda, name, dtype):
+    """K7 against chain_members_plain on the same CUDA tensors, every
+    output exactly, one launch per call, on anchors in the mapper's int64
+    and in int32."""
+    c = member_case(name)
+    cands, anchors = _member_inputs(c, cuda, dtype)
+    before = cuda_ops.LAUNCHES["chain_members"]
+    k7 = tchain.chain_members(cands, anchors, max_chain=c["M"])
+    torch.cuda.synchronize()
+    assert cuda_ops.LAUNCHES["chain_members"] == before + 1
+    plain = tchain.chain_members_plain(cands, anchors, max_chain=c["M"])
+    for f, a, b in zip(("mq", "mt", "ml", "mvalid"), k7, plain):
+        assert a.dtype == b.dtype and torch.equal(a, b), f
+
+
+def test_members_wrapper_checks_its_inputs(cuda):
+    c = member_case("q-ties")
+    cands, anchors = _member_inputs(c, cuda)
+    args = (anchors.q, anchors.t, anchors.l, cands.parent, cands.end_idx)
+    before = dict(cuda_ops.LAUNCHES)
+    with pytest.raises(TypeError):          # int32 q beside int64 t and l
+        cuda_ops.chain_members_launch(args[0].int(), *args[1:], max_chain=8)
+    with pytest.raises(TypeError):          # int32 parents
+        cuda_ops.chain_members_launch(*args[:3], args[3].int(), args[4],
+                                      max_chain=8)
+    with pytest.raises(ValueError):         # ends on the CPU
+        cuda_ops.chain_members_launch(*args[:4], args[4].cpu(), max_chain=8)
+    with pytest.raises(ValueError):         # ends of another row count
+        cuda_ops.chain_members_launch(*args[:4], args[4][1:].contiguous(),
+                                      max_chain=8)
+    with pytest.raises(ValueError):
+        cuda_ops.chain_members_launch(*args, max_chain=0)
+    with pytest.raises(ValueError):         # members past shared memory
+        cuda_ops.chain_members_launch(*args, max_chain=1 << 15)
+    assert cuda_ops.LAUNCHES == before
+
+
+def _pairs(rng, N, qlen, tlen, acc=0.85):
+    """N reads of qlen (1 - 2 kb) bases drawn at ``acc`` from random
+    targets of tlen bases (substitutions, insertions and deletions in
+    equal parts), the target shifted by one base as sdpMatcher shifts
+    it: (queries, qlens, targets, tlens) as sdp_align takes them."""
+    Lq = -(-max(qlen) // 64) * 64
+    Lt = -(-(tlen + 129) // 128) * 128
+    qarr = np.full((N, Lq), 4, np.int8)
+    tarr = np.full((N, Lt), 4, np.int8)
+    ql = np.zeros(N, np.int32)
+    for n in range(N):
+        t = rng.integers(0, 4, tlen).astype(np.int8)
+        pos = int(rng.integers(0, tlen - qlen[n] // 2))
+        src = t[pos:]
+        out = []
+        for b in src:
+            u = rng.random()
+            if u < (1 - acc) / 3:
+                continue                                 # deletion
+            if u < 2 * (1 - acc) / 3:
+                out.append(rng.integers(0, 4))           # insertion
+            out.append((b + 1) % 4 if u > 1 - (1 - acc) / 3 else b)
+            if len(out) >= qlen[n]:
+                break
+        q = np.asarray(out[:qlen[n]], np.int8)
+        qarr[n, :len(q)] = q
+        ql[n] = len(q)
+        tarr[n, 1:1 + tlen] = t
+    return qarr, ql, tarr, np.full(N, tlen + 1, np.int32)
+
+
+@pytest.mark.parametrize("global_align", [True, False])
+def test_sdp_align_card_matches_cpu(cuda, global_align):
+    """sdp_align on the card (the fragment match in PyTorch, the chain on
+    K3 and K7, one launch each) equals the same call on the CPU at
+    Lq = 2048, Lt = 2304, every field."""
+    rng = np.random.default_rng(64)
+    args = _pairs(rng, 16, rng.integers(1000, 2000, 16), 2170)
+    before = dict(cuda_ops.LAUNCHES)
+    got = tsdp.sdp_align(*(torch.from_numpy(a).to(cuda) for a in args),
+                         global_align=global_align)
+    torch.cuda.synchronize()
+    assert cuda_ops.LAUNCHES["chain_scan"] == before["chain_scan"] + 1
+    assert cuda_ops.LAUNCHES["chain_members"] == before["chain_members"] + 1
+    want = tsdp.sdp_align(*map(torch.from_numpy, args),
+                          global_align=global_align)
+    assert want.valid.all()
+    for f, a, b in zip(tsdp.SDPResult._fields, got, want):
+        assert a.dtype == b.dtype and torch.equal(a.cpu(), b), f
+
+
+def test_sdp_matcher_card_matches_cpu(cuda, tmp_path, capsys):
+    """The sdpMatcher CLI on the card prints what it prints on the CPU,
+    and its card run launches K3, K7, K6, K1 and K2, never K1's other
+    forms."""
+    from blasr_tpu_torch.cli import sdp_matcher
+    from blasr_tpu_torch.io.fasta import write_fasta
+    rng = np.random.default_rng(65)
+    q, ql, t, tl = _pairs(rng, 6, rng.integers(300, 700, 6), 900)
+    write_fasta(tmp_path / "q.fa", [FastaRecord(f"q{i}", q[i, :ql[i]])
+                                    for i in range(6)])
+    write_fasta(tmp_path / "t.fa", [FastaRecord(f"t{i}", t[i, 1:tl[i]])
+                                    for i in range(6)])
+    argv = [str(tmp_path / "q.fa"), str(tmp_path / "t.fa"), "11",
+            "-printSimilarity", "-showalign"]
+    cuda_ops.reset_launch_counts()
+    assert sdp_matcher.run(argv) == 0
+    got = capsys.readouterr().out
+    n = dict(cuda_ops.LAUNCHES)
+    assert sdp_matcher.run(argv + ["--device", "cpu"]) == 0
+    assert got == capsys.readouterr().out and got.count("\n") > 20
+    for k in ("chain_scan", "chain_members", "band_offsets", "banded_dp",
+              "banded_traceback"):
+        assert n[k] == 1, (k, n)
+    assert sum(v for k, v in n.items() if k.startswith("banded_dp")) == 1

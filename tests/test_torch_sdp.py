@@ -1,0 +1,117 @@
+"""The port's pairwise SDP skeleton and chain members against the JAX
+package on the CPU.
+
+* ``sdp_align`` at N = 8 pairs, Lq = 256, Lt = 512, k = 11 (reads
+  mutated from a planted target span, ``tests/test_sdp_sw.py``'s world),
+  global and local: every ``SDPResult`` field exactly equal.
+* ``chain_members_plain`` against JAX's ``chain_members`` on the K7 edge
+  inputs of ``tests/torch_edge_cases.py`` (K3-shaped parents with q ties,
+  q that does not fall along a chain, chains longer than M, invalid
+  candidates and negative ends, M = 1, q at or above BIG, a row too long
+  for K7's shared memory): every member exactly equal.  The CUDA kernel
+  K7 meets the same inputs in ``tests/test_torch_cuda.py``.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from blasr_tpu.kernels import anchor as janchor  # noqa: E402
+from blasr_tpu.kernels import chain as jchain  # noqa: E402
+from blasr_tpu.kernels import sdp as jsdp  # noqa: E402
+from blasr_tpu_torch.kernels import anchor as tanchor  # noqa: E402
+from blasr_tpu_torch.kernels import chain as tchain  # noqa: E402
+from blasr_tpu_torch.kernels import sdp as tsdp  # noqa: E402
+from test_sdp_sw import mutate  # noqa: E402
+from torch_edge_cases import MEMBER_CASES, member_case  # noqa: E402
+
+torch.set_num_threads(2)
+
+
+def sdp_world(seed=5, N=8, Lq=256, Lt=512):
+    """``test_sdp_recovers_planted_span``'s pairs: 200-base spans of a
+    random target, mutated, with the target shifted by one base."""
+    rng = np.random.default_rng(seed)
+    qarr = np.full((N, Lq), 4, np.int8)
+    tarr = np.full((N, Lt), 4, np.int8)
+    qlen = np.zeros(N, np.int32)
+    tlen = np.zeros(N, np.int32)
+    for n in range(N):
+        target = rng.integers(0, 4, Lt - 1).astype(np.int8)
+        pos = int(rng.integers(0, Lt - 1 - 220))
+        q = mutate(rng, target[pos:pos + 200])[:Lq]
+        qarr[n, :len(q)] = q
+        tarr[n, 1:Lt] = target
+        qlen[n] = len(q)
+        tlen[n] = Lt
+    return qarr, qlen, tarr, tlen
+
+
+@pytest.mark.parametrize("global_align", [True, False])
+def test_sdp_align_matches_jax(global_align):
+    args = sdp_world()
+    want = jsdp.sdp_align(*map(jnp.asarray, args), k=11,
+                          global_align=global_align)
+    got = tsdp.sdp_align(*map(torch.from_numpy, args), k=11,
+                         global_align=global_align)
+    assert tsdp.SDPResult._fields == jsdp.SDPResult._fields
+    assert np.asarray(want.valid).all()
+    for f in jsdp.SDPResult._fields:
+        np.testing.assert_array_equal(np.asarray(getattr(want, f)),
+                                      getattr(got, f).numpy(), err_msg=f)
+
+
+def _member_inputs(c):
+    """(JAX Candidates and Anchors, torch ones) carrying the case's
+    parents, ends and flags; the fields chain_members does not read are
+    zeros."""
+    B, A = c["q"].shape
+    C = c["end_idx"].shape[1]
+    zb = np.zeros((B, C), np.int32)
+    jc = jchain.Candidates(
+        zb, zb, zb, zb, zb.astype(np.float32), zb, zb.astype(np.float32),
+        jnp.asarray(c["valid"]), jnp.asarray(c["end_idx"], jnp.int32),
+        jnp.asarray(c["parent"], jnp.int32))
+    ja = janchor.Anchors(
+        q=jnp.asarray(c["q"], jnp.int32), t=jnp.asarray(c["t"], jnp.int32),
+        l=jnp.asarray(c["l"], jnp.int32), valid=jnp.ones((B, A), bool),
+        n_total=jnp.full((B,), A, jnp.int32),
+        nlogp=jnp.zeros((B, A), jnp.float32))
+    zt = torch.zeros((B, C), dtype=torch.int64)
+    tc = tchain.Candidates(
+        zt, zt, zt, zt, zt.float(), zt, zt.float(),
+        torch.from_numpy(c["valid"]), torch.from_numpy(c["end_idx"]),
+        torch.from_numpy(c["parent"]))
+    ta = tanchor.Anchors(
+        q=torch.from_numpy(c["q"]), t=torch.from_numpy(c["t"]),
+        l=torch.from_numpy(c["l"]), valid=torch.ones((B, A), dtype=bool),
+        n_total=torch.full((B,), A, dtype=torch.int32),
+        nlogp=torch.zeros((B, A)))
+    return (jc, ja), (tc, ta)
+
+
+@pytest.mark.parametrize("name", list(MEMBER_CASES))
+def test_chain_members_edges_match_jax(name):
+    c = member_case(name)
+    (jc, ja), (tc, ta) = _member_inputs(c)
+    want = jchain.chain_members(jc, ja, max_chain=c["M"])
+    got = tchain.chain_members_plain(tc, ta, max_chain=c["M"])
+    for f, a, b in zip(("mq", "mt", "ml", "mvalid"), want, got):
+        assert tuple(b.shape) == tuple(a.shape), f
+        np.testing.assert_array_equal(np.asarray(a), b.numpy(), err_msg=f)
+    # the dispatch takes the plain version on CPU tensors
+    same = tchain.chain_members(tc, ta, max_chain=c["M"])
+    for a, b in zip(same, got):
+        assert torch.equal(a, b)
+    # what the case is for
+    mq = got[0].numpy()
+    if name == "longer-than-M":
+        assert got[3].all(dim=2).any()
+    if name == "q-ties":
+        assert any((np.diff(row[row < 0x3FFFFFFF]) == 0).any()
+                   for row in mq.reshape(-1, c["M"]))
+    if name == "invalid-cands":
+        assert not got[3][0, 1].any() and not c["valid"].all()

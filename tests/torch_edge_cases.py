@@ -1,9 +1,9 @@
-"""Edge inputs of the anchor search, the chain scan, the band offsets and
-the SDP window pass, built with numpy from a seed.
+"""Edge inputs of the anchor search, the chain scan, the chain members,
+the band offsets and the SDP window pass, built with numpy from a seed.
 ``tests/test_torch_chain_sdp_edges.py`` and
 ``tests/test_torch_anchor_band_edges.py`` hold the plain PyTorch versions
 to the JAX package on them; ``tests/test_torch_cuda.py`` holds the CUDA
-kernels K3-K6 to the plain versions on the same inputs (it runs where JAX
+kernels K3-K7 to the plain versions on the same inputs (it runs where JAX
 is absent, so this module imports numpy only).
 """
 
@@ -495,6 +495,75 @@ def anchor_case(name):
     kw, drop = ANCHOR_CASES[name]
     g, reads, rlen = anchor_world()
     return g, reads, rlen, dict(_ANCHOR_DEFAULTS, **kw), drop
+
+
+# ---------------------------------------------------------------- chain members
+
+# name -> (B, A, C, M, longest chain); K7 (csrc/chain_members.cu) stages a
+# row's parents in shared memory beside its warps' member buffers while
+# they fit (A = 60000 does not) and walks up to M pointers a chain
+MEMBER_CASES = {
+    "bench-shape": (4, 512, 10, 96, 150),
+    "sdp-shape": (4, 1024, 1, 256, 400),
+    "longer-than-M": (2, 1024, 4, 32, 500),
+    "q-ties": (3, 256, 8, 64, 80),
+    "q-not-monotone": (3, 256, 8, 64, 80),
+    "invalid-cands": (4, 300, 6, 48, 60),
+    "M1": (2, 128, 5, 1, 20),
+    "M100-C3": (3, 400, 3, 100, 200),
+    "big-q": (2, 128, 4, 48, 40),
+    "parents-in-global": (1, 60000, 4, 96, 300),
+}
+
+
+def member_case(name):
+    """Inputs of ``chain_members`` as int64 / bool numpy arrays, shaped as
+    K3 leaves them: anchors q, t, l [B, A] (t ascending), parent pointers
+    [B, A] to earlier anchors (-1 at chain starts), chain ends end_idx and
+    their flags valid [B, C], plus M = max_chain.  Every row holds one
+    chain of the case's longest length and a forest of shorter ones; the
+    ends are that chain's end, other chains' ends and random anchors.
+    "q-ties" gives a third of the members their parent's q; "q-not-
+    monotone" draws q at random, so a chain's q need not fall toward its
+    start; "invalid-cands" clears half the flags and ends two chains at
+    -1; "big-q" puts some q at or above BIG32 (2^30 - 1)."""
+    B, A, C, M, longest = MEMBER_CASES[name]
+    rng = np.random.default_rng(sum(map(ord, name)))
+    t = np.sort(rng.integers(0, 4_600_000, (B, A)), axis=1)
+    l = rng.integers(12, 33, (B, A))
+    parent = np.full((B, A), -1, np.int64)
+    q = np.zeros((B, A), np.int64)
+    end_idx = np.zeros((B, C), np.int64)
+    for b in range(B):
+        # the long chain on evenly spread anchors, the others a forest
+        long_ids = np.linspace(0, A - 1, min(longest, A)).astype(np.int64)
+        on_long = np.zeros(A, bool)
+        on_long[long_ids] = True
+        parent[b, long_ids[1:]] = long_ids[:-1]
+        for i in range(1, A):
+            if not on_long[i] and rng.random() < 0.8:
+                parent[b, i] = int(rng.integers(max(0, i - 48), i))
+        qq = np.zeros(A, np.int64)
+        for i in range(A):       # q grows along a chain, as K3 chains it
+            p = parent[b, i]
+            qq[i] = (qq[p] if p >= 0 else 0) + int(rng.integers(1, 40))
+            if name == "q-ties" and p >= 0 and rng.random() < 0.33:
+                qq[i] = qq[p]
+        if name == "q-not-monotone":
+            qq = rng.integers(0, 3000, A)
+        if name == "big-q":
+            hi = rng.random(A) < 0.3
+            qq = np.where(hi, BIG32 - 2 + rng.integers(0, 5, A), qq)
+        q[b] = qq
+        ends = rng.integers(0, A, C)
+        ends[0] = long_ids[-1]
+        end_idx[b] = ends
+    valid = rng.random((B, C)) < 0.8
+    if name == "invalid-cands":
+        valid = rng.random((B, C)) < 0.5
+        end_idx[0, 1] = end_idx[1, 2] = -1
+    return dict(q=q, t=t.astype(np.int64), l=l.astype(np.int64),
+                parent=parent, end_idx=end_idx, valid=valid, M=M)
 
 
 # ---------------------------------------------------------------- band offsets
