@@ -31,7 +31,10 @@
 //     opens from M at hp_open or extends H at hp_ext; H is a fourth
 //     diagonal source (last in the tie order), base = min(M, I, H) feeds
 //     D, and the final state is chosen four ways.  d_from_m still compares
-//     M with I only, as the reference does; h_open is cell bit 6.
+//     M with I only, as the reference does; h_open is cell bit 6.  H is
+//     finite only on hp_ok rows, so the recurrence runs each row as one of
+//     four cases by whether it and the row before are hp_ok (see
+//     recurrence), and a row where neither is costs a K1 row.
 //   * GEN (GEN = true, "K1-GEN", a general --scoreMatrix, in the distance,
 //     HP and QV forms): sub = submat[rb * 5 + tgt] for any 5x5 matrix, the
 //     N row (read N) and N column (window N, the pad past W) included; eq
@@ -84,7 +87,13 @@
 // traffic of size; the chain's latency is hidden only by running many items
 // (CTAs of 38 KB shared memory: five per SM), whose three warps each share
 // the SM's issue slots, so at N = 640 a row takes about twice the chain's
-// own latency: the instruction streams together set the pace.
+// own latency: the instruction streams together set the pace.  The
+// recurrence warp is the one that waits least (3% of its time, against
+// 43-55% for the other two, tools/torch_kernel_phases.py --k1), so its
+// row sets the pace of every mode.  In K1-HP the hp band added a fourth
+// shifted state, the H terms and a four-way source to every row, 16% on
+// the recurrence's row; the row cases keep that work to the rows that can
+// carry H (on reads of uniform bases, about 44% of rows).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -107,10 +116,12 @@ constexpr unsigned F_EQ = 1u, F_IN_T = 2u, F_IN_TI = 4u, F_STAG = 8u,
                    F_DTAG = 16u, F_IN_TH = 32u;
 constexpr int F_TGT_SHIFT = 8;
 
-// a row's scalars: offset, shift, QV costs
+// a row's scalars: offset, shift, QV costs and (HP) whether the row can
+// take the hp band, read[r] == read[r-1] < 4
 struct RowScalars {
   int o_r, s;
-  float insq, dpri, subq, spri, delq, pad;
+  float insq, dpri, subq, spri, delq;
+  int hp_ok;
 };
 
 // a double-buffered ring of R-row tiles between each pair of stages
@@ -272,12 +283,13 @@ __device__ void row_inputs(const Args& a, Smem& sm, int n, int lane) {
       if (r < qa || r >= qb) continue;  // uniform
       const bool first = r == qa;
       RowScalars sc{o_r, first ? 0 : o_r - prev, 0.f, 0.f, 0.f, 0.f, 0.f,
-                    0.f};
+                    0};
       int dtag = 7, stag = 7;
       bool hp_ok = false;
       if constexpr (HP) {
         const int rbp = __shfl_sync(FULL, my_rbp, i);
         hp_ok = rb == rbp && rbp < 4;
+        sc.hp_ok = hp_ok;
       }
       if constexpr (GEN) {
         if (lane < GEN_SUB)
@@ -368,8 +380,30 @@ __device__ void row_inputs(const Args& a, Smem& sm, int n, int lane) {
 // cell's d_from_m, and at bit 7 (HP) h_open, cell-word bit 6
 constexpr unsigned C_MLEI = 64u, C_HOPEN = 128u;
 
+// a compile-time flag for the row cases of the recurrence
+template <bool B>
+struct Flag {
+  static constexpr bool value = B;
+};
+
 // Warp 1: the recurrence of item n.  Only the M/I/D (and H) carries cross
 // rows here; the cell word's run counter and packing are warp 2's.
+//
+// HP: a row takes H only where it is hp_ok, so after a row that is not,
+// every H is exactly INF_F, and so is every dH and vH of the next row.  The
+// warp carries h_live (the previous active row was hp_ok) and runs each row
+// as one of four cases, a branch the whole warp takes together:
+//   1. !h_live, !hp_ok: K1's row; H is INF_F and h_open is
+//      (vM + hp_open) <= hfh_inf, hfh_inf = INF_F + hp_ext per launch;
+//   2. !h_live,  hp_ok: no pH shift, H = fminf(vM + hp_open, hfh_inf);
+//   3.  h_live, !hp_ok: pH shifted for dH (the four-way diagonal) and vH
+//      (h_open), H is INF_F;
+//   4.  h_live,  hp_ok: the whole hp row.
+// Each case computes the same floats as the whole row: every value of the
+// DP is finite or exactly INF_F (INF_F plus a cost below 2^24 rounds back
+// to it, and D is clipped to it), so a min with an INF_F operand is the
+// min of the others, and with dH = INF_F the four-way source and final
+// state fall to K1's three-way ones.
 template <bool QV, bool HP, bool GEN>
 __device__ void recurrence(const Args& a, Smem& sm, int n, int lane) {
   const int L = a.L;
@@ -378,6 +412,7 @@ __device__ void recurrence(const Args& a, Smem& sm, int n, int lane) {
   const float ins_open = a.ins_open, ins_ext = a.ins_ext;
   const float del_open = a.del_open, del_ext = a.del_ext;
   const float hp_open = a.hp_open, hp_ext = a.hp_ext;
+  const float hfh_inf = INF_F + hp_ext;  // vH + hp_ext where vH is INF_F
   const int c0 = 4 * lane;
 
   float pM[4], pI[4], pD[4], pH[4];
@@ -388,6 +423,7 @@ __device__ void recurrence(const Args& a, Smem& sm, int n, int lane) {
   float fin_score = INF_F;
   int fin_state = ST_M;
   bool fin_ok = false;
+  bool h_live = false;  // HP: the previous active row was hp_ok
 
   const int ntiles = (L + R - 1) / R;
   for (int t = 0; t < ntiles; ++t) {
@@ -408,15 +444,19 @@ __device__ void recurrence(const Args& a, Smem& sm, int n, int lane) {
           pM[j] = (o_r + c0 + j == ta - 1) ? 0.0f : INF_F;
           pI[j] = INF_F;
           pD[j] = sm.bd[c0 + j];
-          pH[j] = INF_F;
         }
+        h_live = false;
       }
-      {
+      // one row; HL: the previous row was hp_ok (its H, shifted, feeds
+      // this row), HO: this row is hp_ok (it computes H)
+      auto row = [&](auto hl, auto ho) {
+        constexpr bool HL = HP && decltype(hl)::value;
+        constexpr bool HO = HP && decltype(ho)::value;
         float dM[4], dI[4], dD[4], vM[4], vI[4], dH[4], vH[4];
         band_shift(pM, s, INF_F, lane, dM, vM);
         band_shift(pI, s, INF_F, lane, dI, vI);
         band_shift(pD, s, INF_F, lane, dD);
-        if constexpr (HP) band_shift(pH, s, INF_F, lane, dH, vH);
+        if constexpr (HL) band_shift(pH, s, INF_F, lane, dH, vH);
 
         float M[4], I[4], H[4], base[4], g[4], S[4], cd[4];
         unsigned code[4];
@@ -444,7 +484,7 @@ __device__ void recurrence(const Args& a, Smem& sm, int n, int lane) {
           }
           float db = fminf(dM[j], fminf(dI[j], dD[j]));
           int last = ST_D;
-          if constexpr (HP) {
+          if constexpr (HL) {
             db = fminf(db, dH[j]);
             last = dD[j] <= db ? ST_D : ST_H;
           }
@@ -460,10 +500,17 @@ __device__ void recurrence(const Args& a, Smem& sm, int n, int lane) {
           I[j] = in_t_i ? fminf(ifm, ifi) : INF_F;
           bool hopen = false;
           if constexpr (HP) {
-            const float hfm = vM[j] + hp_open, hfh = vH[j] + hp_ext;
-            H[j] = (fl[j] & F_IN_TH) ? fminf(hfm, hfh) : INF_F;
+            const float hfm = vM[j] + hp_open;
+            float hfh = hfh_inf;
+            if constexpr (HL) hfh = vH[j] + hp_ext;
             hopen = hfm <= hfh;
-            base[j] = fminf(fminf(M[j], I[j]), H[j]);
+            if constexpr (HO) {
+              H[j] = (fl[j] & F_IN_TH) ? fminf(hfm, hfh) : INF_F;
+              base[j] = fminf(fminf(M[j], I[j]), H[j]);
+            } else {
+              H[j] = INF_F;
+              base[j] = fminf(M[j], I[j]);
+            }
           } else {
             base[j] = fminf(M[j], I[j]);
           }
@@ -542,8 +589,21 @@ __device__ void recurrence(const Args& a, Smem& sm, int n, int lane) {
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           pM[j] = M[j]; pI[j] = I[j]; pD[j] = Dn[j];
-          if constexpr (HP) pH[j] = H[j];
+          if constexpr (HO) pH[j] = H[j];
         }
+      };
+      if constexpr (HP) {
+        const bool hp_ok = sc.hp_ok != 0;
+        if (h_live) {
+          if (hp_ok) row(Flag<true>(), Flag<true>());
+          else row(Flag<true>(), Flag<false>());
+        } else {
+          if (hp_ok) row(Flag<false>(), Flag<true>());
+          else row(Flag<false>(), Flag<false>());
+        }
+        h_live = hp_ok;
+      } else {
+        row(Flag<false>(), Flag<false>());
       }
     }
     mbar_arrive(&sm.empty[slot]);  // the row inputs of the slot are read
@@ -652,10 +712,18 @@ template <bool QV, bool HP = false, bool GEN = false>
 int launch(const Args& a, void* stream) {
   const size_t smem =
       sizeof(Smem) + (GEN ? 2 * R * GEN_SUB * sizeof(float) : 0);
-  cudaError_t err = cudaFuncSetAttribute(
-      banded_dp_kernel<QV, HP, GEN>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  // the dynamic shared-memory size, set once per mode and device
+  static bool set[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
+  if (dev >= 64 || !set[dev]) {
+    err = cudaFuncSetAttribute(banded_dp_kernel<QV, HP, GEN>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    if (dev < 64) set[dev] = true;
+  }
   banded_dp_kernel<QV, HP, GEN><<<a.N, 96, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

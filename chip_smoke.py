@@ -10,7 +10,9 @@ The second form only builds the named kernel from each given source (K1
 banded_dp.cu, K2 banded_traceback.cu, K3 chain_scan.cu, K5
 anchor_search.cu, K6 band_offsets.cu; e.g. a parent commit's unpacked
 beside this one's), holds their outputs equal on phase 2's inputs (K1:
-K1 and K1-QV, then K1-HP and the GEN forms of the sources that have them; K3:
+K1 and K1-QV, then K1-HP and the GEN forms of the sources that have them,
+K1-HP and K1-HP-GEN also on an hp-heavy case and the hp-runs world, three
+rounds each; K3:
 the bench batch and A = 8192; K5: the bench batch's find_anchors call and
 a long read's at L = 65536; K6: the bench batch's two _band_offsets calls
 and a long read's) and times them in turns, A B B A (see ``compare_k1``
@@ -34,11 +36,12 @@ Phases (any failed check exits nonzero):
      walks at the edges of its own 16-row tiles; K1-HP (the affine path's
      homopolymer-insertion band) and K1's GEN forms (a general matrix in
      the distance, hp and QV forms) on the same N=640 inputs, timed back
-     to back and behind a spin kernel, and on the tile-edge shapes and the
-     homopolymer world of tests/torch_edge_cases.py, K2 on their hp cell
-     words; K3 on the anchors of the
-     bench workload's first batch (2B=64 strand-rows, A=512) in its
-     candidate and guide passes, a lookback-64 global chain and the edge
+     to back and behind a spin kernel (K1-HP's lines with the share of
+     rows on each of its four row cases), and on the tile-edge shapes,
+     the homopolymer world and the hp row cases of
+     tests/torch_edge_cases.py, K2 on their hp cell words; K3 on the
+     anchors of the bench workload's first batch (2B=64 strand-rows,
+     A=512) in its candidate and guide passes, a lookback-64 global chain and the edge
      inputs of tests/torch_edge_cases.py; K4 (the whole
      window_fragment_diags_banded, one launch) at N=192, L=2048,
      W=3072, D=512, occ 2 and 1, on bench-genome windows with planted
@@ -192,14 +195,21 @@ def bound(nbytes: float, ops: float):
 
 # ---------------------------------------------------------------- phase 2
 
-def random_case(rng, N, L, W, w_b=128, steep_every=8):
+def random_case(rng, N, L, W, w_b=128, steep_every=8, hp_share=None):
     """Banded-DP inputs as tests/test_pallas_banded.py::_random_case makes
     them (numpy only): each read's span planted into its window on a noisy
     diagonal, offsets slope-limited to {0,1,2}.  Every ``steep_every``-th
     item instead spans twice as many window columns as rows, on a slope-2
     band: its global alignment needs a deletion per row, about two pairs
-    per row, so its traceback overflows t_max = 3T/8 (and fits T)."""
+    per row, so its traceback overflows t_max = 3T/8 (and fits T).  With
+    ``hp_share`` that share of the rows repeats the base before it (the hp
+    band's hp_ok rows: the share and a quarter of the rest)."""
     reads = rng.integers(0, 4, (N, L)).astype(np.int8)
+    if hp_share is not None:
+        repeat = rng.random((N, L)) < hp_share
+        for r in range(1, L):
+            reads[:, r] = np.where(repeat[:, r], reads[:, r - 1],
+                                   reads[:, r])
     windows = rng.integers(0, 4, (N, W)).astype(np.int8)
     qa = rng.integers(0, 8, N).astype(np.int32)
     qb = (qa + rng.integers(L // 2, L - 8, N)).astype(np.int32)
@@ -238,6 +248,27 @@ def random_case(rng, N, L, W, w_b=128, steep_every=8):
     offs = np.maximum.accumulate(offs, axis=1)
     offs = 2 * r + np.minimum.accumulate(offs - 2 * r, axis=1)
     return reads, windows, offs.astype(np.int32), qa, qb, ta, tb
+
+
+def hp_row_cases(reads, qa, qb) -> dict:
+    """The active rows' share that is hp_ok (read[r] == read[r-1] < 4) and
+    the shares of K1-HP's four row cases (csrc/banded_dp.cu::recurrence):
+    1 neither the previous active row nor this one hp_ok, 2 only this one,
+    3 only the previous one, 4 both."""
+    reads = torch.as_tensor(reads).long()
+    qa, qb = (torch.as_tensor(x).long()[:, None] for x in (qa, qb))
+    r = torch.arange(reads.shape[1], device=reads.device)
+    active = (r >= qa) & (r < qb)
+    ok = torch.zeros_like(active)
+    ok[:, 1:] = (reads[:, 1:] == reads[:, :-1]) & (reads[:, :-1] < 4)
+    live = torch.zeros_like(active)
+    live[:, 1:] = ok[:, :-1]
+    live &= r > qa
+    n = float(active.sum())
+    return {"hp_ok": float((ok & active).sum()) / n,
+            "cases": [float((active & (live == hl) & (ok == ho)).sum()) / n
+                      for hl, ho in ((False, False), (False, True),
+                                     (True, False), (True, True))]}
 
 
 def qv_words(rng, N, L, params, mismatch):
@@ -613,11 +644,17 @@ def k1_modes(card, args, qv, k1_bytes, cells):
         n_h = int(((k1.tbbits & 3) == ST_H).sum())
         out[key] = dict(err=err, ms=kms, plain_ms=pms, bound=kb,
                         device_ms=dms)
+        rows = ""
+        if "use_hp" in kw:
+            c = hp_row_cases(launch[0], launch[3], launch[4])
+            rows = (f"; rows hp_ok {c['hp_ok']:.4f}, in row cases 1-4 "
+                    + "/".join(f"{x:.4f}" for x in c["cases"]))
         log(f"# {key} ({mode}) == plain: score/valid/final_state/tbbits "
             f"exact ({int(k1.valid.sum())}/{k1.valid.numel()} valid, {n_h} "
-            f"cells with H as their diagonal source); kernel {kms:.4f} ms "
-            f"back to back, {dms:.4f} ms behind a spin, plain {pms:.1f} ms, "
-            f"bound {kb[0]:.4f} ms ({kb[1]}) per call on {card}")
+            f"cells with H as their diagonal source{rows}); kernel "
+            f"{kms:.4f} ms back to back, {dms:.4f} ms behind a spin, plain "
+            f"{pms:.1f} ms, bound {kb[0]:.4f} ms ({kb[1]}) per call on "
+            f"{card}")
     return out
 
 
@@ -647,7 +684,8 @@ def k1_mode_edges(modes) -> float:
             k1 = banded_align_cuda(*e, sub, *gaps, **kw)
             modes[key]["err"] = max(modes[key]["err"], check_dp(
                 k1, banded_align(*e, sub, *gaps, **kw), f"{key} {name}"))
-            if mode == "hp" or name == "hp-runs" and K1_MODES[mode][2]:
+            if mode == "hp" or (name in ("hp-runs", "hp-tile-edges")
+                                and K1_MODES[mode][2]):
                 for t_e in ((3 * (l_e + w_e)) // 8, l_e + w_e):
                     tb_err = max(tb_err, check_walk(
                         k1, e[2:], t_e,
@@ -696,13 +734,18 @@ def in_turns(card, what: str, sources, run, reps: int, mode="warm"):
     return times
 
 
-def compare_k1(card, sources, reps: int = 5) -> None:
+def compare_k1(card, sources, reps: int = 5, rounds: int = 3) -> None:
     """K1 and K1-QV from each given banded_dp.cu on phase 2's inputs
     (N=640, L=2048), every output held to the first source's; then K1-HP
     and the GEN forms from each source that has them (its
-    ``blasr_banded_dp_mode``), held to the first such source's."""
+    ``blasr_banded_dp_mode``), held to the first such source's, and K1-HP
+    and K1-HP-GEN again on an hp-heavy case of the same shape
+    (``hp_share=0.7``) and on the homopolymer world of
+    tests/torch_edge_cases.py (``hp-runs``).  Each input and mode is
+    timed in ``rounds`` rounds of A B B A."""
     import ctypes
     from blasr_tpu_torch.params import MappingParams
+    from torch_edge_cases import banded_case
     libs = []
     for src in sources:
         lib = build_source("K1", src)[0]
@@ -713,18 +756,26 @@ def compare_k1(card, sources, reps: int = 5) -> None:
     N, L, W = 640, 2048, 3072
     rng = np.random.default_rng(7)
     dev = torch.device("cuda")
-    ins = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-           for a in random_case(rng, N, L, W)]
+
+    def on_dev(arrs):
+        return [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                for a in arrs]
+
+    ins = on_dev(random_case(rng, N, L, W))
     params = MappingParams().make_sane()
     sm = np.asarray(params.score_matrix, np.float32).reshape(25)
     q1, q2 = (torch.from_numpy(q).to(dev)
               for q in qv_words(rng, N, L, params, int(sm[1])))
 
+    def outputs(x):
+        n, l = x[0].shape
+        return (torch.empty(n, dtype=torch.float32, device=dev),
+                torch.empty((n, l, 128), dtype=torch.int32, device=dev),
+                torch.empty(n, dtype=torch.int32, device=dev),
+                torch.empty(n, dtype=torch.bool, device=dev))
+
     def run(lib, use_qv):
-        outs = (torch.empty(N, dtype=torch.float32, device=dev),
-                torch.empty((N, L, 128), dtype=torch.int32, device=dev),
-                torch.empty(N, dtype=torch.int32, device=dev),
-                torch.empty(N, dtype=torch.bool, device=dev))
+        outs = outputs(ins)
         stream = torch.cuda.current_stream().cuda_stream
         p = [x.data_ptr() for x in ins]
         o = [x.data_ptr() for x in outs]
@@ -743,8 +794,9 @@ def compare_k1(card, sources, reps: int = 5) -> None:
             for a, b in zip(run(lib, use_qv), ref):
                 assert torch.equal(a, b), f"{sources[i]} differs from " \
                     f"{sources[0]} (qv={use_qv})"
-        in_turns(card, f"K1{'-QV' if use_qv else ''} (N={N}, L={L})",
-                 sources, lambda i: run(libs[i], use_qv), reps)
+        for _ in range(rounds):
+            in_turns(card, f"K1{'-QV' if use_qv else ''} (N={N}, L={L})",
+                     sources, lambda i: run(libs[i], use_qv), reps)
 
     with_modes = [i for i, lib in enumerate(libs)
                   if hasattr(lib, "blasr_banded_dp_mode")]
@@ -752,39 +804,51 @@ def compare_k1(card, sources, reps: int = 5) -> None:
         libs[i].blasr_banded_dp_mode.argtypes = ([P] * 9 + [I] * 5 + [P]
                                                  + [F] * 8 + [P] * 5)
 
-    def run_mode(lib, mode):
+    def run_mode(lib, mode, x):
         from blasr_tpu_torch.kernels.pallas_banded import two_valued
         from torch_edge_cases import K1_MODES, k1_mode_kwargs
         sub, gaps, kw = k1_mode_kwargs(mode)
         m = np.ascontiguousarray(sub, np.float32)
         use_qv = K1_MODES[mode][3]
-        outs = (torch.empty(N, dtype=torch.float32, device=dev),
-                torch.empty((N, L, 128), dtype=torch.int32, device=dev),
-                torch.empty(N, dtype=torch.int32, device=dev),
-                torch.empty(N, dtype=torch.bool, device=dev))
+        outs = outputs(x)
+        n, l = x[0].shape
         rc = lib.blasr_banded_dp_mode(
-            *[x.data_ptr() for x in ins],
+            *[y.data_ptr() for y in x],
             q1.data_ptr() if use_qv else None,
-            q2.data_ptr() if use_qv else None, N, L, W,
+            q2.data_ptr() if use_qv else None, n, l, x[1].shape[1],
             int(kw.get("use_hp", False)), int(not two_valued(m)),
             m.ctypes.data, float(m[0]), float(m[1]), *gaps,
             kw.get("hp_open", 0.0), kw.get("hp_ext", 0.0),
-            *[x.data_ptr() for x in outs],
+            *[y.data_ptr() for y in outs],
             torch.cuda.current_stream().cuda_stream)
         assert rc == 0, f"launch failed: {rc}"
         return outs
 
-    if with_modes:
-        srcs = [sources[i] for i in with_modes]
-        for mode in K1_MODE_OPS:
+    if not with_modes:
+        return
+    srcs = [sources[i] for i in with_modes]
+    cases = [("random_case", ins, K1_MODE_OPS),
+             ("hp-heavy", on_dev(random_case(np.random.default_rng(7), N, L,
+                                             W, hp_share=0.7)),
+              ("hp", "hp-gen")),
+             ("hp-runs", on_dev(banded_case("hp-runs")), ("hp", "hp-gen"))]
+    for label, x, modes in cases:
+        c = hp_row_cases(x[0], x[3], x[4])
+        n, l = x[0].shape
+        log(f"# {label} (N={n}, L={l}): rows hp_ok {c['hp_ok']:.4f}, in "
+            f"K1-HP's row cases 1-4 "
+            + "/".join(f"{v:.4f}" for v in c["cases"]))
+        for mode in modes:
             key = k1_mode_launch_kw(mode, {})[4]
-            ref = run_mode(libs[with_modes[0]], mode)
+            ref = run_mode(libs[with_modes[0]], mode, x)
             for i in with_modes[1:]:
-                for a, b in zip(run_mode(libs[i], mode), ref):
+                for a, b in zip(run_mode(libs[i], mode, x), ref):
                     assert torch.equal(a, b), f"{sources[i]} differs " \
-                        f"from {srcs[0]} ({key})"
-            in_turns(card, f"{key} (N={N}, L={L})", srcs,
-                     lambda j: run_mode(libs[with_modes[j]], mode), reps)
+                        f"from {srcs[0]} ({key} on {label})"
+            for _ in range(rounds):
+                in_turns(card, f"{key} on {label} (N={n}, L={l})", srcs,
+                         lambda j: run_mode(libs[with_modes[j]], mode, x),
+                         reps)
 
 
 def compare_k2(card, sources, reps: int = 5) -> None:
@@ -2842,6 +2906,11 @@ def phase_bench(card, cuda_ops, gi, sims, mode: str, dev=None):
 
     label, dp = BENCH_MODES[mode]
     recs, params = bench_inputs(sims, mode)
+    if mode == "affine":
+        seqs = [np.asarray(r.seq) for r in recs]
+        hp = sum(int(((q[1:] == q[:-1]) & (q[:-1] < 4)).sum()) for q in seqs)
+        log(f"# bench ({label}): {hp / sum(len(q) for q in seqs):.4f} of the "
+            f"reads' bases repeat the one before (K1-HP's hp_ok rows)")
     t0 = time.time()
     cfg = ShapeConfig(buckets=(1024, 2048), batch_size=32, max_anchors=512)
     mapper = Mapper(gi, params, cfg, device="cuda", dev=dev)

@@ -6,9 +6,11 @@ insertion band (``use_hp``), with a general 5x5 matrix (distance, hp and
 QV forms) must equal JAX ``banded_align`` (XLA) on every output and every
 cell word, and ``banded_traceback_plain`` over the hp cell words must
 equal JAX ``banded_traceback``.  The inputs are the tile-edge shapes of
-``tests/torch_edge_cases.py::banded_case`` and its ``hp-runs`` world
+``tests/torch_edge_cases.py::banded_case``, its ``hp-runs`` world
 (homopolymer runs and insertions, qa = 0, qa on a tile edge, a qa whose
-base repeats the one before it, N bases), in the modes of
+base repeats the one before it, N bases) and the inputs that switch the
+CUDA kernel's hp row cases (``HP_ROW_CASES``: hp runs on tile edges,
+hp_ok on alternate rows, never, always), in the modes of
 ``K1_MODES`` (the Mapper's affine costs, hp costs tied with the
 insertion costs, a matrix with unequal diagonal entries and an N row of
 its own).  The CUDA kernel's modes meet the same inputs in
@@ -28,8 +30,9 @@ from blasr_tpu.kernels.banded import BandedResult as JaxBandedResult  # noqa: E4
 from blasr_tpu_torch.kernels import banded as tb  # noqa: E402
 from blasr_tpu_torch.kernels import pallas_banded as tpb  # noqa: E402
 from test_torch_cuda import qv_words  # noqa: E402
-from torch_edge_cases import (BANDED_QV_SEED, K1_MODE_CASES,  # noqa: E402
-                              K1_MODES, banded_case, k1_mode_kwargs)
+from torch_edge_cases import (BANDED_QV_SEED, HP_ROW_CASES,  # noqa: E402
+                              K1_MODE_CASES, K1_MODES, banded_case,
+                              k1_mode_kwargs)
 
 torch.set_num_threads(2)
 
@@ -67,8 +70,10 @@ def _run_both(name, mode):
 @pytest.mark.parametrize("name", K1_MODE_CASES)
 def test_plain_dp_modes_match_jax(name, mode):
     """Every output and cell word equal to the XLA kernel's; the hp modes
-    set h_open bits, and on ``hp-runs`` (but at the tied costs, where I
-    wins every tie) take H as a diagonal source."""
+    set h_open bits, and on the inputs with homopolymer rows (but at the
+    tied costs, where I wins every tie, so never) take H as a diagonal
+    source; on ``hp-none`` H stays INF, so h_open is set in every cell of
+    the active rows and no cell or final state is H."""
     ref, out, arrs = _run_both(name, mode)
     _assert_same(ref, out, FIELDS)
     N = arrs[0].shape[0]
@@ -77,10 +82,19 @@ def test_plain_dp_modes_match_jax(name, mode):
     m_src = out.tbbits & 3
     if K1_MODES[mode][2] is None:
         assert not h_open.any() and not (m_src == tb.ST_H).any()
-    else:
-        assert h_open.any()
-        if name == "hp-runs" and mode != "hp-ties":
-            assert (m_src == tb.ST_H).any()
+        return
+    assert h_open.any()
+    in_h = (m_src == tb.ST_H).any() or (out.final_state == tb.ST_H).any()
+    if name == "hp-none":
+        rows = torch.arange(arrs[0].shape[1])
+        active = (rows >= torch.from_numpy(arrs[3])[:, None]) & \
+            (rows < torch.from_numpy(arrs[4])[:, None])
+        assert (h_open[active] == 1).all() and (h_open[~active] == 0).all()
+        assert not in_h
+    elif mode == "hp-ties":
+        assert not in_h
+    elif name == "hp-runs" or name in HP_ROW_CASES:
+        assert (m_src == tb.ST_H).any()
     # the routing of banded_align_cuda on CPU tensors is the plain DP
     submat, gaps, kw = k1_mode_kwargs(mode)
     assert tpb.two_valued(submat) == (mode in ("hp", "hp-ties"))
@@ -108,12 +122,10 @@ def test_hp_runs_reach_the_quirks():
         ((tbb & 3) == tb.ST_H).sum()
 
 
-@pytest.mark.parametrize("frac", ["3T/8", "T"])
-@pytest.mark.parametrize("mode", ["hp", "hp-ties", "hp-gen"])
-def test_plain_traceback_on_hp_words_matches_jax(mode, frac):
-    """The plain walk over the plain hp DP's cell words (states H and the
-    h_open bit) against JAX's banded_traceback, every output exactly."""
-    ref, out, arrs = _run_both("hp-runs", mode)
+def _walk_both(name, mode, frac):
+    """The plain walk over the plain hp DP's cell words of ``name`` against
+    JAX's banded_traceback, every output exactly."""
+    ref, out, arrs = _run_both(name, mode)
     L, W = arrs[0].shape[1], arrs[1].shape[1]
     t_max = (3 * (L + W)) // 8 if frac == "3T/8" else L + W
     rest = arrs[2:]
@@ -124,6 +136,22 @@ def test_plain_traceback_on_hp_words_matches_jax(mode, frac):
     _assert_same(jt, got, tb.TracebackResult._fields)
     assert got.n_pairs[out.valid].min() > 0
     assert got.n_ins.sum() > 0
+
+
+@pytest.mark.parametrize("frac", ["3T/8", "T"])
+@pytest.mark.parametrize("mode", ["hp", "hp-ties", "hp-gen"])
+def test_plain_traceback_on_hp_words_matches_jax(mode, frac):
+    """The plain walk over the plain hp DP's cell words (states H and the
+    h_open bit) against JAX's banded_traceback, every output exactly."""
+    _walk_both("hp-runs", mode, frac)
+
+
+@pytest.mark.parametrize("frac", ["3T/8", "T"])
+@pytest.mark.parametrize("mode", ["hp", "hp-ties", "hp-gen"])
+def test_plain_traceback_on_hp_edge_words_matches_jax(mode, frac):
+    """The same walk over the cell words of ``hp-tile-edges``, whose H
+    runs start and end on the edges of K1's and K2's 16-row tiles."""
+    _walk_both("hp-tile-edges", mode, frac)
 
 
 def test_qv_excludes_the_hp_band():

@@ -17,6 +17,7 @@
 
 import ast
 import os
+import re
 import subprocess
 import sys
 import textwrap
@@ -64,6 +65,9 @@ COPIES = [
      ["shard_reads", "shard_path"]),
     ("kernels/sw.py", "kernels/sw.py", "module"),
     ("cli/sw_matcher.py", "cli/sw_matcher.py", "module"),
+    # every top-level function; the two that differ are held to their
+    # seams by test_cli_differs_only_at_its_seams
+    ("cli/blasr.py", "cli/blasr.py", None),
 ]
 
 # methods of the copied Mapper, and functions of the other copies, that
@@ -88,7 +92,19 @@ ALLOWED = {
     "Mapper.dump_debug",
     # zmw.py: the mini-index Mapper is type(mapper)(..., device=mapper.device)
     "_map_to_template_windows",
+    # cli/blasr.py: the --device option, the torch.profiler help and the
+    # port's description
+    "build_arg_parser",
+    # cli/blasr.py: the torch device (checked, handed to the Mapper), the
+    # torch.profiler trace, no JAX compile cache, contextlib imported at
+    # the top
+    "run",
 }
+
+# what the port's cli/blasr.py changes in the functions ALLOWED names: a
+# statement that mentions one of these (the JAX compile cache and profiler,
+# the torch device and profiler) and a call's ``device=`` / ``description=``
+_CLI_SEAM = re.compile(r"\b(jax|torch|contextlib|_torch_trace)\b")
 
 
 def _tree(path):
@@ -138,6 +154,37 @@ def test_copied_code_has_not_drifted(port, orig, names):
             continue
         assert ast.dump(a) == ast.dump(b) or name in ALLOWED, \
             f"{name} drifted from blasr_tpu"
+
+
+def _strip_cli_seams(node):
+    """``node`` without the statements (at any depth) that mention a
+    :data:`_CLI_SEAM` name and without ``device=`` and ``description=``
+    keyword arguments."""
+    for field in ("body", "orelse", "finalbody"):
+        stmts = getattr(node, field, None)
+        if isinstance(stmts, list):
+            setattr(node, field, [
+                _strip_cli_seams(s) for s in stmts
+                if not _CLI_SEAM.search(ast.unparse(s))])
+    for call in ast.walk(node):
+        if isinstance(call, ast.Call):
+            call.keywords = [k for k in call.keywords
+                             if k.arg not in ("device", "description")]
+    return node
+
+
+@pytest.mark.parametrize("name", ["build_arg_parser", "run"])
+def test_cli_differs_only_at_its_seams(name):
+    """The two CLI functions ALLOWED names equal their JAX originals once
+    the seams are taken out of both: the torch device, the profiler
+    (jax.profiler there, torch.profiler here), the JAX compile cache and
+    the parser's description; and each seam really differs."""
+    pp = os.path.join(ROOT, "blasr_tpu_torch", "cli", "blasr.py")
+    op = os.path.join(ROOT, "blasr_tpu", "cli", "blasr.py")
+    port, orig = _defs(pp)[name], _defs(op)[name]
+    assert ast.dump(port) != ast.dump(orig)
+    assert ast.dump(_strip_cli_seams(port)) == \
+        ast.dump(_strip_cli_seams(orig)), f"cli/blasr.py {name} drifted"
 
 
 def test_port_runs_without_jax(tmp_path):

@@ -283,10 +283,12 @@ def test_dp_kernel_modes_match_plain(cuda, name, mode):
 
 @pytest.mark.parametrize("frac", ["3T/8", "T"])
 @pytest.mark.parametrize("mode", ["hp", "hp-ties", "hp-gen"])
-def test_traceback_kernel_hp_words_match_plain(cuda, mode, frac):
-    """K2 over K1-HP's cell words of the homopolymer world (H states and
-    h_open bits) against the plain walk."""
-    k1, _, args = _k1_mode(cuda, "hp-runs", mode)
+@pytest.mark.parametrize("name", ["hp-runs", "hp-tile-edges"])
+def test_traceback_kernel_hp_words_match_plain(cuda, name, mode, frac):
+    """K2 over K1-HP's cell words of the homopolymer world and of the H
+    runs on tile edges (H states and h_open bits) against the plain
+    walk."""
+    k1, _, args = _k1_mode(cuda, name, mode)
     assert ((k1.tbbits & 3) == tb.ST_H).any() or mode == "hp-ties"
     L, W = args[0].shape[1], args[1].shape[1]
     t_max = (3 * (L + W)) // 8 if frac == "3T/8" else L + W

@@ -286,7 +286,17 @@ def banded_case(name, w_b=128):
       runs of 4-12 bases in the reads, most insertions repeat the previous
       read base, a few read and window bases are N; qa = 0 (row 0, whose
       previous base is code 4), qa on a tile edge, and a qa whose base
-      repeats the one before it (outside the aligned range)."""
+      repeats the one before it (outside the aligned range);
+    * the hp band's row cases (:data:`HP_ROW_CASES`; ``hp_ok`` is a row's
+      ``read[r] == read[r-1] < 4``, its reads built from that mask, an
+      item's first row at qa = 0 or where listed):
+      ``hp-tile-edges``, hp runs that start and end on rows 15/16 and
+      31/32, runs across a tile edge and over a whole tile, ``hp_ok`` at
+      qa (qa = 16 and 33) and at qa - 1 outside the range (qa = 5);
+      ``hp-alternating``, ``hp_ok`` on every other row (items 0-1) and on
+      two rows of four (items 2-3: every pair of the previous row's and
+      this row's ``hp_ok`` in turn); ``hp-none``, no two equal adjacent
+      read bases; ``hp-all``, one base repeated."""
     rng = np.random.default_rng(sum(map(ord, name)))
     hp = name == "hp-runs"
     N = 6 if hp else 4
@@ -305,6 +315,10 @@ def banded_case(name, w_b=128):
                 reads[i, p:p + int(rng.integers(4, 13))] = reads[i, p]
         qa = np.array([0, 16, 37, 0, 5, 64])
         reads[2, 36] = reads[2, 37] = 1          # read[qa] == read[qa - 1]
+        qb = np.minimum(qa + rng.integers(L // 2, L - 8, N), L)
+    if name in HP_ROW_CASES:
+        mask, qa = _hp_rows(name, L, qa)
+        reads = _reads_of_hp_rows(rng, mask)
         qb = np.minimum(qa + rng.integers(L // 2, L - 8, N), L)
     slope = np.ones(L, np.int64)
     if name == "slope2-across-tile":
@@ -344,10 +358,51 @@ def banded_case(name, w_b=128):
             ta.astype(i32), tb.astype(i32))
 
 
+def _hp_rows(name, L, qa):
+    """(hp_ok mask [4, L], qa) of a :data:`HP_ROW_CASES` input."""
+    r = np.arange(L)
+    mask = np.zeros((4, L), bool)
+    qa = qa.copy()
+    qa[0] = 0
+    if name == "hp-tile-edges":
+        qa = np.array([0, 16, 33, 5])
+        runs = ([(12, 15), (28, 31), (40, 47), (100, 140)],
+                [(16, 19), (32, 36), (60, 70)],
+                [(33, 35), (47, 48), (62, 66)],
+                [(4, 7), (15, 16), (31, 32), (80, 95)])
+        for i, item in enumerate(runs):
+            for a, b in item:
+                mask[i, a:b + 1] = True
+    elif name == "hp-alternating":
+        mask[:2] = r % 2 == 1
+        mask[2:] = r % 4 >= 2
+    elif name == "hp-all":
+        mask[:] = True
+    return mask, qa
+
+
+def _reads_of_hp_rows(rng, mask):
+    """Reads whose ``read[r] == read[r-1]`` exactly where ``mask`` is set
+    (r >= 1): a masked row repeats the base before it, any other row
+    takes another of the four."""
+    N, L = mask.shape
+    reads = np.zeros((N, L), np.int8)
+    reads[:, 0] = rng.integers(0, 4, N)
+    for r in range(1, L):
+        other = (reads[:, r - 1] + rng.integers(1, 4, N)) % 4
+        reads[:, r] = np.where(mask[:, r], reads[:, r - 1], other)
+    return reads
+
+
+# the hp band's row cases (csrc/banded_dp.cu): whether the previous row can
+# carry H and whether this row can take it, switching on tile edges and at
+# every row, never set and always set
+HP_ROW_CASES = ("hp-tile-edges", "hp-alternating", "hp-none", "hp-all")
 # K1's modes beyond distance and QV (csrc/banded_dp.cu), on the tile-edge
-# shapes and the homopolymer world; the plain DP meets JAX's XLA kernel on
-# them in tests/test_torch_banded_modes.py, K1 the plain DP on the card
-K1_MODE_CASES = BANDED_CASES + ("hp-runs",)
+# shapes, the homopolymer world and the hp band's row cases; the plain DP
+# meets JAX's XLA kernel on them in tests/test_torch_banded_modes.py, K1
+# the plain DP on the card
+K1_MODE_CASES = BANDED_CASES + ("hp-runs",) + HP_ROW_CASES
 # the default matrix (match -5 on the ACGT diagonal, 6 elsewhere) and a
 # general one: unequal diagonal entries, uneven mismatches, an N row (read
 # N) and an N column (window N and the pad past the window) of their own
