@@ -835,18 +835,6 @@ int anchor_search(
              : candidates_for<true>(ix, s, st, reads, read_len, hits_t,
                                     hits_valid, meta, cnlogp, clip_part);
   if (err != cudaSuccess) return (int)err;
-  // the opt-in to the most dynamic shared memory, once per device
-  static bool opted[64] = {};
-  int dev = 0;
-  err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev >= 64 || !opted[dev]) {
-    err = cudaFuncSetAttribute(anchor_select,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               SELECT_DYNAMIC_MAX);
-    if (err != cudaSuccess) return (int)err;
-    if (dev < 64) opted[dev] = true;
-  }
   anchor_select<<<B, SEL_THREADS, smem, st>>>(
       s, hits_t, meta, cnlogp, clip_part, out_q, out_t, out_l, out_valid,
       out_nlogp, n_total, n_clipped);
@@ -854,6 +842,15 @@ int anchor_search(
 }
 
 }  // namespace
+
+// The selection kernel's opt-in to the most dynamic shared memory, on the
+// current device; called once per device before any launch
+// (blasr_setup_kernels), never while a stream is captured.
+extern "C" int blasr_anchor_search_setup() {
+  return (int)cudaFuncSetAttribute(anchor_select,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   SELECT_DYNAMIC_MAX);
+}
 
 #define ANCHOR_SEARCH_ARGS                                                    \
   const int8_t *reads, const int32_t *read_len, const int8_t *genome,         \

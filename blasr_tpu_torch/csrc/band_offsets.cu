@@ -443,27 +443,29 @@ cudaError_t launch_smem(int N, size_t smem, cudaStream_t st,
                         const int64_t* ws, const int64_t* frag_diag,
                         const uint8_t* frag_valid, const Args& a,
                         int64_t* out) {
-  {
-    // the opt-in to the most dynamic shared memory, once per device and
-    // instance
-    static bool opted[64] = {};
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err != cudaSuccess) return err;
-    if (dev >= 64 || !opted[dev]) {
-      err = cudaFuncSetAttribute(band_offsets_kernel<RT>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 SMEM_DYNAMIC_MAX);
-      if (err != cudaSuccess) return err;
-      if (dev < 64) opted[dev] = true;
-    }
-  }
   band_offsets_kernel<RT><<<N, SMEM_THREADS, smem, st>>>(
       mq, mt, ws, frag_diag, frag_valid, a, out);
   return cudaGetLastError();
 }
 
 }  // namespace
+
+// Every instance's opt-in to the most dynamic shared memory, on the
+// current device; called once per device before any launch
+// (blasr_setup_kernels), never while a stream is captured.
+extern "C" int blasr_band_offsets_setup() {
+  const void* fns[] = {reinterpret_cast<const void*>(band_offsets_kernel<0>),
+                       reinterpret_cast<const void*>(band_offsets_kernel<1>),
+                       reinterpret_cast<const void*>(band_offsets_kernel<2>),
+                       reinterpret_cast<const void*>(band_offsets_kernel<4>),
+                       reinterpret_cast<const void*>(band_offsets_kernel<8>)};
+  for (const void* fn : fns) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_DYNAMIC_MAX);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
+}
 
 extern "C" int blasr_band_offsets(const int64_t* mq, const int64_t* mt,
                                   const int64_t* ws, const int64_t* frag_diag,

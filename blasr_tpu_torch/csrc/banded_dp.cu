@@ -708,27 +708,40 @@ __global__ void __launch_bounds__(96) banded_dp_kernel(Args a) {
   }
 }
 
+// the dynamic shared memory of a mode
+template <bool QV, bool HP, bool GEN>
+constexpr size_t smem_bytes() {
+  return sizeof(Smem) + (GEN ? 2 * R * GEN_SUB * sizeof(float) : 0);
+}
+
+template <bool QV, bool HP, bool GEN>
+cudaError_t opt_in() {
+  return cudaFuncSetAttribute(banded_dp_kernel<QV, HP, GEN>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem_bytes<QV, HP, GEN>());
+}
+
 template <bool QV, bool HP = false, bool GEN = false>
 int launch(const Args& a, void* stream) {
-  const size_t smem =
-      sizeof(Smem) + (GEN ? 2 * R * GEN_SUB * sizeof(float) : 0);
-  // the dynamic shared-memory size, set once per mode and device
-  static bool set[64] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev >= 64 || !set[dev]) {
-    err = cudaFuncSetAttribute(banded_dp_kernel<QV, HP, GEN>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    if (dev < 64) set[dev] = true;
-  }
-  banded_dp_kernel<QV, HP, GEN><<<a.N, 96, smem, (cudaStream_t)stream>>>(a);
+  banded_dp_kernel<QV, HP, GEN>
+      <<<a.N, 96, smem_bytes<QV, HP, GEN>(), (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
+
+// Every mode's opt-in to its dynamic shared memory, on the current device;
+// called once per device before any launch (blasr_setup_kernels), never
+// while a stream is captured.
+extern "C" int blasr_banded_dp_setup() {
+  const cudaError_t errs[] = {
+      opt_in<false, false, false>(), opt_in<true, false, false>(),
+      opt_in<false, true, false>(),  opt_in<false, true, true>(),
+      opt_in<true, false, true>(),   opt_in<false, false, true>()};
+  for (cudaError_t e : errs)
+    if (e != cudaSuccess) return (int)e;
+  return 0;
+}
 
 extern "C" int blasr_banded_dp(
     const int8_t* reads, const int8_t* windows, const int32_t* offsets,

@@ -252,21 +252,21 @@ __global__ void __launch_bounds__(32) banded_traceback_kernel(
 
 }  // namespace
 
+// The carveout that holds five 40 KB rings per SM, on the current device;
+// called once per device before any launch (blasr_setup_kernels), never
+// while a stream is captured.
+extern "C" int blasr_banded_traceback_setup() {
+  return (int)cudaFuncSetAttribute(
+      banded_traceback_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+      cudaSharedmemCarveoutMaxShared);
+}
+
 extern "C" int blasr_banded_traceback(
     const int32_t* tbbits, const int32_t* offsets, const int32_t* qa,
     const int32_t* qb, const int32_t* ta, const int32_t* tb,
     const int32_t* final_state, const uint8_t* valid, int N, int L, int P,
     int32_t* pairs, int32_t* n_pairs, int32_t* n_match, int32_t* n_mismatch,
     int32_t* n_ins, int32_t* n_del, uint8_t* overflow, void* stream) {
-  static bool carveout_set = false;
-  if (!carveout_set) {  // five 40 KB rings per SM
-    cudaError_t err = cudaFuncSetAttribute(
-        banded_traceback_kernel,
-        cudaFuncAttributePreferredSharedMemoryCarveout,
-        cudaSharedmemCarveoutMaxShared);
-    if (err != cudaSuccess) return (int)err;
-    carveout_set = true;
-  }
   banded_traceback_kernel<<<N, 32, SMEM_BYTES, (cudaStream_t)stream>>>(
       tbbits, offsets, qa, qb, ta, tb, final_state, valid, L, P, pairs,
       n_pairs, n_match, n_mismatch, n_ins, n_del, overflow);

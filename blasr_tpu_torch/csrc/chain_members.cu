@@ -121,20 +121,6 @@ cudaError_t launch(const void* q, const void* t, const void* l,
                    int C, int A, int M, int warps, int stage, size_t smem,
                    cudaStream_t st, int64_t* mq, int64_t* mt, int64_t* ml,
                    bool* mvalid) {
-  if (smem > 48 * 1024) {
-    // the opt-in to the most dynamic shared memory, once per device
-    static bool opted[64] = {};
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err != cudaSuccess) return err;
-    if (dev >= 64 || !opted[dev]) {
-      err = cudaFuncSetAttribute(chain_members_kernel<P>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 SMEM_DYNAMIC_MAX);
-      if (err != cudaSuccess) return err;
-      if (dev < 64) opted[dev] = true;
-    }
-  }
   const dim3 grid(B, (C + warps - 1) / warps);
   chain_members_kernel<P><<<grid, 32 * warps, smem, st>>>(
       static_cast<const P*>(q), static_cast<const P*>(t),
@@ -144,6 +130,21 @@ cudaError_t launch(const void* q, const void* t, const void* l,
 }
 
 }  // namespace
+
+// Both instances' opt-in to the most dynamic shared memory, on the current
+// device; called once per device before any launch (blasr_setup_kernels),
+// never while a stream is captured.
+extern "C" int blasr_chain_members_setup() {
+  const void* fns[] = {
+      reinterpret_cast<const void*>(chain_members_kernel<int64_t>),
+      reinterpret_cast<const void*>(chain_members_kernel<int32_t>)};
+  for (const void* fn : fns) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_DYNAMIC_MAX);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
+}
 
 // Shared memory a launch needs: per warp M int64 q values and M int32
 // indices, then (stage != 0) the row's A parents as int32.

@@ -72,6 +72,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "setup.cuh"
+
 namespace {
 
 constexpr int THREADS = 512;
@@ -429,6 +431,17 @@ __global__ void __launch_bounds__(THREADS) chain_scan_kernel(
 
 }  // namespace
 
+// The opt-in to all the dynamic shared memory a block can take beside the
+// kernel's static arrays, on the current device, so that a launch of any
+// A up to cuda_ops.CHAIN_MAX_ANCHORS needs no attribute call of its own
+// (one that lowered it would fail a captured launch of a larger A); called
+// once per device before any launch (blasr_setup_kernels), never while a
+// stream is captured.
+extern "C" int blasr_chain_scan_setup() {
+  return (int)blasr::opt_in_max(
+      reinterpret_cast<const void*>(chain_scan_kernel<false>));
+}
+
 // q, t, l: int32 (wide_pos = 0) or int64 (1) [B, A]; read_len int32 or
 // int64 [B]; every integer output int64.
 extern "C" int blasr_chain_scan(
@@ -450,10 +463,6 @@ extern "C" int blasr_chain_scan(
     return (int)cudaGetLastError();
   }
   const size_t smem = (size_t)A * 42;  // cuda_ops.CHAIN_SMEM_PER_ANCHOR
-  cudaError_t err = cudaFuncSetAttribute(
-      chain_scan_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
   chain_scan_kernel<false><<<B, THREADS, smem, (cudaStream_t)stream>>>(
       q, t, l, wide_pos, valid, nlogp, read_len, wide_len, p, q_start,
       q_end, t_start, t_end, score, n_anchors, out_nlogp, out_valid, end_idx,

@@ -49,6 +49,7 @@
 #include <stdint.h>
 
 #include "block_scan.cuh"
+#include "setup.cuh"
 
 namespace {
 
@@ -202,6 +203,17 @@ extern "C" size_t blasr_sdp_window_smem(int L, int D, int k) {
   return (size_t)(TQ + D + 128) * sizeof(uint32_t) + (size_t)(TQ + D + k + 16);
 }
 
+// The opt-in to all the dynamic shared memory a block can take beside the
+// kernel's static arrays, on the current device, so that a launch of any
+// (L, D, k) the wrapper admits needs no attribute call of its own (one
+// that lowered it would fail a captured launch of a larger tile); called
+// once per device before any launch (blasr_setup_kernels), never while a
+// stream is captured.
+extern "C" int blasr_sdp_window_setup() {
+  return (int)blasr::opt_in_max(
+      reinterpret_cast<const void*>(sdp_window_kernel));
+}
+
 extern "C" int blasr_sdp_window(const int64_t* rkeys, const uint8_t* rvalid,
                                 const int8_t* windows, const void* wlens,
                                 int wlens64, const void* offs, int offs64,
@@ -213,10 +225,6 @@ extern "C" int blasr_sdp_window(const int64_t* rkeys, const uint8_t* rvalid,
   a.TQ = query_tile(L);
   a.tiles = (L + a.TQ - 1) / a.TQ;
   const size_t smem = blasr_sdp_window_smem(L, D, k);
-  cudaError_t err = cudaFuncSetAttribute(
-      sdp_window_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
   sdp_window_kernel<<<N * a.tiles, THREADS, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

@@ -10,7 +10,10 @@ source rebuilds.
 
 Every wrapper checks device, dtype, shape and contiguity, launches on
 ``torch.cuda.current_stream()``, raises if ``cudaGetLastError()`` is not 0
-and counts its launches in :data:`LAUNCHES`.
+and counts its launches in :data:`LAUNCHES`.  No launch sets a function
+attribute: :func:`_load` sets every kernel's (``blasr_setup_kernels``)
+once per device before the first launch there, so a launch is all a
+CUDA graph capture records (``pipeline/graphs.py``).
 """
 
 from __future__ import annotations
@@ -36,8 +39,8 @@ _PKG_DIR = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG_DIR / "csrc"
 SOURCES = ("banded_dp.cu", "banded_traceback.cu", "chain_scan.cu",
            "sdp_window.cu", "anchor_search.cu", "band_offsets.cu",
-           "chain_members.cu")
-HEADERS = ("block_scan.cuh",)
+           "chain_members.cu", "setup.cu")
+HEADERS = ("block_scan.cuh", "setup.cuh")
 BUILD_DIR = _PKG_DIR.parent / "build" / "blasr_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -65,6 +68,8 @@ ANCHOR_MAX_SELECT = 16384
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+# (library, device index) pairs whose kernels' attributes are set
+_set_up: set = set()
 
 
 def reset_launch_counts() -> None:
@@ -161,6 +166,10 @@ ARGTYPES = {
     "blasr_chain_members_smem": (ctypes.c_size_t, [_I] * 4),
     "blasr_chain_members_max_smem": (_I, []),
 }
+# each kernel source's own set-up entry (what setup.cu's
+# blasr_setup_kernels runs for it), for a source built alone
+SETUP_ENTRIES = tuple(f"blasr_{Path(s).stem}_setup" for s in SOURCES
+                      if s != "setup.cu")
 
 
 def bind(lib: ctypes.CDLL, names=tuple(ARGTYPES)) -> ctypes.CDLL:
@@ -171,11 +180,42 @@ def bind(lib: ctypes.CDLL, names=tuple(ARGTYPES)) -> ctypes.CDLL:
     return lib
 
 
-def _load() -> ctypes.CDLL:
+def set_up(lib: ctypes.CDLL, device=None) -> None:
+    """Set the function attributes of ``lib``'s kernels on ``device`` (the
+    current device by default), once per library and device: by
+    ``blasr_setup_kernels`` where the library has it, else by the
+    ``SETUP_ENTRIES`` of the sources built into it (a source built alone;
+    a source with none, an older one, sets its attributes itself)."""
+    idx = None if device is None else torch.device(device).index
+    if idx is None:
+        idx = torch.cuda.current_device()
+    if (id(lib), idx) in _set_up:
+        return
+    names = (["blasr_setup_kernels"] if hasattr(lib, "blasr_setup_kernels")
+             else [n for n in SETUP_ENTRIES if hasattr(lib, n)])
+    with torch.cuda.device(idx):
+        for name in names:
+            fn = getattr(lib, name)
+            fn.restype, fn.argtypes = _I, []
+            rc = fn()
+            if rc != 0:
+                raise RuntimeError(f"{name}: setting the kernels' attributes "
+                                   f"failed with CUDA error {rc}")
+    _set_up.add((id(lib), idx))
+
+
+def _load(device=None) -> ctypes.CDLL:
+    """The kernel library, built and loaded at first use, its kernels'
+    attributes set on ``device`` (the current device by default)."""
     global _lib
+    lib = _lib
+    if (lib is not None and device is not None
+            and (id(lib), device.index) in _set_up):
+        return lib
     with _lock:
         if _lib is None:
             _lib = bind(ctypes.CDLL(str(build())))
+        set_up(_lib, device)
         return _lib
 
 
@@ -249,7 +289,7 @@ def banded_dp_launch(reads, windows, offsets, qa, qb, ta, tb, *,
     valid = torch.empty(N, dtype=torch.bool, device=dev)
     if N == 0:
         return BandedResult(score, tbbits, state, valid)
-    lib = _load()
+    lib = _load(dev)
     outs = (score.data_ptr(), tbbits.data_ptr(), state.data_ptr(),
             valid.data_ptr())
     ins = (reads.data_ptr(), windows.data_ptr(), offsets.data_ptr(),
@@ -303,7 +343,7 @@ def banded_traceback_cuda(result: BandedResult, offsets, qa, qb, ta, tb, *,
     counts = torch.empty((5, N), dtype=torch.int32, device=dev)
     overflow = torch.empty(N, dtype=torch.bool, device=dev)
     if N > 0:
-        lib = _load()
+        lib = _load(dev)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             rc = lib.blasr_banded_traceback(
@@ -363,7 +403,7 @@ def chain_scan_launch(q, t, l, valid, nlogp, read_len, *, n_cand: int,
         row_bytes = -(-A * CHAIN_SMEM_PER_ANCHOR // 16) * 16
         scratch = torch.empty(B * row_bytes, dtype=torch.uint8, device=dev)
     if B > 0:
-        lib = _load()
+        lib = _load(dev)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             rc = lib.blasr_chain_scan(
@@ -411,7 +451,7 @@ def sdp_window_launch(rkeys, rvalid, windows, wlens, offs, *, k: int, occ: int,
     diag = torch.empty((N, L, occ), dtype=torch.int64, device=dev)
     valid = torch.empty((N, L, occ), dtype=torch.bool, device=dev)
     if N > 0 and L > 0:
-        lib = _load()
+        lib = _load(dev)
         if lib.blasr_sdp_window_smem(L, D, k) > SMEM_OPTIN:
             raise ValueError(f"K4 stages a tile's D = {D} slab keys past its "
                              "query positions in shared memory: D is too "
@@ -517,7 +557,9 @@ def anchor_search_launch(genome, keys_sorted, pos_sorted, reads, read_len, *,
             return max(min(int(x), 1 << 30), -(1 << 30))
 
         if lib is None:
-            lib = _load()
+            lib = _load(dev)
+        else:
+            set_up(lib, dev)
         big = (1 << 63) - 1
         meta = scratch.data_ptr()
         args = (reads.data_ptr(), read_len.data_ptr(), genome.data_ptr(),
@@ -580,7 +622,9 @@ def band_offsets_launch(mq, mt, ws, *, L: int, W: int, w_b: int,
             # another build (--compare) may keep its rows there at any L
             scratch = torch.empty((N, 2, L), dtype=torch.int32, device=dev)
         if lib is None:
-            lib = _load()
+            lib = _load(dev)
+        else:
+            set_up(lib, dev)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             rc = lib.blasr_band_offsets(
@@ -623,7 +667,7 @@ def chain_members_launch(q, t, l, parent, end_idx, *, max_chain: int):
     mvalid = torch.empty((B, C, M), dtype=torch.bool, device=dev)
     if B * C == 0:
         return mq, mt, ml, mvalid
-    lib = _load()
+    lib = _load(dev)
     limit = lib.blasr_chain_members_max_smem()
     warps = min(C, 4)
     while warps > 1 and lib.blasr_chain_members_smem(A, M, warps, 0) > limit:

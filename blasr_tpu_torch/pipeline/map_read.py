@@ -30,6 +30,7 @@ from blasr_tpu_torch.kernels.dispatch import on_device
 from blasr_tpu_torch.kernels.pallas_banded import (SLOPE_ERROR,
                                                    banded_align_cuda,
                                                    slope_fault)
+from blasr_tpu_torch.pipeline import graphs
 
 BIG32 = 0x3FFFFFFF
 MASK32 = 0xFFFFFFFF
@@ -59,7 +60,10 @@ def _packed_words(gsent: torch.Tensor):
 
 
 class DeviceIndex(NamedTuple):
-    """Genome index resident on one device."""
+    """Genome index resident on one device.  ``genome_pad`` is the genome
+    followed by N codes, enough for the widest window of any bucket, so
+    map_batch gathers its windows from it without padding the genome on
+    every dispatch; from_host makes ``genome`` a view of its head."""
 
     genome: torch.Tensor         # int8 [G] (one sentinel N prepended)
     keys_sorted: torch.Tensor    # int64 [M] (uint32 k-mer keys)
@@ -75,9 +79,22 @@ class DeviceIndex(NamedTuple):
     # (t, genome[t-1], gwords[t+k], gnwords[t+k], gwords[t+k+16],
     # gnwords[t+k+16]) — one contiguous 24-byte row per slot
     pos_records: Optional[torch.Tensor] = None
+    genome_pad: Optional[torch.Tensor] = None  # int8 [G + pad], pad N codes
 
     RECORDS_MAX_SLOTS = 1 << 26
     RECORDS_PAD = 1024
+    # the widest window of the default buckets (ShapeConfig.window_len)
+    GENOME_PAD = ShapeConfig().window_len(ShapeConfig().buckets[-1])
+
+    def with_pad(self, pad: int) -> "DeviceIndex":
+        """This index with ``genome_pad`` holding at least ``pad`` N codes
+        past the genome (``genome`` its head)."""
+        G = self.genome.shape[0]
+        if self.genome_pad is not None and self.genome_pad.shape[0] >= G + pad:
+            return self
+        gp = torch.cat([self.genome, torch.full(
+            (pad,), 4, dtype=self.genome.dtype, device=self.genome.device)])
+        return self._replace(genome=gp[:G], genome_pad=gp)
 
     @staticmethod
     def _build_records(genome, pos_sorted, gw, gn, k: int):
@@ -99,11 +116,15 @@ class DeviceIndex(NamedTuple):
     def from_host(gi: GenomeIndex, device) -> "DeviceIndex":
         """Upload a host :class:`GenomeIndex` (the same one the JAX package
         takes) and derive the packed words and records on ``device``.
-        Bit-identical to the JAX ``DeviceIndex.from_host`` arrays."""
+        Bit-identical to the JAX ``DeviceIndex.from_host`` arrays, and
+        ``genome_pad`` the genome with :data:`GENOME_PAD` N codes after
+        it."""
         device = torch.device(device)
-        sentinel = np.full(1, 4, dtype=gi.genome.dtype)
-        gsent = np.concatenate([sentinel, gi.genome]).astype(np.int8)
-        genome_d = torch.from_numpy(gsent).to(device)
+        G = gi.genome.shape[0] + 1
+        gpad = np.full(G + DeviceIndex.GENOME_PAD, 4, dtype=np.int8)
+        gpad[1:G] = gi.genome
+        gpad_d = torch.from_numpy(gpad).to(device)
+        genome_d = gpad_d[:G]
         starts = np.asarray(gi.seqdb.starts, dtype=np.int64)
         ends = starts + np.asarray(gi.seqdb.lengths, dtype=np.int64)
         contig_s = torch.from_numpy(starts + 1).to(device)
@@ -127,7 +148,7 @@ class DeviceIndex(NamedTuple):
             genome=genome_d, keys_sorted=keys_d, pos_sorted=pos_d,
             contig_starts=contig_s, contig_ends=contig_e, k=gi.k,
             bucket_starts=bs_d, bucket_pairs=bp_d, gwords=gw_d,
-            gnwords=gn_d, pos_records=rec_d)
+            gnwords=gn_d, pos_records=rec_d, genome_pad=gpad_d)
 
 
 def device_index_from_jax_arrays(arrs: dict, device) -> DeviceIndex:
@@ -157,7 +178,8 @@ def device_index_from_jax_arrays(arrs: dict, device) -> DeviceIndex:
         bucket_starts=t("bucket_starts", "int32"),
         bucket_pairs=t("bucket_pairs", "int32"),
         gwords=t("gwords", "u32"), gnwords=t("gnwords", "u32"),
-        pos_records=t("pos_records", "bits"))
+        pos_records=t("pos_records", "bits")).with_pad(
+            DeviceIndex.GENOME_PAD)
 
 
 # column indices of PackedBatch.ints
@@ -172,7 +194,11 @@ class PackedBatch(NamedTuple):
     one more word at the end of ``flat``: K1's slope fault, nonzero when
     some active row advanced the band by other than 0, 1 or 2).
     :func:`start_fetch` adds the host copy of ``flat`` and the event that
-    marks its end."""
+    marks its end.  A batch from a graph replay (``pipeline/graphs.py``)
+    holds the graph's own device tensors: ``ints``, ``ops``, ``clusters``
+    and ``flat`` are valid until the next replay on the same index (its
+    graphs share one pool), so a caller reads them through ``host``
+    (:func:`unpack_batch` reads only ``host`` and the shapes)."""
 
     ints: torch.Tensor      # int32 [2B, C, N_COLS] columns per COL_*
     ops: torch.Tensor       # int32 [N_tb, P/2] RL traceback pairs
@@ -368,7 +394,10 @@ class StageTimer:
     map_batch records an event at each stage boundary on the current
     stream; :meth:`totals` synchronizes once and sums the milliseconds
     between consecutive marks per stage name.  Without a timer the marks
-    cost one ``None`` check."""
+    cost one ``None`` check.  A graph replay (``pipeline/graphs.py``)
+    has its marks from the capture, as event nodes of the graph: it waits
+    for them and adds its spans (:meth:`add`), so a timed pass of graphs
+    waits once per dispatch and measures device time only."""
 
     active: Optional["StageTimer"] = None
     STAGES = ("anchors", "chain", "guide_sdp", "banded_dp", "traceback",
@@ -376,6 +405,7 @@ class StageTimer:
 
     def __init__(self):
         self.marks: List[tuple] = []
+        self.replayed: Dict[str, float] = {}   # graph replays' spans
 
     def __enter__(self):
         StageTimer.active = self
@@ -384,23 +414,40 @@ class StageTimer:
     def __exit__(self, *exc):
         StageTimer.active = None
 
-    def totals(self) -> Dict[str, float]:
-        torch.cuda.synchronize()
-        out = {k: 0.0 for k in self.STAGES}
+    def record(self, name: str) -> None:
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        self.marks.append((name, ev))
+
+    def add(self, spans: Dict[str, float]) -> None:
+        for k, ms in spans.items():
+            self.replayed[k] = self.replayed.get(k, 0.0) + ms
+
+    @staticmethod
+    def spans(marks) -> Dict[str, float]:
+        """Milliseconds between consecutive (name, event) marks, by the
+        later mark's name (a "start" mark opens a pass)."""
+        out: Dict[str, float] = {}
         prev = None
-        for name, ev in self.marks:
+        for name, ev in marks:
             if name != "start" and prev is not None:
                 out[name] = out.get(name, 0.0) + prev.elapsed_time(ev)
             prev = ev
+        return out
+
+    def totals(self) -> Dict[str, float]:
+        torch.cuda.synchronize()
+        out = {k: 0.0 for k in self.STAGES}
+        for spans in (self.spans(self.marks), self.replayed):
+            for k, ms in spans.items():
+                out[k] = out.get(k, 0.0) + ms
         return out
 
 
 def _mark(name: str, dev: torch.device) -> None:
     t = StageTimer.active
     if t is not None and dev.type == "cuda":
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        t.marks.append((name, ev))
+        t.record(name)
 
 
 def _saturate_i32(x: torch.Tensor) -> torch.Tensor:
@@ -551,9 +598,10 @@ def map_batch(index: DeviceIndex, reads, read_len, submat, gap_costs,
                      max=torch.maximum(c_hi - W, c_lo - 1))
     ws = torch.clamp(ws, min=0)
 
-    gpad = torch.cat([index.genome,
-                      torch.full((W,), 4, dtype=index.genome.dtype,
-                                 device=dev)])
+    gpad = index.genome_pad
+    if gpad is None or gpad.shape[0] < G + W:
+        raise ValueError(f"the index's genome_pad holds fewer than W = {W} "
+                         "codes past the genome (DeviceIndex.with_pad)")
     wstart = ws.clamp(0, G)      # lax.dynamic_slice clamps its start
     windows = gpad[wstart[:, None]
                    + torch.arange(W, device=dev)[None, :]]   # [N_dp, W]
@@ -982,6 +1030,8 @@ class Mapper:
                 "blasr_tpu_torch (K1 takes band 128)")
         self.dev = (dev if dev is not None
                     else DeviceIndex.from_host(gi, self.device))
+        # map_batch gathers every bucket's windows from the padded genome
+        self.dev = self.dev.with_pad(self.cfg.window_len(self.cfg.buckets[-1]))
         m = np.asarray(self.params.score_matrix, dtype=np.float32).reshape(25)
         # the host matrix: K1 takes it by value, so a batch reads no
         # device copy of it
@@ -1158,11 +1208,33 @@ class Mapper:
 
     def warmup(self, buckets: Optional[Sequence[int]] = None,
                n_threads: int = 0) -> None:
-        """Build (or load) the CUDA kernels before the first batch; the
-        plain PyTorch path needs no warmup."""
-        if self.device.type == "cuda":
-            from blasr_tpu_torch.kernels import cuda_ops
-            cuda_ops._load()
+        """Build (or load) the CUDA kernels, set their attributes, and
+        capture the first-pass graph of each given bucket (default: every
+        configured bucket) as the JAX warmup compiles it, unless it is
+        cached already or the caller is inside ``graphs.eager_dispatch()``.
+        The plain PyTorch path needs no warmup."""
+        if self.device.type != "cuda":
+            return
+        from blasr_tpu_torch.kernels import cuda_ops
+        cuda_ops._load(self.device)
+        if graphs._eager:
+            return
+        cached = graphs.cache_for(self.dev).graphs
+        for L in (self.cfg.buckets if buckets is None else buckets):
+            batch = self.batch_size_for(L)
+            pos, kw = self._batch_call_args(L)
+            if graphs.graph_key(self.dev, batch, pos, kw) in cached:
+                continue
+            # N reads: the shapes are what a graph holds
+            reads = torch.full((batch, L), 4, dtype=torch.int8,
+                               device=self.device)
+            lens = torch.zeros(batch, dtype=torch.int32, device=self.device)
+            qv = None
+            if self.use_qv:
+                qv = tuple(torch.zeros((batch, L), dtype=torch.int32,
+                                       device=self.device) for _ in range(2))
+            graphs.prepare(self.dev, reads, lens, pos, kw, qv,
+                           self.qv_rescore)
 
     def _run_bucket(self, recs: Sequence[FastaRecord], bucket: int,
                     batch: int) -> List[List[Alignment]]:
@@ -1174,12 +1246,10 @@ class Mapper:
         cuda = self.device.type == "cuda"
 
         def dispatch(arr, lens, tb_cap=0, qv=None):
+            # on CUDA a replay of the key's graph (graphs.dispatch)
             pos, kw = self._batch_call_args(L, tb_cap)
-            if self.use_qv:
-                q1, q2 = qv
-                return map_batch(self.dev, arr, lens, *pos, qv1=q1, qv2=q2,
-                                 qv_rescore=self.qv_rescore, **kw)
-            return map_batch(self.dev, arr, lens, *pos, **kw)
+            return graphs.dispatch(self.dev, arr, lens, pos, kw, qv,
+                                   self.qv_rescore)
 
         def upload(a: np.ndarray) -> torch.Tensor:
             # pinned on CUDA, so the copy neither waits nor stages
@@ -1227,6 +1297,10 @@ class Mapper:
                 "cells", int((res.q_end - res.q_start)[res.valid].sum())
                 * cfg.band_width)
 
+        # on CUDA every dispatch of a key replays one graph: the stream
+        # runs each dispatch's input copies, replay and start_fetch copy in
+        # order, so no later replay on the index (its graphs share one
+        # pool) overwrites a flat before that flat's copy has read it
         LOOKAHEAD = 4
         bases = list(range(0, len(recs), batch))
         staged = {i: stage(b) for i, b in enumerate(bases[:LOOKAHEAD])}

@@ -60,7 +60,9 @@ Phases (any failed check exits nonzero):
      int64 and int32, its call timed as K3's;
   3. the golden worlds of tests/test_golden.py through the port's CLI with
      ``--device cuda``, byte for byte against tests/golden/, each group
-     launching K1 (or K1-QV, K1-HP) and K2-K6: the main path (small: 60 kb, 12
+     launching K1 (or K1-QV, K1-HP) and K2-K6 and every batch a replay of
+     its key's CUDA graph (pipeline/graphs.py) but the eager warm-up pass
+     before each capture: the main path (small: 60 kb, 12
      reads; big: 4.6 Mbp, 11 reads; golden.{m4,sam,m4.big,sam.big}, and
      on the big world --fastMaxInterval, the chain scan with lookback 64,
      and --aggressiveIntervalCut: golden.{m4.fastmax,m4.aggressive}); the
@@ -86,9 +88,10 @@ Phases (any failed check exits nonzero):
      rescue Mapper and occ_block_sample (K5's block mode); then two simulated
      reads of ~40 kb on a 1 Mbp genome (bucket 65536) and one of ~100 kb
      (map_long_reads: two segments at bucket 65536, stitched) mapped on
-     the card, each on its simulated interval and strand, every K2, K4,
-     K5 and K6 launch of that run captured and held to the plain version
-     (L = 65536); and
+     the card, each on its simulated interval and strand, dispatched
+     eagerly (graphs.eager_dispatch()) with every K2, K4, K5 and K6
+     launch of that run captured and held to the plain version
+     (L = 65536), then through graphs with the same alignments; and
      tests/test_longread.py's ~20 kb CLR read at buckets (1024, 2048),
      held to its bounds and to the same read mapped on ``cpu``; then the
      pairwise tools: sdpMatcher on the card and with --device cpu, stdout
@@ -103,27 +106,34 @@ Phases (any failed check exits nonzero):
   4. the bench.py workload (4.6 Mbp genome, k=12, 512 CLR reads of
      0.5-2 kb at 85% accuracy), once in distance mode, once under
      ``--useQuality`` with per-base qualities 8-39 and once with
-     ``--affineAlign`` (K1-HP): reads/s, launches per read, per-stage
-     device times, and the share of reads placed on their simulated
-     interval (>= 95%).  Launch counts are zeroed just before each of the
-     three runs and read just after it: K3 and K6 launch twice per batch
-     dispatch (candidate and guide passes; band offsets before and after
-     the SDP pass), K4, K5 and K7 once, and chain_members never runs as
-     plain torch; then reads/s of the distance pass under PR 9's serial
-     _run_bucket and this tree's lookahead of four, in turns (A B B A);
-  5. torch.profiler over one more pass in each mode: the host waits
-     (stream and device synchronisations, blocking copies, tensors read
-     as Python values) inside each map_batch, which must be none;
-     launches per read, the device's busy share, the kernels with the
-     most device time, each hand-written kernel's device ms per call;
-     over one
+     ``--affineAlign`` (K1-HP), each after a warm pass that captures its
+     graphs (each capture's ms and pool bytes printed): reads/s, launches
+     per read, per-stage device times (one more pass, the stage marks
+     event nodes of the graphs), and the share of reads placed on their
+     simulated interval (>= 95%).  Launch and dispatch counts
+     (graphs.DISPATCHES) are zeroed just before each of the three runs
+     and read just after it: every dispatch a replay, K3 and K6 launch
+     twice per batch dispatch (candidate and guide passes; band offsets
+     before and after the SDP pass), K4, K5 and K7 once, and
+     chain_members never runs as plain torch; then reads/s of the
+     distance pass under the serial _run_bucket (run_bucket_serial) and
+     the lookahead of four, both dispatched eagerly, in turns (A B B A), and of eager
+     dispatch against graph replays, both with the lookahead, in five
+     rounds of A B B A (every pass, medians and spreads);
+  5. torch.profiler over one more pass in each mode through graphs, and
+     over a distance pass dispatched eagerly: the host waits (stream and
+     device synchronisations, blocking copies, tensors read as Python
+     values) inside each dispatch, which must be none; the host's launch
+     calls (kernel and graph launches, copies, fills) per read and per
+     dispatch, kernels per read, the device's busy share, the kernels
+     with the most device time, each hand-written kernel's device ms per
+     call; over one
      bench-shape call of K4's function, which must be one kernel (in a
      child process, ``--k4-kernels``, with a profiler session of its
      own); then
      rule 2's measure for K1-K7: launches per pass pair x (kernel ms -
      bound ms), with the kernel's ms as phase 2 times the call and as its
-     device time alone (K5, K6: phase 2's profiled calls; K1-K4: phase 5's
-     passes, per launch).
+     device time inside the graphs of phase 5's passes, per launch.
 The second-to-last lines are a JSON kernel table and the card's name and
 power limit; the last line is ``{"ok": true, "device": {...}}``.
 Exits nonzero without a result when no CUDA device is present or when
@@ -711,7 +721,11 @@ def build_source(kernel: str, src: str):
     subprocess.run([cuda_ops._nvcc(), *cuda_ops.NVCC_FLAGS, "-shared",
                     "-I", str(cuda_ops.SRC_DIR), "-o", str(so), src],
                    check=True, capture_output=True)
-    return ctypes.CDLL(str(so)), data
+    lib = ctypes.CDLL(str(so))
+    # its kernels' attributes, by its blasr_<source>_setup (an older
+    # source sets them at its launches)
+    cuda_ops.set_up(lib)
+    return lib, data
 
 
 def in_turns(card, what: str, sources, run, reps: int, mode="warm"):
@@ -1156,12 +1170,15 @@ def check_equal(out, ref, fields, name: str) -> float:
 
 def capture_calls(module, name: str, calls: list):
     """Wrap ``module.name`` so that each call appends (args, kwargs,
-    result) to ``calls``; returns the function to restore."""
+    result) to ``calls``; returns the function to restore.  A call made
+    while a CUDA graph is captured is not recorded: its tensors are the
+    graph's, which its replays overwrite."""
     inner = getattr(module, name)
 
     def wrapper(*a, **kw):
         out = inner(*a, **kw)
-        calls.append((a, kw, out))
+        if not torch.cuda.is_current_stream_capturing():
+            calls.append((a, kw, out))
         return out
 
     setattr(module, name, wrapper)
@@ -1353,6 +1370,7 @@ def band_calls(bb) -> list:
 PROFILE_KERNELS = {
     "banded_dp": (("banded_dp_kernel<false, false, false>",), ()),
     "banded_dp_qv": (("banded_dp_kernel<true, false, false>",), ()),
+    "banded_dp_hp": (("banded_dp_kernel<false, true, false>",), ()),
     "banded_traceback": (("banded_traceback_kernel",), ()),
     "chain_scan": (("chain_scan_kernel<false>", "chain_scan_kernel<true>"),
                    ()),
@@ -1995,10 +2013,21 @@ PATH_KERNELS = ("banded_traceback", "chain_scan", "sdp_window",
                 "anchor_search", "band_offsets", "chain_members")
 
 
+def check_replays(calls: dict, what: str) -> None:
+    """Every map_batch pass of a run (``graphs.DISPATCHES``) was a graph
+    replay, but for the eager warm-up pass before each capture."""
+    passes = calls["batches"] + calls["dense_reruns"]
+    assert calls["replays"] > 0 and \
+        passes == calls["replays"] + calls["captures"], \
+        f"{what}: not every dispatch was a graph replay: {calls}"
+
+
 def phase_goldens(d, cuda_ops):
     """Every golden whose world needs no h5py through the port's CLI on the
-    card, in groups by path, each launching its kernels; returns the
+    card, in groups by path, each launching its kernels and every batch a
+    graph replay (but each capture's warm-up pass); returns the
     worlds."""
+    from blasr_tpu_torch.pipeline import graphs
     small = make_small(d)
     worlds = {"small": small, "big": make_big(d), "fastq": make_fastq(d),
               "hpstr": make_hpstr(d), "small_bwt": make_small_bwt(d, small),
@@ -2069,6 +2098,7 @@ def phase_goldens(d, cuda_ops):
                                 ["-m", "4", "--affineAlign"])],
              PATH_KERNELS + ("banded_dp_hp",), "banded_dp")):
         cuda_ops.reset_launch_counts()
+        graphs.reset_counts()
         if label == "concordant":
             with mini_index_clocks() as clocks:
                 n_ok = run_goldens(d, cases, worlds)
@@ -2076,9 +2106,11 @@ def phase_goldens(d, cuda_ops):
         else:
             n_ok = run_goldens(d, cases, worlds)
         launches = dict(cuda_ops.LAUNCHES)
+        calls = dict(graphs.DISPATCHES)
         log(f"# goldens ({label}) identical: {n_ok}/{len(cases)}; "
-            f"launches {launches}")
+            f"launches {launches}; dispatches {calls}")
         assert n_ok == len(cases), f"golden outputs differ ({label})"
+        check_replays(calls, f"goldens ({label})")
         assert all(launches[k] > 0 for k in needed), \
             f"kernels not launched ({label}): {launches}"
         assert launches[unused] == 0, f"the {label} path launched {unused}"
@@ -2698,11 +2730,13 @@ def phase_long_reads(card, cuda_ops):
     takes map_long_reads (two segments at bucket 65536, stitched): each
     read's best alignment lies on its simulated interval and strand.
     Every banded_traceback, window_fragment_diags_banded, find_anchors and
-    _band_offsets call of the run is captured, and its kernel's result
+    _band_offsets call of the run, dispatched eagerly
+    (``graphs.eager_dispatch()``), is captured, and its kernel's result
     held to the plain version on the same CUDA tensors (K6's rows in its
-    global scratch there)."""
+    global scratch there); then the same reads through graphs, each
+    dispatch a replay, give the eager run's alignments."""
     from blasr_tpu_torch.kernels.anchor import Anchors, find_anchors_plain
-    from blasr_tpu_torch.pipeline import map_read
+    from blasr_tpu_torch.pipeline import graphs, map_read
     t0 = time.time()
     sims, mapper = long_read_world()
     long_sim = hundred_kb_read()
@@ -2718,14 +2752,15 @@ def phase_long_reads(card, cuda_ops):
     k6_inner = capture_calls(map_read, "_band_offsets", k6_calls)
     try:
         cuda_ops.reset_launch_counts()
-        t0 = time.time()
-        per_read = mapper.map_reads([s.rec for s in sims])
-        torch.cuda.synchronize()
-        wall = time.time() - t0
-        t0 = time.time()
-        long_alns = mapper.map_reads([long_sim.rec])[0]
-        torch.cuda.synchronize()
-        long_wall = time.time() - t0
+        with graphs.eager_dispatch():
+            t0 = time.time()
+            per_read = mapper.map_reads([s.rec for s in sims])
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            t0 = time.time()
+            long_alns = mapper.map_reads([long_sim.rec])[0]
+            torch.cuda.synchronize()
+            long_wall = time.time() - t0
         launches = dict(cuda_ops.LAUNCHES)
     finally:
         map_read.banded_traceback = k2_inner
@@ -2811,9 +2846,22 @@ def phase_long_reads(card, cuda_ops):
         check_placed(s, alns, "long read")
     check_placed(long_sim, long_alns, "~100 kb read (map_long_reads)")
     log(f"# long reads placed 2/2 in {wall:.1f}s and the ~100 kb read in "
-        f"{long_wall:.1f}s on {card}; launches {launches}")
+        f"{long_wall:.1f}s on {card} (eager dispatch); launches {launches}")
     assert all(launches[k] > 0 for k in PATH_KERNELS + ("banded_dp",)), \
         f"kernels not launched (long reads): {launches}"
+    graphs.reset_counts()
+    t0 = time.time()
+    got = (mapper_fields(mapper.map_reads([s.rec for s in sims]))
+           + mapper_fields([mapper.map_reads([long_sim.rec])[0]]))
+    torch.cuda.synchronize()
+    calls = dict(graphs.DISPATCHES)
+    log(f"# long reads through graphs in {time.time() - t0:.1f}s: "
+        f"dispatches {calls}, captures "
+        + json.dumps([{k: (round(v, 1) if isinstance(v, float) else v)
+                       for k, v in c.items()} for c in graphs.CAPTURES]))
+    assert got == mapper_fields(per_read) + mapper_fields([long_alns]), \
+        "the long reads' graph replays differ from eager dispatch"
+    check_replays(calls, "long reads")
 
 
 def phase_clr_read(cuda_ops):
@@ -2895,12 +2943,28 @@ def bench_inputs(sims, mode: str):
     return recs, MappingParams(ignore_qualities=False).make_sane()
 
 
+def log_captures(card, what: str) -> None:
+    """Each graph captured since ``graphs.reset_counts()``: its key's L,
+    batch and tb_cap, the capture's ms and the bytes the index's pool grew
+    by (``torch.cuda.memory_reserved`` before and after)."""
+    from blasr_tpu_torch.pipeline import graphs
+    for c in graphs.CAPTURES:
+        log(f"# capture ({what}): L={c['L']} batch={c['batch']} "
+            f"tb_cap={c['tb_cap']} qv={int(c['use_qv'])} "
+            f"hp={int(c['use_hp'])}: {c['ms']:.2f} ms, pool "
+            f"+{c['pool_bytes'] / 2**20:.1f} MiB on {card}")
+
+
 def phase_bench(card, cuda_ops, gi, sims, mode: str, dev=None):
-    """One bench pass in ``mode`` (BENCH_MODES; warm, then timed with
-    launch counts zeroed just before and read just after) on the device
-    index ``dev``; returns the launch counts."""
+    """One bench pass in ``mode`` (BENCH_MODES) on the device index ``dev``,
+    through graphs: a warm pass, which captures every key the pass
+    dispatches (each capture logged), then the timed pass with launch
+    counts and dispatches zeroed just before and read just after, every
+    dispatch a replay, then one more pass under StageTimer for the
+    per-stage device time (each replay waits for its marks there, so
+    reads/s comes from the timed pass); returns the launch counts."""
     from blasr_tpu_torch.params import ShapeConfig
-    from blasr_tpu_torch.pipeline import map_read
+    from blasr_tpu_torch.pipeline import graphs
     from blasr_tpu_torch.pipeline.map_read import Mapper, StageTimer
     from blasr_tpu_torch.pipeline.metrics import MappingMetrics
 
@@ -2917,33 +2981,29 @@ def phase_bench(card, cuda_ops, gi, sims, mode: str, dev=None):
     torch.cuda.synchronize()
     log(f"# phase 4 ({label}): mapper + device index {time.time()-t0:.1f}s")
 
+    graphs.reset_counts()
     t0 = time.time()
-    mapper.map_reads(recs)                      # warm: allocator, kernels
+    mapper.map_reads(recs)                      # warm: captures the graphs
     torch.cuda.synchronize()
-    log(f"# warm pass {time.time()-t0:.1f}s")
-
-    # count the batch dispatches: first passes, and dense reruns at
-    # tb_cap = T (an overflowed traceback that can reach the output)
-    calls = {"batches": 0, "dense_reruns": 0}
-    inner = map_read.map_batch
-
-    def counted(*a, **kw):
-        calls["dense_reruns" if kw.get("tb_cap") else "batches"] += 1
-        return inner(*a, **kw)
+    log(f"# warm pass {time.time()-t0:.1f}s: dispatches "
+        f"{json.dumps(graphs.DISPATCHES)}")
+    log_captures(card, label)
 
     mapper.metrics = MappingMetrics()
-    map_read.map_batch = counted
     cuda_ops.reset_launch_counts()
-    try:
-        with StageTimer() as st, no_plain_members():
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            per_read = mapper.map_reads(recs)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-    finally:
-        map_read.map_batch = inner
+    graphs.reset_counts()
+    with no_plain_members():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        per_read = mapper.map_reads(recs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     launches = dict(cuda_ops.LAUNCHES)
+    calls = dict(graphs.DISPATCHES)
+    clocks, counters = dict(mapper.metrics.clocks), dict(
+        mapper.metrics.counters)
+    with StageTimer() as st:
+        mapper.map_reads(recs)
     stages = st.totals()
     rps = len(recs) / wall
     placed = 0
@@ -2956,16 +3016,19 @@ def phase_bench(card, cuda_ops, gi, sims, mode: str, dev=None):
             placed += 1
     frac = placed / len(recs)
     log(f"# bench ({label}): {len(recs)} reads in {wall:.3f}s = {rps:.2f} "
-        f"reads/s on {card}; placed {placed}/{len(recs)} "
+        f"reads/s on {card} (graph replays); placed {placed}/{len(recs)} "
         f"({100 * frac:.1f}%)")
-    log(f"# per-stage device ms ({label}; CUDA events, summed over "
-        "batches): " + json.dumps({k: round(v, 3) for k, v in stages.items()}))
+    log(f"# per-stage device ms ({label}; graph replays, the stage marks "
+        "event nodes of each graph, summed over batches): "
+        + json.dumps({k: round(v, 3) for k, v in stages.items()}))
     log("# host clocks (s): " + json.dumps(
-        {k: round(v, 3) for k, v in mapper.metrics.clocks.items()})
-        + " counters: " + json.dumps(dict(mapper.metrics.counters)))
+        {k: round(v, 3) for k, v in clocks.items()})
+        + " counters: " + json.dumps(counters))
     log(f"# main-path launches ({label}): {launches}; dispatches "
         f"{json.dumps(calls)}")
     assert frac >= 0.95, f"only {100 * frac:.1f}% of reads placed ({label})"
+    check_replays(calls, f"bench ({label})")
+    assert calls["captures"] == 0, f"the timed pass captured: {calls}"
     assert launches[dp] > 0 and launches["banded_traceback"] > 0, \
         f"a kernel of the {label} path was not launched: {launches}"
     others = [k for k in launches if k.startswith("banded_dp") and k != dp]
@@ -3041,10 +3104,12 @@ def run_bucket_serial(self, recs, bucket: int, batch: int):
 
 def compare_lookahead(card, gi, sims, dev, rounds: int = 3):
     """Reads/s of the distance bench pass under PR 9's serial _run_bucket
-    (A) and this tree's lookahead of four (B), in turns A B B A, three
-    rounds, after a warm pass of each, on one Mapper; the alignments and
-    MappingMetrics counters of every pass held equal."""
+    (A) and the lookahead of four (B), both dispatched eagerly
+    (``graphs.eager_dispatch()``), in turns A B B A, three rounds, after a
+    warm pass of each, on one Mapper; the alignments and MappingMetrics
+    counters of every pass held equal."""
     from blasr_tpu_torch.params import ShapeConfig
+    from blasr_tpu_torch.pipeline import graphs
     from blasr_tpu_torch.pipeline.map_read import Mapper
     from blasr_tpu_torch.pipeline.metrics import MappingMetrics
     recs, params = bench_inputs(sims, "distance")
@@ -3057,10 +3122,11 @@ def compare_lookahead(card, gi, sims, dev, rounds: int = 3):
         try:
             mapper.metrics = MappingMetrics()
             torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            per_read = mapper.map_reads(recs)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
+            with graphs.eager_dispatch():
+                t0 = time.perf_counter()
+                per_read = mapper.map_reads(recs)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
         finally:
             Mapper._run_bucket = ahead
         return (len(recs) / wall, mapper_fields(per_read),
@@ -3073,89 +3139,162 @@ def compare_lookahead(card, gi, sims, dev, rounds: int = 3):
         "the lookahead changed the bench pass's alignments or counters"
     a = [r[0] for r, serial in zip(runs, order) if serial]
     b = [r[0] for r, serial in zip(runs, order) if not serial]
-    log(f"# bench (distance), reads/s in turns A B B A x {rounds}, A = PR "
-        f"9's serial _run_bucket, B = the lookahead: "
+    log(f"# bench (distance, eager dispatch), reads/s in turns A B B A x "
+        f"{rounds}, A = the serial _run_bucket, B = the lookahead: "
         + ", ".join(f"{'A' if serial else 'B'} {r[0]:.2f}"
                     for r, serial in zip(runs, order))
         + f"; mean A {sum(a) / len(a):.2f}, B {sum(b) / len(b):.2f} "
         f"(alignments and counters equal) on {card}")
 
 
+def compare_graphs(card, gi, sims, dev, rounds: int = 5):
+    """Reads/s of the distance bench pass dispatched eagerly (A, inside
+    ``graphs.eager_dispatch()``) and as graph replays (B), both with the
+    lookahead of four, in turns A B B A, ``rounds`` rounds, after a warm
+    pass of each (B's captures its graphs), on one Mapper: every pass
+    printed, the alignments and MappingMetrics counters of every pass held
+    equal, each arm's median and spread (max - min)."""
+    import statistics
+    from blasr_tpu_torch.params import ShapeConfig
+    from blasr_tpu_torch.pipeline import graphs
+    from blasr_tpu_torch.pipeline.map_read import Mapper
+    from blasr_tpu_torch.pipeline.metrics import MappingMetrics
+    recs, params = bench_inputs(sims, "distance")
+    cfg = ShapeConfig(buckets=(1024, 2048), batch_size=32, max_anchors=512)
+    mapper = Mapper(gi, params, cfg, device="cuda", dev=dev)
+
+    def one(eager: bool):
+        mapper.metrics = MappingMetrics()
+        torch.cuda.synchronize()
+        with (graphs.eager_dispatch() if eager
+              else contextlib.nullcontext()):
+            t0 = time.perf_counter()
+            per_read = mapper.map_reads(recs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        clocks = mapper.metrics.clocks
+        return (len(recs) / wall, mapper_fields(per_read),
+                dict(mapper.metrics.counters),
+                (clocks.get("mapToGenome", 0.0),
+                 clocks.get("collectAlignments", 0.0)))
+
+    one(True), one(False)
+    order = (True, False, False, True) * rounds
+    graphs.reset_counts()
+    runs = [one(eager) for eager in order]
+    assert all(r[1:3] == runs[0][1:3] for r in runs), \
+        "graph replays changed the bench pass's alignments or counters"
+    assert graphs.DISPATCHES["captures"] == 0, graphs.DISPATCHES
+    arms = {}
+    for name, eager in (("A", True), ("B", False)):
+        rps = [r[0] for r, e in zip(runs, order) if e == eager]
+        arms[name] = dict(
+            median=statistics.median(rps), spread=max(rps) - min(rps),
+            clocks=[statistics.median(r[3][i] for r, e in zip(runs, order)
+                                      if e == eager) for i in range(2)])
+    log(f"# bench (distance), reads/s in turns A B B A x {rounds}, A = "
+        f"eager dispatch, B = graph replays, both with the lookahead: "
+        + ", ".join(f"{'A' if e else 'B'} {r[0]:.2f}"
+                    for r, e in zip(runs, order))
+        + "; " + "; ".join(
+            f"{n}: median {v['median']:.2f}, spread {v['spread']:.2f}, "
+            f"median mapToGenome {v['clocks'][0]:.4f} s, collectAlignments "
+            f"{v['clocks'][1]:.4f} s" for n, v in arms.items())
+        + f" (alignments and counters equal) on {card}")
+
+
 # the CUDA runtime calls that make the host wait on the device
 SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
               "cudaEventSynchronize", "cudaMemcpy", "cudaMemcpy2D",
               "aten::_local_scalar_dense")
+# the runtime calls that put work on a stream: kernel and graph launches,
+# copies and fills
+LAUNCH_API = ("cudaLaunch", "cuLaunch", "cudaGraphLaunch", "cudaMemcpy",
+              "cudaMemset")
 
 
-def syncs_in_map_batch(prof) -> tuple:
-    """(map_batch calls, host waits inside them, runtime calls inside
-    them) in a profiled pass whose map_batch calls are marked by
-    ``torch.profiler.record_function("map_batch")``: the waits are the
+def syncs_in_dispatch(prof) -> tuple:
+    """(dispatches, host waits inside them, runtime calls inside them,
+    launch calls inside them, launch calls in the whole pass) in a
+    profiled pass whose dispatches are marked by
+    ``torch.profiler.record_function("dispatch")``: the waits are the
     SYNC_CALLS (aten::_local_scalar_dense is a tensor read as a Python
-    value)."""
+    value), the launch calls the LAUNCH_API ones."""
     evs = [e for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CPU]
     spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in evs if e.name == "map_batch")
-    waits, calls = {}, 0
+                   for e in evs if e.name == "dispatch")
+    waits, calls, launch_in, launch_all = {}, 0, 0, 0
     for e in evs:
+        launch = e.name.startswith(LAUNCH_API)
+        launch_all += launch
         t = e.time_range.start
         if not any(a <= t <= b for a, b in spans):
             continue
-        if e.name.startswith("cuda"):
+        if e.name.startswith("cu"):
             calls += 1
+        launch_in += launch
         if e.name in SYNC_CALLS:
             waits[e.name] = waits.get(e.name, 0) + 1
-    return len(spans), waits, calls
+    return len(spans), waits, calls, launch_in, launch_all
 
 
-def phase_profile(card, gi, sims, dev, mode: str = "distance"):
-    """torch.profiler over one more bench pass (after a short warm pass):
-    kernel launches per read, device time against the traced wall (the
-    device's busy share) and the kernels that take the most device time.
-    Measurement only: no check depends on it."""
+def phase_profile(card, gi, sims, dev, mode: str = "distance",
+                  eager: bool = False):
+    """torch.profiler over one more bench pass (after a short warm pass),
+    through graphs or, with ``eager``, dispatched eagerly: the host's
+    launch calls per read and per dispatch, kernels per read, device time
+    against the traced wall (the device's busy share), host waits inside
+    a dispatch (must be none), the kernels that take the most device time
+    and each hand-written kernel's device ms per call."""
     from torch.profiler import ProfilerActivity, profile, record_function
     from blasr_tpu_torch.params import ShapeConfig
-    from blasr_tpu_torch.pipeline import map_read
+    from blasr_tpu_torch.pipeline import graphs
     from blasr_tpu_torch.pipeline.map_read import Mapper
-    label = BENCH_MODES[mode][0]
+    label = BENCH_MODES[mode][0] + (", eager dispatch" if eager
+                                    else ", graph replays")
     cfg = ShapeConfig(buckets=(1024, 2048), batch_size=32, max_anchors=512)
     recs, params = bench_inputs(sims, mode)
     mapper = Mapper(gi, params, cfg, device="cuda", dev=dev)
-    mapper.map_reads(recs[:64])
-    torch.cuda.synchronize()
-    inner = map_read.map_batch
+    arm = graphs.eager_dispatch() if eager else contextlib.nullcontext()
+    inner = graphs.dispatch
 
     def marked(*a, **kw):
-        with record_function("map_batch"):
+        with record_function("dispatch"):
             return inner(*a, **kw)
 
-    map_read.map_batch = marked
-    try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            mapper.map_reads(recs)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-    finally:
-        map_read.map_batch = inner
-    n_mb, waits, calls = syncs_in_map_batch(prof)
+    with arm:
+        mapper.map_reads(recs[:64])
+        torch.cuda.synchronize()
+        graphs.dispatch = marked
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                mapper.map_reads(recs)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        finally:
+            graphs.dispatch = inner
+    n_d, waits, calls, launch_in, launch_all = syncs_in_dispatch(prof)
     blocking = sum(waits.values())
-    log(f"# profile ({label}): {n_mb} map_batch calls, {calls} CUDA "
-        f"runtime calls inside them, host waits inside them {waits}: "
+    log(f"# profile ({label}): {n_d} dispatches, {calls} CUDA runtime "
+        f"calls inside them, host waits inside them {waits}: "
         + ("not measured (no runtime calls recorded)" if not calls else
-           f"{blocking / max(n_mb, 1):.2f} per map_batch") + f" on {card}")
+           f"{blocking / max(n_d, 1):.2f} per dispatch") + f"; launch API "
+        f"calls ({'+'.join(LAUNCH_API)}) {launch_all / len(recs):.2f} per "
+        f"read in the pass, {launch_in / max(n_d, 1):.2f} per dispatch "
+        f"inside it on {card}")
     assert not calls or blocking == 0, \
-        f"map_batch waited on the device: {waits}"
-    # (the map_batch marks appear on the device's timeline too: not work)
+        f"a dispatch waited on the device: {waits}"
+    # (the dispatch marks appear on the device's timeline too: not work)
     dev_events = [e for e in prof.events()
                   if e.device_type == torch.autograd.DeviceType.CUDA
-                  and e.name != "map_batch"]
+                  and e.name != "dispatch"]
     if not dev_events:
         log(f"# profile ({label}): torch.profiler recorded no device "
             "events; device busy share not measured")
-        return {}
+        return {}, {}
     by_name = {}
     for e in dev_events:
         n, us = by_name.get(e.name, (0, 0.0))
@@ -3164,7 +3303,7 @@ def phase_profile(card, gi, sims, dev, mode: str = "distance"):
     launches = sum(n for name, (n, _) in by_name.items()
                    if not name.startswith(("Memcpy", "Memset")))
     log(f"# profile ({label}, {len(recs)} reads, traced): {launches} kernel "
-        f"launches ({launches / len(recs):.1f} per read), {total_ms:.3f} ms "
+        f"launches ({launches / len(recs):.2f} per read), {total_ms:.3f} ms "
         f"of device time in a {1e3 * wall:.3f} ms pass: busy share "
         f"{total_ms / (1e3 * wall):.4f} on {card}")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
@@ -3188,7 +3327,7 @@ def phase_profile(card, gi, sims, dev, mode: str = "distance"):
             if is_kernel(n, sum(PROFILE_KERNELS["anchor_search"], ()))
             or is_kernel(n, PROFILE_KERNELS["band_offsets"][0]))
         + f" on {card}")
-    return per_call
+    return per_call, {name: n for name, (n, _) in by_name.items()}
 
 
 def main() -> int:
@@ -3275,10 +3414,20 @@ def main() -> int:
     qvl = phase_bench(card, cuda_ops, gi, sims, "qv", dev=dev)
     aff = phase_bench(card, cuda_ops, gi, sims, "affine", dev=dev)
     compare_lookahead(card, gi, sims, dev)
+    compare_graphs(card, gi, sims, dev)
     log(f"# phase 4 done in {time.time() - t0:.1f}s")
     t0 = time.time()
-    prof = {"distance": phase_profile(card, gi, sims, dev),
-            "qv": phase_profile(card, gi, sims, dev, "qv")}
+    # the passes through graphs give each kernel's in-graph device time
+    prof, counts = {}, {}
+    for mode in ("distance", "qv", "affine"):
+        prof[mode], counts[mode] = phase_profile(card, gi, sims, dev, mode)
+    _, eager_counts = phase_profile(card, gi, sims, dev, eager=True)
+    differ = {n: (eager_counts.get(n, 0), counts["distance"].get(n, 0))
+              for n in set(eager_counts) | set(counts["distance"])
+              if eager_counts.get(n, 0) != counts["distance"].get(n, 0)}
+    log("# device events whose count differs between the profiled distance "
+        "passes, eager | graph: " + ("none" if not differ else "; ".join(
+            f"{a} | {b} x {n[:110]}" for n, (a, b) in sorted(differ.items()))))
     check_k4_one_kernel()
     log(f"# phase 5 done in {time.time() - t0:.1f}s")
     assert "jax" not in sys.modules or sys.modules["jax"] is None
@@ -3315,23 +3464,21 @@ def main() -> int:
              "blasr_tpu/kernels/chain.py:325")]
     # rule 2's measure: launches per pass pair x (kernel ms - bound ms),
     # the kernel's ms as phase 2's events time the call and as its device
-    # time alone (K5, K6: phase 2's calls by torch.profiler; the others:
-    # the profiled passes of phase 5, per launch)
-    for name, _, _ in rows:
-        if "device_ms" not in kres[name]:
-            kres[name]["device_ms"] = prof[
-                "qv" if name == "banded_dp_qv" else "distance"].get(name)
+    # time inside the graphs of phase 5's passes (torch.profiler, per
+    # launch)
+    graph_ms = {name: prof[{"banded_dp_qv": "qv", "banded_dp_hp": "affine"}
+                           .get(name, "distance")].get(name)
+                for name, _, _ in rows}
     loss = {name: launches[name] * (kres[name]["ms"] - kres[name]["bound"][0])
             for name, _, _ in rows}
-    dloss = {name: (None if kres[name]["device_ms"] is None else
-                    launches[name]
-                    * (kres[name]["device_ms"] - kres[name]["bound"][0]))
+    dloss = {name: (None if graph_ms[name] is None else
+                    launches[name] * (graph_ms[name] - kres[name]["bound"][0]))
              for name, _, _ in rows}
     log("# rule 2, launches per pass pair x (kernel ms - bound ms), call "
-        "time | device time: " + ", ".join(
+        "time | in-graph device time (ms per launch): " + ", ".join(
             f"{name} {loss[name]:.3f} | " + (
                 "not measured" if dloss[name] is None
-                else f"{dloss[name]:.3f}")
+                else f"{dloss[name]:.3f} ({graph_ms[name]:.4f})")
             for name in sorted(loss, key=lambda k: -loss[k]))
         + f" on {card}")
     table = {"kernels": [

@@ -78,10 +78,12 @@ ALLOWED = {
     # (another band width raises on CUDA), the rescue Mapper on the same
     # device
     "Mapper.__init__",
-    # builds the CUDA kernels instead of compiling XLA executables
+    # builds the CUDA kernels and captures each bucket's CUDA graph
+    # (pipeline/graphs.py) instead of compiling XLA executables
     "Mapper.warmup",
     # torch tensors: pinned non-blocking uploads and start_fetch in place
-    # of device_put and copy_to_host_async (same lookahead of 4)
+    # of device_put and copy_to_host_async (same lookahead of 4), each
+    # batch through graphs.dispatch (a graph replay on CUDA)
     "Mapper._run_bucket",
     # type(self)(...) instead of Mapper(...) (sub-mappers stay on the port)
     "Mapper._expanded",

@@ -1,7 +1,9 @@
 """The hand-written CUDA kernels (K1 banded DP in its distance, QV, hp
 band and general-matrix modes, K2 traceback walk, K3 chain scan, K4 SDP
 window pass, K5 anchor search with its block mode, K6 band offsets, K7
-chain members) against their plain PyTorch versions, on a card; and the
+chain members) against their plain PyTorch versions, on a card; the
+Mapper's batches as CUDA graph replays (``pipeline/graphs.py``) against
+eager dispatch; and the
 pairwise SDP path (``sdp_align``, the ``sdpMatcher`` CLI) on the card
 against the same calls on the CPU.  Skipped without a CUDA
 device.  K1 in every mode and K2-K6 take the edge inputs of
@@ -685,3 +687,220 @@ def test_sdp_matcher_card_matches_cpu(cuda, tmp_path, capsys):
               "banded_traceback"):
         assert n[k] == 1, (k, n)
     assert sum(v for k, v in n.items() if k.startswith("banded_dp")) == 1
+
+
+# ------------------------------------------------------- map_batch as graphs
+
+GRAPH_L = 1024
+GRAPH_BATCH = 8
+# tests/test_torch_mapper_modes.py's general matrix (K1's GEN forms)
+GEN_MATRIX = [[-5 if i == j and i < 4 else 6 + (i + j) % 2
+               for j in range(5)] for i in range(5)]
+GRAPH_MODES = {
+    "distance": dict(),
+    "qv": dict(ignore_qualities=False),
+    "affine": dict(affine_align=True),
+    "gen": dict(score_matrix=GEN_MATRIX),
+    "block": dict(),
+    "dense": dict(),
+}
+
+
+@pytest.fixture(scope="module")
+def graph_world():
+    """A 200 kb genome of two contigs on the card and 48 reads of 300-900
+    bases at 87% accuracy with base qualities 8-39 (the port's sim)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from blasr_tpu_torch.sim import random_genome, simulate_reads
+    contigs = random_genome(200_000, seed=91, n_contigs=2)
+    sims = simulate_reads(contigs, 48, read_len=(300, 900), accuracy=0.87,
+                          seed=92)
+    rng = np.random.default_rng(93)
+    recs = [FastaRecord(f"r/{i}/0_{len(s.rec.seq)}", s.rec.seq,
+                        rng.integers(8, 40, len(s.rec.seq)))
+            for i, s in enumerate(sims)]
+    gi = build_genome_index(contigs, k=12)
+    return gi, tmr.DeviceIndex.from_host(gi, "cuda"), recs
+
+
+def _graph_mapper(gi, ix, mode, **cfg_kw):
+    from blasr_tpu_torch.params import ShapeConfig
+    cfg = ShapeConfig(buckets=(512, GRAPH_L), batch_size=GRAPH_BATCH,
+                      occ_block_sample=mode == "block", **cfg_kw)
+    return tmr.Mapper(gi, MappingParams(**GRAPH_MODES[mode]).make_sane(),
+                      cfg, device="cuda", dev=ix)
+
+
+def _graph_batches(m, recs, L, n):
+    """``n`` batches of ``m``'s batch size at bucket L on the card: (reads,
+    lens, qv or None)."""
+    out = []
+    B = m.batch_size_for(L)
+    for j in range(n):
+        group = recs[j * B:(j + 1) * B]
+        arr = np.full((B, L), 4, np.int8)
+        lens = np.zeros(B, np.int32)
+        for i, r in enumerate(group):
+            arr[i, :min(len(r.seq), L)] = r.seq[:L]
+            lens[i] = min(len(r.seq), L)
+        qv = None
+        if m.use_qv:
+            qv = tuple(torch.from_numpy(q).cuda()
+                       for q in m.pack_qv_rows(group, B, L))
+        out.append((torch.from_numpy(arr).cuda(),
+                    torch.from_numpy(lens).cuda(), qv))
+    return out
+
+
+def _dispatch(m, L, batch, tb_cap=0):
+    from blasr_tpu_torch.pipeline import graphs
+    pos, kw = m._batch_call_args(L, tb_cap)
+    reads, lens, qv = batch
+    return tmr.start_fetch(graphs.dispatch(m.dev, reads, lens, pos, kw, qv,
+                                           m.qv_rescore))
+
+
+def _eager_flats(m, L, batches, tb_cap=0):
+    from blasr_tpu_torch.pipeline import graphs
+    with graphs.eager_dispatch():
+        res = [_dispatch(m, L, b, tb_cap) for b in batches]
+    torch.cuda.synchronize()
+    return [r.host.clone() for r in res]
+
+
+@pytest.mark.parametrize("mode", list(GRAPH_MODES))
+def test_graph_replay_equals_eager(graph_world, mode):
+    """Five batches through one graph, four of them in flight at once
+    (each replay's flat copied to the host behind it, none waited for
+    before the last is dispatched): every packed buffer equals eager
+    dispatch's byte for byte, in the distance, QV, affine, general-matrix
+    and block modes and at the dense rerun's tb_cap = T."""
+    from blasr_tpu_torch.pipeline import graphs
+    gi, ix, recs = graph_world
+    m = _graph_mapper(gi, ix, mode)
+    L = 512 if mode != "dense" else GRAPH_L
+    tb_cap = L + m.cfg.window_len(L) if mode == "dense" else 0
+    batches = _graph_batches(m, recs, L, 5)
+    want = _eager_flats(m, L, batches, tb_cap)
+    graphs.reset_counts()
+    first = _dispatch(m, L, batches[0], tb_cap)        # captures the key
+    assert graphs.DISPATCHES["captures"] == 1
+    got = [first] + [_dispatch(m, L, b, tb_cap) for b in batches[1:]]
+    assert graphs.DISPATCHES["captures"] == 1
+    for j, (g, w) in enumerate(zip(got, want)):
+        g.ready.synchronize()
+        assert torch.equal(g.host, w), (mode, j)
+        assert int(w[-1]) == 0
+    assert not torch.equal(want[0], want[1])          # the inputs differ
+
+
+def test_graph_keys_interleaved_share_one_pool(graph_world):
+    """Two keys of one index (the first pass and the dense rerun) replayed
+    in turns on batches that change every turn: each equals eager; both
+    graphs live in the index's one pool."""
+    from blasr_tpu_torch.pipeline import graphs
+    gi, ix, recs = graph_world
+    m = _graph_mapper(gi, ix, "distance")
+    L = GRAPH_L
+    T = L + m.cfg.window_len(L)
+    batches = _graph_batches(m, recs, L, 4)
+    want = {0: _eager_flats(m, L, batches), T: _eager_flats(m, L, batches, T)}
+    got = []
+    for j, b in enumerate(batches):
+        for cap in (0, T):
+            got.append((cap, j, _dispatch(m, L, b, cap)))
+    for cap, j, g in got:
+        g.ready.synchronize()
+        assert torch.equal(g.host, want[cap][j]), (cap, j)
+    cache = graphs.cache_for(ix)
+    keys = [graphs.graph_key(ix, m.batch_size_for(L), *m._batch_call_args(
+        L, cap)) for cap in (0, T)]
+    assert all(k in cache.graphs for k in keys) and cache.pool is not None
+
+
+def test_graph_capture_and_replay_never_sync(graph_world, monkeypatch):
+    """map_batch's warm-up pass and its capture run under
+    set_sync_debug_mode("error"), and so do the replays: neither waits on
+    the card."""
+    from blasr_tpu_torch.pipeline import graphs
+    gi, ix, recs = graph_world
+    m = _graph_mapper(gi, ix, "qv", n_candidates=9)      # a key of its own
+    inner = graphs._map_batch
+
+    def strict(*a, **kw):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return inner(*a, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    monkeypatch.setattr(graphs, "_map_batch", strict)
+    batches = _graph_batches(m, recs, 512, 3)
+    before = graphs.DISPATCHES["captures"]
+    res = [_dispatch(m, 512, batches[0])]
+    assert graphs.DISPATCHES["captures"] == before + 1
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        res += [_dispatch(m, 512, b) for b in batches[1:]]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    monkeypatch.undo()
+    want = _eager_flats(m, 512, batches)
+    for g, w in zip(res, want):
+        g.ready.synchronize()
+        assert torch.equal(g.host, w)
+
+
+def test_graph_pass_launches_equal_eager(graph_world):
+    """Mapper.map_reads through graphs (after a pass that captured them)
+    gives the eager pass's alignments and counters, and its
+    cuda_ops.LAUNCHES equal the eager pass's, kernel for kernel."""
+    import contextlib
+    from blasr_tpu_torch.pipeline import graphs
+    gi, ix, recs = graph_world
+    m = _graph_mapper(gi, ix, "distance")
+    m.map_reads(recs)
+    runs = []
+    for eager in (True, False):
+        cuda_ops.reset_launch_counts()
+        graphs.reset_counts()
+        with (graphs.eager_dispatch() if eager
+              else contextlib.nullcontext()):
+            per_read = m.map_reads(recs)
+        runs.append((dict(cuda_ops.LAUNCHES), dict(graphs.DISPATCHES),
+                     [[(a.strand, a.tstart, a.tend, a.qstart, a.qend,
+                        list(a.cigar), a.score, a.map_qv) for a in alns]
+                      for alns in per_read]))
+    assert runs[0][2] == runs[1][2]
+    assert runs[0][0] == runs[1][0] and runs[0][0]["chain_members"] > 0
+    eager, graph = runs[0][1], runs[1][1]
+    passes = ("batches", "dense_reruns")
+    assert [eager[k] for k in passes] == [graph[k] for k in passes]
+    assert eager["replays"] == 0 and eager["captures"] == 0
+    assert graph["captures"] == 0
+    assert graph["replays"] == graph["batches"] + graph["dense_reruns"] > 0
+
+
+def test_graph_pool_freed_with_its_index(graph_world):
+    """An index's graphs and their pool go when the index goes: the
+    memory the captures reserved is released."""
+    import gc
+    from blasr_tpu_torch.pipeline import graphs
+    gi, _, recs = graph_world
+    ix = tmr.DeviceIndex.from_host(gi, "cuda")
+    m = _graph_mapper(gi, ix, "distance")
+    graphs.reset_counts()
+    m.warmup([512])
+    assert graphs.DISPATCHES["captures"] == 1
+    pool = graphs.CAPTURES[-1]["pool_bytes"]
+    assert pool > 0
+    key = id(ix.genome)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_reserved()
+    del m, ix
+    gc.collect()
+    assert key not in graphs._CACHES
+    torch.cuda.empty_cache()
+    assert torch.cuda.memory_reserved() <= held - pool

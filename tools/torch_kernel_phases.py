@@ -120,7 +120,9 @@ def compile_copy(src: str, stem: str):
                        capture_output=True, text=True)
     if r.returncode:
         sys.exit(r.stderr[-3000:])
-    return ctypes.CDLL(so)
+    lib = ctypes.CDLL(so)
+    cuda_ops.set_up(lib)   # its kernels' attributes, where it sets them so
+    return lib
 
 
 # K1's instantiations by their mangled template arguments <QV, HP, GEN>
