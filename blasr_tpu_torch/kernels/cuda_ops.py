@@ -40,7 +40,7 @@ SRC_DIR = _PKG_DIR / "csrc"
 SOURCES = ("banded_dp.cu", "banded_traceback.cu", "chain_scan.cu",
            "sdp_window.cu", "anchor_search.cu", "band_offsets.cu",
            "chain_members.cu", "setup.cu")
-HEADERS = ("block_scan.cuh", "setup.cuh")
+HEADERS = ("block_scan.cuh", "setup.cuh", "chain_members_plan.h")
 BUILD_DIR = _PKG_DIR.parent / "build" / "blasr_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -51,6 +51,13 @@ LAUNCHES = {"banded_dp": 0, "banded_dp_qv": 0, "banded_dp_hp": 0,
             "banded_traceback": 0, "chain_scan": 0, "sdp_window": 0,
             "anchor_search": 0, "anchor_search_block": 0, "band_offsets": 0,
             "chain_members": 0}
+# K7's calls by path since the last reset (csrc/chain_members_plan.h):
+# "lift" (the shared path: the lifting table in shared memory, one CTA a
+# row), "chase" (a warp a chain over the row's parents staged in shared
+# memory) or "global" (the chase over parents in global memory)
+MEMBER_PATHS = {"lift": 0, "chase": 0, "global": 0}
+# MEMBER_PATHS' key of each stage of blasr_chain_members
+MEMBER_STAGES = ("global", "chase", "lift")
 
 # shared memory a block may opt into on sm_90 (227 KB), less a margin for
 # the kernels' static arrays; K3 keeps 42 bytes per anchor there (above
@@ -73,8 +80,9 @@ _set_up: set = set()
 
 
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, MEMBER_PATHS):
+        for k in counts:
+            counts[k] = 0
 
 
 def _nvcc() -> str:
@@ -165,6 +173,7 @@ ARGTYPES = {
                             + [_P] * 4 + [_P]),
     "blasr_chain_members_smem": (ctypes.c_size_t, [_I] * 4),
     "blasr_chain_members_max_smem": (_I, []),
+    "blasr_chain_members_plan": (_I, [_I] * 3 + [_P]),
 }
 # each kernel source's own set-up entry (what setup.cu's
 # blasr_setup_kernels runs for it), for a source built alone
@@ -639,13 +648,25 @@ def band_offsets_launch(mq, mt, ws, *, L: int, W: int, w_b: int,
     return out
 
 
+def chain_members_plan(lib, C: int, A: int, M: int):
+    """K7's launch for C > 0 chains of M members over rows of A anchors:
+    (warps, stage) as ``blasr_chain_members`` takes them, from the
+    library's own plan (``csrc/chain_members_plan.h``): the shared path
+    (stage 2) while the row's lifting table fits in shared memory, else
+    the chase with the row's parents staged (1) or in global memory (0)."""
+    plan = (ctypes.c_int * 2)()
+    if lib.blasr_chain_members_plan(C, A, M, ctypes.addressof(plan)):
+        raise ValueError(f"K7 keeps a chain's {M} members in shared "
+                         "memory: max_chain is too large")
+    return plan[0], plan[1]
+
+
 def chain_members_launch(q, t, l, parent, end_idx, *, max_chain: int):
     """K7 on CUDA tensors: anchors q/t/l [B, A], all three int32 or all
     three int64, K3's parent pointers int64 [B, A] and chain ends int64
     [B, C].  Returns (mq, mt, ml int64, mvalid bool), each [B, C, M], as
-    ``chain_members_plain`` returns them.  The row's parents sit in
-    shared memory while they fit beside the four warps' member buffers,
-    else the kernel reads them from global memory."""
+    ``chain_members_plain`` returns them.  The path is
+    :func:`chain_members_plan`'s, counted in :data:`MEMBER_PATHS`."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError("chain_members_launch needs CUDA tensors")
@@ -668,14 +689,7 @@ def chain_members_launch(q, t, l, parent, end_idx, *, max_chain: int):
     if B * C == 0:
         return mq, mt, ml, mvalid
     lib = _load(dev)
-    limit = lib.blasr_chain_members_max_smem()
-    warps = min(C, 4)
-    while warps > 1 and lib.blasr_chain_members_smem(A, M, warps, 0) > limit:
-        warps //= 2
-    if lib.blasr_chain_members_smem(A, M, warps, 0) > limit:
-        raise ValueError(f"K7 keeps a chain's {M} members in shared "
-                         "memory: max_chain is too large")
-    stage = int(lib.blasr_chain_members_smem(A, M, warps, 1) <= limit)
+    warps, stage = chain_members_plan(lib, C, A, M)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.blasr_chain_members(
@@ -685,4 +699,5 @@ def chain_members_launch(q, t, l, parent, end_idx, *, max_chain: int):
             mt.data_ptr(), ml.data_ptr(), mvalid.data_ptr(), stream)
     _launched(rc, "chain_members")
     LAUNCHES["chain_members"] += 1
+    MEMBER_PATHS[MEMBER_STAGES[stage]] += 1
     return mq, mt, ml, mvalid

@@ -125,16 +125,19 @@ class BatchGraph:
     """One captured ``map_batch``: static input buffers (reads int8 [B, L],
     lens int32 [B]; with QVs qv1/qv2 int32 [B, L] and the rescore row
     float32 [4]), the captured :class:`PackedBatch`, the kernel launches
-    the graph holds (``cuda_ops.LAUNCHES`` keys) and its stage marks."""
+    the graph holds (``cuda_ops.LAUNCHES`` keys) and K7's paths among them
+    (``cuda_ops.MEMBER_PATHS`` keys), and its stage marks."""
 
     def __init__(self, graph, reads, lens, out, launches: Dict[str, int],
                  qv: Optional[Tuple] = None, qv_rescore=None, marks=(),
-                 keep=()):
+                 keep=(), member_paths: Optional[Dict[str, int]] = None):
         self.graph = graph
         self.reads, self.lens = reads, lens
         self.qv, self.qv_rescore = qv, qv_rescore
         self.out = out
         self.launches = {k: n for k, n in launches.items() if n}
+        self.member_paths = {k: n for k, n in (member_paths or {}).items()
+                             if n}
         self.marks = list(marks)
         self._keep = keep       # index tensors the graph reads
 
@@ -155,6 +158,8 @@ class BatchGraph:
         self.graph.replay()
         for k, n in self.launches.items():
             cuda_ops.LAUNCHES[k] += n
+        for k, n in self.member_paths.items():
+            cuda_ops.MEMBER_PATHS[k] += n
         timer = StageTimer.active
         if timer is not None and self.marks:
             # the spans of this replay, read before the next one
@@ -195,6 +200,7 @@ def capture(index, reads, lens, pos, kw, qv=None,
     torch.cuda.empty_cache()
     reserved = torch.cuda.memory_reserved(dev)
     before = dict(cuda_ops.LAUNCHES)
+    paths_before = dict(cuda_ops.MEMBER_PATHS)
     marks = _CaptureMarks()
     timer, StageTimer.active = StageTimer.active, marks
     graph = torch.cuda.CUDAGraph()
@@ -206,8 +212,11 @@ def capture(index, reads, lens, pos, kw, qv=None,
     finally:
         StageTimer.active = timer
         launches = {k: cuda_ops.LAUNCHES[k] - before[k] for k in before}
+        paths = {k: cuda_ops.MEMBER_PATHS[k] - paths_before[k]
+                 for k in paths_before}
         # the capture recorded those launches; replays run them
         cuda_ops.LAUNCHES.update(before)
+        cuda_ops.MEMBER_PATHS.update(paths_before)
         # the warm-up pass above is the dispatch's; the capture is not one
         DISPATCHES["dense_reruns" if kw.get("tb_cap") else "batches"] -= 1
     ms = 1e3 * (time.perf_counter() - t0)
@@ -219,7 +228,7 @@ def capture(index, reads, lens, pos, kw, qv=None,
     keep = tuple(v for v in index
                  if isinstance(v, torch.Tensor) and v is not index.genome)
     return BatchGraph(graph, s_reads, s_lens, out, launches, s_qv, s_rescore,
-                      marks.marks, keep)
+                      marks.marks, keep, paths)
 
 
 def prepare(index, reads, lens, pos, kw, qv=None,

@@ -4,21 +4,26 @@
 Run from the repository root on a machine with a CUDA card:
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --compare K1|K2|K3|K5|K6 A/kernel.cu B/kernel.cu
+    python3 chip_smoke.py --compare K1|K2|K3|K5|K6|K7 A/kernel.cu B/kernel.cu
 
 The second form only builds the named kernel from each given source (K1
 banded_dp.cu, K2 banded_traceback.cu, K3 chain_scan.cu, K5
-anchor_search.cu, K6 band_offsets.cu; e.g. a parent commit's unpacked
-beside this one's), holds their outputs equal on phase 2's inputs (K1:
+anchor_search.cu, K6 band_offsets.cu, K7 chain_members.cu; e.g. a parent
+commit's unpacked beside this one's), holds their outputs equal on phase
+2's inputs (K1:
 K1 and K1-QV, then K1-HP and the GEN forms of the sources that have them,
 K1-HP and K1-HP-GEN also on an hp-heavy case and the hp-runs world, three
 rounds each; K3:
 the bench batch and A = 8192; K5: the bench batch's find_anchors call and
 a long read's at L = 65536; K6: the bench batch's two _band_offsets calls
-and a long read's) and times them in turns, A B B A (see ``compare_k1``
-.. ``compare_k6``): K5 and K6 by their device time alone (``device_ms``)
-and by the call's.  ``--device-times`` (run by phase 2 as a child) and
-``--k4-kernels`` (phase 5's) are the script's own child modes.
+and a long read's; K7: the bench batch's chain_members call,
+sdp_align's on the 64-pair world and one at the --maxExpand 4 retry's
+A = 8192, a source with the lifting table also with a row's chains over
+two CTAs, three rounds) and times them
+in turns, A B B A (see ``compare_k1`` .. ``compare_k7``): K5, K6 and K7
+by their device time alone (``device_ms``), K5 and K6 also by the call's,
+K7 also by torch.profiler.  ``--device-times`` (run by phase 2 as a
+child) and ``--k4-kernels`` (phase 5's) are the script's own child modes.
 
 Phases (any failed check exits nonzero):
   1. header: torch / CUDA / nvcc versions, the card's name and power limit;
@@ -56,8 +61,10 @@ Phases (any failed check exits nonzero):
      and each kernel by torch.profiler in a child process
      (``--device-times``: one profiler session of its own); K7 on the
      bench batch's chain_members call (its guide pass's K3 parents,
-     captured from the batch's map_batch) and on the edge inputs, anchors
-     int64 and int32, its call timed as K3's;
+     captured from the batch's map_batch; the lifting path, counted in
+     MEMBER_PATHS), on sdp_align's call on the 64-pair world (B=64, C=1,
+     M=256, A=1024) and on the edge inputs, anchors int64 and int32, its
+     call timed as K3's;
   3. the golden worlds of tests/test_golden.py through the port's CLI with
      ``--device cuda``, byte for byte against tests/golden/, each group
      launching K1 (or K1-QV, K1-HP) and K2-K6 and every batch a replay of
@@ -121,7 +128,10 @@ Phases (any failed check exits nonzero):
      dispatch against graph replays, both with the lookahead, in five
      rounds of A B B A (every pass, medians and spreads);
   5. torch.profiler over one more pass in each mode through graphs, and
-     over a distance pass dispatched eagerly: the host waits (stream and
+     over a distance pass dispatched eagerly, then over one pass (after a
+     warm pass that captures its graphs) under --scoreMatrix alone, with
+     --useQuality and with --affineAlign (K1-GEN, K1-QV-GEN, K1-HP-GEN)
+     and under occ_block_sample (K5's block mode): the host waits (stream and
      device synchronisations, blocking copies, tensors read as Python
      values) inside each dispatch, which must be none; the host's launch
      calls (kernel and graph launches, copies, fills) per read and per
@@ -131,9 +141,10 @@ Phases (any failed check exits nonzero):
      bench-shape call of K4's function, which must be one kernel (in a
      child process, ``--k4-kernels``, with a profiler session of its
      own); then
-     rule 2's measure for K1-K7: launches per pass pair x (kernel ms -
-     bound ms), with the kernel's ms as phase 2 times the call and as its
-     device time inside the graphs of phase 5's passes, per launch.
+     rule 2's measure for K1-K7 and the modes: launches per pass pair x
+     (kernel ms - bound ms), with the kernel's ms as phase 2 times the
+     call and as its device time inside the graphs of phase 5's passes,
+     per launch (a mode's from its own traced pass).
 The second-to-last lines are a JSON kernel table and the card's name and
 power limit; the last line is ``{"ok": true, "device": {...}}``.
 Exits nonzero without a result when no CUDA device is present or when
@@ -1094,6 +1105,150 @@ def compare_k6(card, sources, reps: int = 20) -> None:
             in_turns(card, what, sources, run, n, mode)
 
 
+def member_plan(lib, C: int, A: int, M: int):
+    """(warps, stage) of one K7 source's launch: the library's own plan
+    where it has one (``blasr_chain_members_plan``), else the first
+    design's (up to four warps of one chain each, the row's parents staged
+    in shared memory while they fit)."""
+    from blasr_tpu_torch.kernels import cuda_ops
+    if hasattr(lib, "blasr_chain_members_plan"):
+        return cuda_ops.chain_members_plan(lib, C, A, M)
+    limit = lib.blasr_chain_members_max_smem()
+    warps = min(C, 4)
+    while warps > 1 and lib.blasr_chain_members_smem(A, M, warps, 0) > limit:
+        warps //= 2
+    return warps, int(lib.blasr_chain_members_smem(A, M, warps, 1) <= limit)
+
+
+# K7's kernels as torch.profiler names them, the first design's included
+MEMBER_KERNELS = ("chain_members_lift", "chain_members_chase",
+                  "chain_members_kernel")
+
+
+def expand_member_call():
+    """A chain_members call at the shape of the --maxExpand 4 retry
+    (max_anchors 512 * 2^4 = 8192; B = 64 rows, C = 10, M = 96): K3's
+    chains over synthetic anchor rows of 6,000-8,192 valid anchors
+    (tests/torch_edge_cases.py::chain_rows), as (args, kwargs)."""
+    from blasr_tpu_torch.kernels import chain
+    from blasr_tpu_torch.kernels.anchor import Anchors
+    from torch_edge_cases import chain_rows
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(8192)
+    c = chain_rows(rng, 64, 8192, rng.integers(6000, 8193, 64),
+                   read_len=(20_000, 40_000))
+    an = Anchors(**{f: torch.from_numpy(c[f]).to(dev)
+                    for f in ("q", "t", "l", "valid", "nlogp")},
+                 n_total=torch.from_numpy(
+                     c["valid"].sum(1).astype(np.int32)).to(dev))
+    cands = chain.chain_anchors(an, torch.from_numpy(c["read_len"]).to(dev),
+                                n_cand=10, rank_by_pvalue=True,
+                                p_value_type=0)
+    return (cands, an), dict(max_chain=96)
+
+
+def compare_k7(card, sources, reps: int = 20, rounds: int = 3) -> None:
+    """K7 from each given chain_members.cu on the bench batch's
+    chain_members call (B=64, C=10, M=96, A=512), on sdp_align's call on
+    the 64-pair world (B=64, C=1, M=256, A=1024) and on a call at the
+    --maxExpand 4 retry's shape (``expand_member_call``: B=64, C=10,
+    M=96, A=8192), each source launched as it plans itself
+    (``member_plan``); a source with the lifting table also with a row's
+    chains over two CTAs (where that path holds C > 1 chains), and with
+    the parents read from global memory where its plan stages them for
+    the chase.  Every
+    arm's output held to the plain version's, then timed in ``rounds``
+    rounds of A B B A by device time (``device_ms``), and each arm's
+    kernel by torch.profiler in one session."""
+    from torch.profiler import ProfilerActivity, profile
+    from blasr_tpu_torch.kernels import chain, cuda_ops
+    libs = []
+    for src in sources:
+        lib, _ = build_source("K7", src)
+        names = ("blasr_chain_members", "blasr_chain_members_smem",
+                 "blasr_chain_members_max_smem")
+        if hasattr(lib, "blasr_chain_members_plan"):
+            names += ("blasr_chain_members_plan",)
+        libs.append(cuda_ops.bind(lib, names))
+    cuda_ops.build()
+    gi, sims = bench_world()
+    dev = torch.device("cuda")
+    calls = [("bench batch", member_call(bench_batch(gi, sims))[:2]),
+             ("sdp shape", sdp_member_call()[:2]),
+             ("--maxExpand 4 shape", expand_member_call())]
+    for label, ((cands, anchors), kw) in calls:
+        M = kw["max_chain"]
+        x = [anchors.q.contiguous(), anchors.t.contiguous(),
+             anchors.l.contiguous(), cands.parent.contiguous(),
+             cands.end_idx.contiguous()]
+        B, A = x[0].shape
+        C = x[4].shape[1]
+        arms = []
+        for src, lib in zip(sources, libs):
+            warps, stage = member_plan(lib, C, A, M)
+            arms.append((src, lib, warps, stage))
+            if stage == 2 and C > 1:
+                arms.append((f"{src}, two CTAs a row", lib, (C + 1) // 2,
+                             stage))
+            if stage == 1 and hasattr(lib, "blasr_chain_members_plan"):
+                arms.append((f"{src}, parents in global memory", lib,
+                             warps, 0))
+        outs = [[torch.empty((B, C, M), dtype=dt, device=dev)
+                 for dt in (torch.int64,) * 3 + (torch.bool,)]
+                for _ in arms]
+
+        def run(i):
+            _, lib, warps, stage = arms[i]
+            rc = lib.blasr_chain_members(
+                *(y.data_ptr() for y in x[:3]),
+                int(x[0].dtype == torch.int64), x[3].data_ptr(),
+                x[4].data_ptr(), B, C, A, M, warps, stage,
+                *(o.data_ptr() for o in outs[i]),
+                torch.cuda.current_stream().cuda_stream)
+            assert rc == 0, f"launch failed: {rc}"
+
+        for i in range(len(arms)):
+            run(i)
+        ref = chain.chain_members_plain(cands, anchors, max_chain=M)
+        torch.cuda.synchronize()
+        for i, arm in enumerate(arms):
+            check_equal(outs[i], ref, ("mq", "mt", "ml", "mvalid"),
+                        f"K7 from {arm[0]} ({label})")
+        names = [f"{n} (warps {w}, stage {st})" for n, _, w, st in arms]
+        what = (f"K7 ({label}: B={B}, C={C}, M={M}, A={A}, "
+                f"{int(ref[3].sum())} members)")
+        times = {i: [] for i in range(len(arms))}
+        for _ in range(rounds):
+            for i, ts in in_turns(card, what, names, run, reps,
+                                  "device").items():
+                times[i] += ts
+        # a session now and then records no device events: one more try
+        for _ in range(2):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for i in range(len(arms)):
+                    for _ in range(reps):
+                        run(i)
+                    torch.cuda.synchronize()
+            evs = sorted((e for e in prof.events()
+                          if e.device_type == torch.autograd.DeviceType.CUDA
+                          and is_kernel(short_name(e.name), MEMBER_KERNELS)),
+                         key=lambda e: e.time_range.start)
+            if len(evs) == reps * len(arms):
+                break
+        if len(evs) != reps * len(arms):
+            log(f"# {what}: torch.profiler recorded {len(evs)} of "
+                f"{reps * len(arms)} launches; profiler times not measured")
+            evs = []
+        for i, name in enumerate(names):
+            prof_ms = ("not measured" if not evs else "%.4f" % (sum(
+                e.time_range.elapsed_us() for e in
+                evs[i * reps:(i + 1) * reps]) / 1e3 / reps))
+            log(f"# {what} from {name}: device {np.mean(times[i]):.4f} ms "
+                f"(mean of {len(times[i])} in turns), torch.profiler "
+                f"{prof_ms} ms a launch; equal to plain on {card}")
+
+
 def bench_batch(gi, sims):
     """The bench workload's first batch in bucket 2048 as
     Mapper._run_bucket forms it: the arguments of its map_batch call and of
@@ -1312,19 +1467,37 @@ def phase_members(card, bb):
     err = check_equal(out, ref, fields, "K7 bench batch")
     fn = lambda: chain.chain_members(cands, anchors, max_chain=M)  # noqa
     before = cuda_ops.LAUNCHES["chain_members"]
+    lifts = cuda_ops.MEMBER_PATHS["lift"]
     kms = cuda_ms(fn, 20)
     assert cuda_ops.LAUNCHES["chain_members"] == before + 20
+    assert cuda_ops.MEMBER_PATHS["lift"] == lifts + 20, \
+        "K7 left its lifting path on the bench batch"
     spin = device_ms(fn, 20)
     pms = cuda_ms(lambda: chain.chain_members_plain(cands, anchors,
                                                     max_chain=M), 5)
     kb = members_bound(cands, anchors, out, M)
     B, A = anchors.q.shape
     C = cands.end_idx.shape[1]
+    lib = cuda_ops._load()
+    plan = cuda_ops.chain_members_plan(lib, C, A, M)
     log(f"# K7 == plain on the bench batch's guide members (B={B}, C={C}, "
-        f"M={M}, A={A}): exact, {int(out[3].sum())} members; call "
-        f"{kms:.4f} ms (events around 20 back to back), device {spin:.4f} ms "
-        f"behind a spin; plain {pms:.3f} ms, bound {kb[0]:.5f} ms "
-        f"({kb[1]}) on {card}")
+        f"M={M}, A={A}): exact, {int(out[3].sum())} members; lifting path, "
+        f"(warps, stage) {plan}; call {kms:.4f} ms (events around 20 back "
+        f"to back), device {spin:.4f} ms behind a spin; plain {pms:.3f} ms, "
+        f"bound {kb[0]:.5f} ms ({kb[1]}) on {card}")
+    (scands, sanchors), skw, sout = sdp_member_call()
+    sM = skw["max_chain"]
+    err = max(err, check_equal(
+        sout, chain.chain_members_plain(scands, sanchors, max_chain=sM),
+        fields, "K7 sdp_align call"))
+    sfn = lambda: chain.chain_members(scands, sanchors, max_chain=sM)  # noqa
+    sb = members_bound(scands, sanchors, sout, sM)
+    B, A = sanchors.q.shape
+    log(f"# K7 == plain on sdp_align's members (B={B}, C=1, M={sM}, "
+        f"A={A}): exact, {int(sout[3].sum())} members; "
+        f"(warps, stage) {cuda_ops.chain_members_plan(lib, 1, A, sM)}; "
+        f"call {cuda_ms(sfn, 20):.4f} ms, device {device_ms(sfn, 20):.4f} ms "
+        f"behind a spin; bound {sb[0]:.5f} ms ({sb[1]}) on {card}")
     for name in MEMBER_CASES:
         c = member_case(name)
         z = torch.zeros(c["end_idx"].shape, dtype=torch.int64, device=dev)
@@ -1377,7 +1550,10 @@ PROFILE_KERNELS = {
     "sdp_window": (("sdp_window_kernel",), ()),
     "anchor_search": (("anchor_candidates",), ("anchor_select",)),
     "band_offsets": (("band_offsets_kernel", "band_offsets_rows"), ()),
-    "chain_members": (("chain_members_kernel",), ()),
+    "chain_members": (("chain_members_lift", "chain_members_chase"), ()),
+    "banded_dp_gen": (("banded_dp_kernel<false, false, true>",), ()),
+    "banded_dp_hp_gen": (("banded_dp_kernel<false, true, true>",), ()),
+    "banded_dp_qv_gen": (("banded_dp_kernel<true, false, true>",), ()),
 }
 DEVICE_TIMES_REPS = 20
 
@@ -2558,15 +2734,11 @@ def no_plain_members():
         chain.chain_members_plain = inner
 
 
-def sdp_align_timing(card, world):
-    """sdp_align on the 64-pair world's pairs as sdpMatcher forms them, on
-    the card (ms per pair, events around five calls) and on the CPU (one
-    call), beside its bound per pair: the sequences and lengths read
-    once, the SDPResult written once, and K3's operations on this run's
-    predecessor tests (the fragment match's sort and searches are under
-    a microsecond of the float32 peak)."""
+def sdp_arrays(world) -> list:
+    """sdp_align's host arguments for a pairwise world's pairs as
+    sdpMatcher forms them: queries, their lengths, targets shifted by one
+    base, their lengths."""
     from blasr_tpu_torch.io.fasta import read_fasta
-    from blasr_tpu_torch.kernels import sdp
     from blasr_tpu_torch.params import round_up
     qs, ts = (read_fasta(p) for p in world)
     N = len(qs)
@@ -2579,7 +2751,38 @@ def sdp_align_timing(card, world):
         tarr[n, 1:1 + len(t.seq)] = t.seq
     ql = np.array([len(q.seq) for q in qs], np.int32)
     tl = np.array([len(t.seq) + 1 for t in ts], np.int32)
-    host = [torch.from_numpy(a) for a in (qarr, ql, tarr, tl)]
+    return [torch.from_numpy(a) for a in (qarr, ql, tarr, tl)]
+
+
+def sdp_member_call():
+    """The chain_members call of sdp_align on the 64-pair world (B = 64
+    pairs, C = 1, M = 256, A = max_frags = 1024), captured as it makes it:
+    (args, kwargs, K7's result)."""
+    from blasr_tpu_torch.kernels import sdp
+    with tempfile.TemporaryDirectory() as d:
+        args = [a.cuda() for a in sdp_arrays(pairwise_worlds(d)["pairs64"])]
+    calls = []
+    inner = capture_calls(sdp, "chain_members", calls)
+    try:
+        sdp.sdp_align(*args)
+        torch.cuda.synchronize()
+    finally:
+        sdp.chain_members = inner
+    assert len(calls) == 1, f"sdp_align made {len(calls)} member calls"
+    return calls[0]
+
+
+def sdp_align_timing(card, world):
+    """sdp_align on the 64-pair world's pairs as sdpMatcher forms them, on
+    the card (ms per pair, events around five calls) and on the CPU (one
+    call), beside its bound per pair: the sequences and lengths read
+    once, the SDPResult written once, and K3's operations on this run's
+    predecessor tests (the fragment match's sort and searches are under
+    a microsecond of the float32 peak)."""
+    from blasr_tpu_torch.kernels import sdp
+    host = sdp_arrays(world)
+    N, Lq = host[0].shape
+    Lt = host[2].shape[1]
     args = [a.cuda() for a in host]
     calls = []
     inner = capture_calls(sdp, "chain_anchors", calls)
@@ -2921,26 +3124,38 @@ def bench_world():
 
 
 # the bench passes: "distance", "qv" (--useQuality) and "affine"
-# (--affineAlign), by label and the K1 mode each must launch
-BENCH_MODES = {"distance": ("distance", "banded_dp"),
-               "qv": ("--useQuality", "banded_dp_qv"),
-               "affine": ("--affineAlign", "banded_dp_hp")}
+# (--affineAlign), by label, the K1 mode each must launch and its
+# MappingParams; then the modes phase 5 traces once more, one pass each,
+# for the in-graph device time of a kernel mode no bench pass runs (K1's
+# GEN forms under SCORE_MATRIX, K5's block mode)
+BENCH_MODES = {"distance": ("distance", "banded_dp", {}),
+               "qv": ("--useQuality", "banded_dp_qv",
+                      dict(ignore_qualities=False)),
+               "affine": ("--affineAlign", "banded_dp_hp",
+                          dict(affine_align=True)),
+               "gen": ("--scoreMatrix", "banded_dp_gen", dict(gen=True)),
+               "qv_gen": ("--scoreMatrix --useQuality", "banded_dp_qv_gen",
+                          dict(gen=True, ignore_qualities=False)),
+               "hp_gen": ("--scoreMatrix --affineAlign", "banded_dp_hp_gen",
+                          dict(gen=True, affine_align=True)),
+               "block": ("occ_block_sample", "banded_dp", {})}
 
 
 def bench_inputs(sims, mode: str):
-    """The bench pass's reads and parameters: as simulated (``distance``,
-    and ``affine`` with --affineAlign), or under ``--useQuality`` with
-    per-base qualities 8-39, drawn as make_fastq draws them."""
+    """The bench pass's reads and parameters in ``mode`` (BENCH_MODES): the
+    reads as simulated or, under ``--useQuality``, with per-base qualities
+    8-39, drawn as make_fastq draws them."""
     from blasr_tpu_torch.io.fasta import FastaRecord
     from blasr_tpu_torch.params import MappingParams
+    kw = dict(BENCH_MODES[mode][2])
+    if kw.pop("gen", False):
+        kw["score_matrix"] = SCORE_MATRIX
     recs = [s.rec for s in sims]
-    if mode != "qv":
-        return recs, MappingParams(
-            affine_align=mode == "affine").make_sane()
-    rng = np.random.default_rng(13)
-    recs = [FastaRecord(r.title, r.seq, rng.integers(8, 40, len(r.seq)))
-            for r in recs]
-    return recs, MappingParams(ignore_qualities=False).make_sane()
+    if not kw.get("ignore_qualities", True):
+        rng = np.random.default_rng(13)
+        recs = [FastaRecord(r.title, r.seq, rng.integers(8, 40, len(r.seq)))
+                for r in recs]
+    return recs, MappingParams(**kw).make_sane()
 
 
 def log_captures(card, what: str) -> None:
@@ -2968,7 +3183,7 @@ def phase_bench(card, cuda_ops, gi, sims, mode: str, dev=None):
     from blasr_tpu_torch.pipeline.map_read import Mapper, StageTimer
     from blasr_tpu_torch.pipeline.metrics import MappingMetrics
 
-    label, dp = BENCH_MODES[mode]
+    label, dp, _ = BENCH_MODES[mode]
     recs, params = bench_inputs(sims, mode)
     if mode == "affine":
         seqs = [np.asarray(r.seq) for r in recs]
@@ -3213,6 +3428,18 @@ LAUNCH_API = ("cudaLaunch", "cuLaunch", "cudaGraphLaunch", "cudaMemcpy",
               "cudaMemset")
 
 
+# the modes phase 5 traces once more each, and the traced pass (and its
+# launch key) that gives each launch key's in-graph device time where that
+# is not the distance pass's own
+PROFILE_MODES = ("gen", "qv_gen", "hp_gen", "block")
+GRAPH_PASS = {"banded_dp_qv": ("qv", "banded_dp_qv"),
+              "banded_dp_hp": ("affine", "banded_dp_hp"),
+              "banded_dp_gen": ("gen", "banded_dp_gen"),
+              "banded_dp_qv_gen": ("qv_gen", "banded_dp_qv_gen"),
+              "banded_dp_hp_gen": ("hp_gen", "banded_dp_hp_gen"),
+              "anchor_search_block": ("block", "anchor_search")}
+
+
 def syncs_in_dispatch(prof) -> tuple:
     """(dispatches, host waits inside them, runtime calls inside them,
     launch calls inside them, launch calls in the whole pass) in a
@@ -3241,19 +3468,22 @@ def syncs_in_dispatch(prof) -> tuple:
 
 def phase_profile(card, gi, sims, dev, mode: str = "distance",
                   eager: bool = False):
-    """torch.profiler over one more bench pass (after a short warm pass),
-    through graphs or, with ``eager``, dispatched eagerly: the host's
-    launch calls per read and per dispatch, kernels per read, device time
-    against the traced wall (the device's busy share), host waits inside
-    a dispatch (must be none), the kernels that take the most device time
-    and each hand-written kernel's device ms per call."""
+    """torch.profiler over one more bench pass in ``mode`` (BENCH_MODES),
+    after a warm pass (the first 64 reads, or all of them in a mode of
+    PROFILE_MODES, whose graphs no earlier pass captured), through graphs
+    or, with ``eager``, dispatched
+    eagerly: the host's launch calls per read and per dispatch, kernels per
+    read, device time against the traced wall (the device's busy share),
+    host waits inside a dispatch (must be none), the kernels that take the
+    most device time and each hand-written kernel's device ms per call."""
     from torch.profiler import ProfilerActivity, profile, record_function
     from blasr_tpu_torch.params import ShapeConfig
     from blasr_tpu_torch.pipeline import graphs
     from blasr_tpu_torch.pipeline.map_read import Mapper
     label = BENCH_MODES[mode][0] + (", eager dispatch" if eager
                                     else ", graph replays")
-    cfg = ShapeConfig(buckets=(1024, 2048), batch_size=32, max_anchors=512)
+    cfg = ShapeConfig(buckets=(1024, 2048), batch_size=32, max_anchors=512,
+                      occ_block_sample=mode == "block")
     recs, params = bench_inputs(sims, mode)
     mapper = Mapper(gi, params, cfg, device="cuda", dev=dev)
     arm = graphs.eager_dispatch() if eager else contextlib.nullcontext()
@@ -3264,7 +3494,8 @@ def phase_profile(card, gi, sims, dev, mode: str = "distance",
             return inner(*a, **kw)
 
     with arm:
-        mapper.map_reads(recs[:64])
+        # a mode no bench pass ran has no graphs yet: capture them all
+        mapper.map_reads(recs if mode in PROFILE_MODES else recs[:64])
         torch.cuda.synchronize()
         graphs.dispatch = marked
         try:
@@ -3361,8 +3592,8 @@ def main() -> int:
     if sys.argv[1:2] == ["--compare"]:
         sys.path.insert(0, os.path.join(HERE, "tests"))
         {"K1": compare_k1, "K2": compare_k2, "K3": compare_k3,
-         "K5": compare_k5, "K6": compare_k6}[sys.argv[2]](card,
-                                                          sys.argv[3:])
+         "K5": compare_k5, "K6": compare_k6,
+         "K7": compare_k7}[sys.argv[2]](card, sys.argv[3:])
         return 0
     if sys.argv[1:] == ["--k4-kernels"]:
         return count_k4_kernels(card)
@@ -3421,6 +3652,11 @@ def main() -> int:
     prof, counts = {}, {}
     for mode in ("distance", "qv", "affine"):
         prof[mode], counts[mode] = phase_profile(card, gi, sims, dev, mode)
+    for mode in PROFILE_MODES:
+        t1 = time.time()
+        prof[mode], _ = phase_profile(card, gi, sims, dev, mode)
+        log(f"# traced {BENCH_MODES[mode][0]} pass in "
+            f"{time.time() - t1:.1f}s")
     _, eager_counts = phase_profile(card, gi, sims, dev, eager=True)
     differ = {n: (eager_counts.get(n, 0), counts["distance"].get(n, 0))
               for n in set(eager_counts) | set(counts["distance"])
@@ -3466,8 +3702,8 @@ def main() -> int:
     # the kernel's ms as phase 2's events time the call and as its device
     # time inside the graphs of phase 5's passes (torch.profiler, per
     # launch)
-    graph_ms = {name: prof[{"banded_dp_qv": "qv", "banded_dp_hp": "affine"}
-                           .get(name, "distance")].get(name)
+    graph_ms = {name: prof[GRAPH_PASS.get(name, ("distance", name))[0]]
+                .get(GRAPH_PASS.get(name, ("distance", name))[1])
                 for name, _, _ in rows}
     loss = {name: launches[name] * (kres[name]["ms"] - kres[name]["bound"][0])
             for name, _, _ in rows}

@@ -39,7 +39,7 @@ from blasr_tpu_torch.pipeline import map_read as tmr  # noqa: E402
 from torch_edge_cases import (ANCHOR_CASES, BAND_CASES,  # noqa: E402
                               BANDED_CASES, BANDED_QV_SEED, CHAIN_CASES,
                               K1_MODE_CASES, K1_MODES, K_SDP,
-                              MEMBER_CASES, SDP_CASES,
+                              MEMBER_CASES, MEMBER_PATH_CASES, SDP_CASES,
                               TRACEBACK_CASES, anchor_case, anchor_world,
                               band_case, banded_case, chain_case,
                               chain_rows, k1_mode_kwargs, long_sdp_case,
@@ -588,6 +588,26 @@ def test_members_kernel_matches_plain(cuda, name, dtype):
     plain = tchain.chain_members_plain(cands, anchors, max_chain=c["M"])
     for f, a, b in zip(("mq", "mt", "ml", "mvalid"), k7, plain):
         assert a.dtype == b.dtype and torch.equal(a, b), f
+
+
+@pytest.mark.parametrize("name", list(MEMBER_PATH_CASES))
+def test_members_path_follows_the_sizes(cuda, name):
+    """K7's launch takes the (warps, stage) its sizes give (the seams of
+    tests/torch_edge_cases.py: the lifting table in shared memory, the
+    chase over the parents in shared or in global memory) and counts its
+    path in MEMBER_PATHS."""
+    c = member_case(name)
+    cands, anchors = _member_inputs(c, cuda)
+    A = c["q"].shape[1]
+    C = c["end_idx"].shape[1]
+    lib = cuda_ops._load(cuda)
+    plan = MEMBER_PATH_CASES[name]
+    assert cuda_ops.chain_members_plan(lib, C, A, c["M"]) == plan
+    before = dict(cuda_ops.MEMBER_PATHS)
+    tchain.chain_members(cands, anchors, max_chain=c["M"])
+    torch.cuda.synchronize()
+    path = cuda_ops.MEMBER_STAGES[plan[1]]
+    assert cuda_ops.MEMBER_PATHS == dict(before, **{path: before[path] + 1})
 
 
 def test_members_wrapper_checks_its_inputs(cuda):

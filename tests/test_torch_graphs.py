@@ -175,6 +175,24 @@ def test_replay_copies_inputs_and_counts_launches():
     cuda_ops.reset_launch_counts()
 
 
+def test_replay_counts_member_paths():
+    """A replay adds the K7 paths its capture took to MEMBER_PATHS, as it
+    adds the launches, and a reset zeroes both."""
+    B = 2
+    static = (torch.zeros((B, L), dtype=torch.int8),
+              torch.zeros(B, dtype=torch.int32))
+    bg = graphs.BatchGraph(_FakeGraph(), *static, object(),
+                           {"chain_members": 2},
+                           member_paths={"lift": 1, "global": 1})
+    cuda_ops.reset_launch_counts()
+    for n in range(1, 3):
+        bg.replay(*static)
+        assert cuda_ops.LAUNCHES["chain_members"] == 2 * n
+        assert cuda_ops.MEMBER_PATHS == {"lift": n, "chase": 0, "global": n}
+    cuda_ops.reset_launch_counts()
+    assert cuda_ops.MEMBER_PATHS == {"lift": 0, "chase": 0, "global": 0}
+
+
 def test_eager_dispatch_restores_its_state():
     assert not graphs._eager
     with pytest.raises(RuntimeError, match="inside"):

@@ -7,10 +7,18 @@ package on the CPU.
 * ``chain_members_plain`` against JAX's ``chain_members`` on the K7 edge
   inputs of ``tests/torch_edge_cases.py`` (K3-shaped parents with q ties,
   q that does not fall along a chain, chains longer than M, invalid
-  candidates and negative ends, M = 1, q at or above BIG, a row too long
-  for K7's shared memory): every member exactly equal.  The CUDA kernel
-  K7 meets the same inputs in ``tests/test_torch_cuda.py``.
+  candidates and negative ends, M = 1 and 2, q at or above BIG, a chain
+  of exactly M = 64 members and one of 65, chains sharing a suffix,
+  sdp_align's whole call (64 pairs, M = 256), and rows on either side of
+  each seam of K7's shared memory): every member exactly equal.  The CUDA
+  kernel K7 meets the same inputs in ``tests/test_torch_cuda.py``.
+* ``cuda_ops.chain_members_plan`` on those seams, from the sizes of
+  ``csrc/chain_members_plan.h`` built with g++: the stage and the chains
+  a CTA.
 """
+
+import ctypes
+import subprocess
 
 import numpy as np
 import pytest
@@ -26,7 +34,8 @@ from blasr_tpu_torch.kernels import anchor as tanchor  # noqa: E402
 from blasr_tpu_torch.kernels import chain as tchain  # noqa: E402
 from blasr_tpu_torch.kernels import sdp as tsdp  # noqa: E402
 from test_sdp_sw import mutate  # noqa: E402
-from torch_edge_cases import MEMBER_CASES, member_case  # noqa: E402
+from torch_edge_cases import (MEMBER_CASES, MEMBER_PATH_CASES,  # noqa: E402
+                              member_case)
 
 torch.set_num_threads(2)
 
@@ -115,3 +124,53 @@ def test_chain_members_edges_match_jax(name):
                    for row in mq.reshape(-1, c["M"]))
     if name == "invalid-cands":
         assert not got[3][0, 1].any() and not c["valid"].all()
+    if name in ("M64-chain-64", "M64-chain-65", "sdp-B64-chain-300"):
+        assert got[3][:, 0].all()           # the long chain fills M
+    if name == "shared-suffix":
+        for row in mq:
+            assert all(np.intersect1d(row[0][row[0] < 0x3FFFFFFF],
+                                      row[c][row[c] < 0x3FFFFFFF]).size
+                       for c in range(1, 4))
+
+
+@pytest.fixture(scope="module")
+def plan_lib(tmp_path_factory):
+    """K7's launch plan, csrc/chain_members_plan.h, built with g++ (it is
+    host code only), bound as kernels/cuda_ops.py binds the whole
+    library."""
+    from blasr_tpu_torch.kernels import cuda_ops
+    so = tmp_path_factory.mktemp("plan") / "libchain_members_plan.so"
+    subprocess.run(["g++", "-std=c++17", "-shared", "-fPIC", "-x", "c++",
+                    str(cuda_ops.SRC_DIR / "chain_members_plan.h"), "-o",
+                    str(so)], check=True, capture_output=True, timeout=120)
+    return cuda_ops.bind(ctypes.CDLL(str(so)),
+                         ("blasr_chain_members_plan",
+                          "blasr_chain_members_smem",
+                          "blasr_chain_members_max_smem"))
+
+
+@pytest.mark.parametrize("name", list(MEMBER_PATH_CASES))
+def test_members_plan_follows_the_sizes(plan_lib, name):
+    """The wrapper's plan for K7 on each seam case, from the source's own
+    sizes: the shared path, one CTA a row holding every chain (C * M <=
+    1024 here), or the chase at up to four warps, the row's parents in
+    shared or in global memory."""
+    from blasr_tpu_torch.kernels import cuda_ops
+    B, A, C, M, _ = MEMBER_CASES[name]
+    plan = cuda_ops.chain_members_plan(plan_lib, C, A, M)
+    assert plan == MEMBER_PATH_CASES[name]
+    limit = plan_lib.blasr_chain_members_max_smem()
+    assert plan_lib.blasr_chain_members_smem(A, M, *plan) <= limit
+    # the path before it does not fit: the table beside the CTA's chains,
+    # or the parents beside the warps
+    if plan[1] == 1:
+        assert plan_lib.blasr_chain_members_smem(A, M, C, 2) > limit
+    if plan[1] == 0:
+        assert plan_lib.blasr_chain_members_smem(A, M, plan[0], 1) > limit
+
+
+def test_members_plan_refuses_what_no_path_holds(plan_lib):
+    from blasr_tpu_torch.kernels import cuda_ops
+    assert cuda_ops.chain_members_plan(plan_lib, 10, 512, 2048) == (4, 1)
+    with pytest.raises(ValueError):
+        cuda_ops.chain_members_plan(plan_lib, 10, 512, 1 << 15)

@@ -554,9 +554,16 @@ def anchor_case(name):
 
 # ---------------------------------------------------------------- chain members
 
-# name -> (B, A, C, M, longest chain); K7 (csrc/chain_members.cu) stages a
-# row's parents in shared memory beside its warps' member buffers while
-# they fit (A = 60000 does not) and walks up to M pointers a chain
+# K7 (csrc/chain_members.cu) takes one of three paths by the sizes of
+# csrc/chain_members_plan.h: the lifting table in shared memory (one CTA
+# of C <= 1024 // M chains a row: C * M int64 keys, C int32 counts and
+# bit_length(M - 1) int32 levels of A), else a warp a chain chasing the
+# row's parents staged in shared memory (C <= 4 warps of M int64 and M
+# int32 slots, then A int32 parents), else chasing them in global memory;
+# within 232448 - 4096 bytes, at C = 4, M = 96 the table fits up to
+# A = 8045 and the parents up to A = 55936
+
+# name -> (B, A, C, M, longest chain)
 MEMBER_CASES = {
     "bench-shape": (4, 512, 10, 96, 150),
     "sdp-shape": (4, 1024, 1, 256, 400),
@@ -568,7 +575,29 @@ MEMBER_CASES = {
     "M100-C3": (3, 400, 3, 100, 200),
     "big-q": (2, 128, 4, 48, 40),
     "parents-in-global": (1, 60000, 4, 96, 300),
+    # the seams of the paths: the table in shared memory or the chase, the
+    # parents in shared or in global memory, each limit met and passed
+    "table-fits-A8045": (1, 8045, 4, 96, 300),
+    "table-over-A8046": (1, 8046, 4, 96, 300),
+    "parents-fit-A55936": (1, 55936, 4, 96, 300),
+    "parents-over-A55937": (1, 55937, 4, 96, 300),
+    # one lifting level; a chain of exactly M = 64 members and one of M + 1
+    "M2": (2, 128, 5, 2, 20),
+    "M64-chain-64": (2, 256, 4, 64, 64),
+    "M64-chain-65": (2, 256, 4, 64, 65),
+    # chains of one row that end on the long chain or branch off it
+    "shared-suffix": (3, 512, 10, 96, 150),
+    # sdp_align's whole call: 64 pairs, one chain of up to 256 members
+    "sdp-B64-chain-300": (64, 1024, 1, 256, 300),
 }
+# the (warps, stage) of K7's launch in each seam case: stage 2 (the
+# lifting table, warps = the chains a CTA), 1 (the chase over the parents
+# in shared memory) or 0 (the chase over global memory)
+MEMBER_PATH_CASES = {"bench-shape": (10, 2), "sdp-shape": (1, 2),
+                     "table-fits-A8045": (4, 2), "table-over-A8046": (4, 1),
+                     "parents-fit-A55936": (4, 1),
+                     "parents-over-A55937": (4, 0),
+                     "parents-in-global": (4, 0)}
 
 
 def member_case(name):
@@ -581,7 +610,9 @@ def member_case(name):
     "q-ties" gives a third of the members their parent's q; "q-not-
     monotone" draws q at random, so a chain's q need not fall toward its
     start; "invalid-cands" clears half the flags and ends two chains at
-    -1; "big-q" puts some q at or above BIG32 (2^30 - 1)."""
+    -1; "big-q" puts some q at or above BIG32 (2^30 - 1); "shared-suffix"
+    ends chains 1-3 on the long chain and the others on anchors whose
+    parent lies on it."""
     B, A, C, M, longest = MEMBER_CASES[name]
     rng = np.random.default_rng(sum(map(ord, name)))
     t = np.sort(rng.integers(0, 4_600_000, (B, A)), axis=1)
@@ -609,9 +640,19 @@ def member_case(name):
         if name == "big-q":
             hi = rng.random(A) < 0.3
             qq = np.where(hi, BIG32 - 2 + rng.integers(0, 5, A), qq)
-        q[b] = qq
         ends = rng.integers(0, A, C)
         ends[0] = long_ids[-1]
+        if name == "shared-suffix":
+            ends[1:4] = rng.choice(long_ids[-M:-1], 3, replace=False)
+            off = rng.choice(np.flatnonzero(~on_long[1:]) + 1, C - 4,
+                             replace=False)
+            for c, i in enumerate(off, start=4):
+                below = long_ids[long_ids < i]
+                parent[b, i] = below[int(rng.integers(len(below) // 2,
+                                                      len(below)))]
+                qq[i] = qq[parent[b, i]] + int(rng.integers(1, 40))
+                ends[c] = i
+        q[b] = qq
         end_idx[b] = ends
     valid = rng.random((B, C)) < 0.8
     if name == "invalid-cands":
