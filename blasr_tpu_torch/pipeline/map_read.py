@@ -460,6 +460,34 @@ def _saturate_i32(x: torch.Tensor) -> torch.Tensor:
                        torch.where(lo, -2147483648, safe)).to(torch.int32)
 
 
+class OneBatch:
+    """map_batch's batch-level choices, made over the batch it is given:
+    the order of the DP rows (and, with ``C_dp < C``, which candidates get
+    one), the rows of the SDP pass, and the rows that get a traceback
+    slot.  ``dist.mesh``'s data axis gives map_batch a subclass that makes
+    them over the whole batch of a group of ranks, each holding a block."""
+
+    def n_reads(self, B: int) -> int:
+        """The reads of the batch the choices are made over."""
+        return B
+
+    def dp_rows(self, rank, span, n_dp: int) -> torch.Tensor:
+        """This batch's DP rows, as candidate indices [n_dp], in the
+        batch's order: the first ``n_dp`` by ``rank``, then by ``span``
+        (both stable)."""
+        sel = torch.argsort(rank, stable=True)[:n_dp]
+        return sel[torch.argsort(span[sel], stable=True)]
+
+    def first(self, key, k: int):
+        """(the DP rows among the first ``k`` of the batch's rows by
+        ``key``, stable; their places in that list)."""
+        rows = torch.argsort(key, stable=True)[:k]
+        return rows, torch.arange(rows.shape[0], device=key.device)
+
+
+ONE_BATCH = OneBatch()
+
+
 def map_batch(index: DeviceIndex, reads, read_len, submat, gap_costs,
               sig_thresh=0.0, min_interval_weight=0.0, sdp_bypass=1e6,
               qv1=None, qv2=None, qv_rescore=None, *,
@@ -474,7 +502,8 @@ def map_batch(index: DeviceIndex, reads, read_len, submat, gap_costs,
               cand_drift: float = 0.0, full_widen: bool = False,
               tb_cap: int = 0, use_hp: bool = False, use_qv: bool = False,
               qv_score_type: int = 0,
-              occ_block_sample: bool = False) -> PackedBatch:
+              occ_block_sample: bool = False,
+              choices: OneBatch = ONE_BATCH) -> PackedBatch:
     """One batch through the device pipeline (the JAX ``map_batch``
     without its profiling options).
 
@@ -489,7 +518,8 @@ def map_batch(index: DeviceIndex, reads, read_len, submat, gap_costs,
     ``qv_score_type`` 0 the reported score of a traced row is the distance
     rescore of its path with ``qv_rescore`` (float32 [4]: match, mismatch,
     ins, del).  ``occ_block_sample`` samples over-abundant seeds as a
-    contiguous occurrence window (K5's block mode)."""
+    contiguous occurrence window (K5's block mode).  ``choices`` makes the
+    batch-level choices (:class:`OneBatch`: over this batch)."""
     dev = reads.device
     f32, i32, i64 = torch.float32, torch.int32, torch.int64
     B = reads.shape[0]
@@ -563,14 +593,14 @@ def map_batch(index: DeviceIndex, reads, read_len, submat, gap_costs,
     # similar query spans grouped for the DP
     n2 = 2 * B
     c_dp = C_dp if C_dp > 0 else C
-    n_dp = n2 * c_dp
+    n2_all = 2 * choices.n_reads(B)         # strand rows of the whole batch
+    n_dp = n2_all * c_dp
     flat_valid = cands.valid.reshape(-1)
     c_rank = torch.arange(C, dtype=i64, device=dev).repeat(n2)
     sc_i = cands.score.reshape(-1).clamp(0, 131071).to(i64)
     rank = torch.where(flat_valid, c_rank * 131072 + (131071 - sc_i), BIG32)
-    sel = torch.argsort(rank, stable=True)[:n_dp]
-    span_key = -cands.q_end.reshape(-1)[sel]
-    sel = sel[torch.argsort(span_key, stable=True)]
+    sel = choices.dp_rows(rank, -cands.q_end.reshape(-1), n_dp)
+    n_rows = sel.shape[0]                   # the DP rows of these reads
     sel_valid = flat_valid[sel]
 
     def pick(x):
@@ -637,19 +667,20 @@ def map_batch(index: DeviceIndex, reads, read_len, submat, gap_costs,
         # strand-row plus lower-ranked ones whose guide has an anchor
         # desert wider than the band
         from blasr_tpu_torch.kernels.sdp import window_fragment_diags_banded
-        n_sdp = min(3 * n2, n_dp)
+        n_sdp = min(3 * n2_all, n_dp)
         gmask = (sel % C) < 2
         mv = mqs < BIG32
         desert = ((mv[:, 1:] & mv[:, :-1]
                    & (mqs[:, 1:] - mqs[:, :-1] > w_b)).any(dim=1)
                   & sel_valid & no_bypass)
         prio = torch.where(gmask, 0, torch.where(desert, 1, 2))
-        srows = torch.argsort(prio, stable=True)[:n_sdp]
+        srows = choices.first(prio, n_sdp)[0]
         rk2, rv2 = read_kmer_keys(reads2, rlen2, k_sdp)
         rr = read_row[srows]
         wfd, wfo = window_fragment_diags_banded(
             rk2[rr], rv2[rr], windows[srows],
-            torch.full((n_sdp,), W, dtype=i64, device=dev), offs[srows],
+            torch.full((srows.shape[0],), W, dtype=i64, device=dev),
+            offs[srows],
             k=k_sdp, occ=sdp_occ, w_b=w_b)
         fd2 = torch.cat([frag_diag[srows], wfd], dim=2)
         fo2 = torch.cat([frag_ok[srows],
@@ -694,19 +725,18 @@ def map_batch(index: DeviceIndex, reads, read_len, submat, gap_costs,
 
     # traceback compaction: the top nCandidates alignments per READ (both
     # strands, DP score with deterministic ties) get a traceback
-    n_tb = min(B * C, n_dp)
+    n_tb = min(n2_all // 2 * C, n_dp)
     read_of = read_row % B
     sc_key = torch.where(valid_sel, torch.where(res.valid, res.score,
                                                 0.0).to(i64), BIG32)
-    ii = torch.arange(n_dp, device=dev)
+    ii = torch.arange(n_rows, device=dev)
     same_read = read_of[:, None] == read_of[None, :]
     better = ((sc_key[None, :] < sc_key[:, None])
               | ((sc_key[None, :] == sc_key[:, None])
                  & (ii[None, :] < ii[:, None])))
     tb_rank = (same_read & better).sum(dim=1)
     keep_tb = valid_sel & (tb_rank < C)
-    tb_rows = torch.argsort(torch.where(keep_tb, 0, 1),
-                            stable=True)[:n_tb]
+    tb_rows, tb_slots = choices.first(torch.where(keep_tb, 0, 1), n_tb)
 
     res_sub = type(res)(score=res.score[tb_rows], tbbits=res.tbbits[tb_rows],
                         final_state=res.final_state[tb_rows],
@@ -718,12 +748,12 @@ def map_batch(index: DeviceIndex, reads, read_len, submat, gap_costs,
     _mark("traceback", dev)
 
     def back(v):
-        out = torch.zeros((n_dp,), dtype=v.dtype, device=dev)
+        out = torch.zeros((n_rows,), dtype=v.dtype, device=dev)
         out[tb_rows] = v
         return out
 
-    slot_of_dp = torch.full((n_dp,), -1, dtype=i64, device=dev)
-    slot_of_dp[tb_rows] = torch.arange(n_tb, device=dev)
+    slot_of_dp = torch.full((n_rows,), -1, dtype=i64, device=dev)
+    slot_of_dp[tb_rows] = tb_slots
     slot_of_dp = torch.where(keep_tb, slot_of_dp, -1)
 
     def scatter(vals, fill=0):

@@ -23,7 +23,8 @@ two CTAs, three rounds) and times them
 in turns, A B B A (see ``compare_k1`` .. ``compare_k7``): K5, K6 and K7
 by their device time alone (``device_ms``), K5 and K6 also by the call's,
 K7 also by torch.profiler.  ``--device-times`` (run by phase 2 as a
-child) and ``--k4-kernels`` (phase 5's) are the script's own child modes.
+child), ``--k4-kernels`` (phase 5's) and ``--sharded-rank`` (phase 6's)
+are the script's own child modes.
 
 Phases (any failed check exits nonzero):
   1. header: torch / CUDA / nvcc versions, the card's name and power limit;
@@ -145,6 +146,25 @@ Phases (any failed check exits nonzero):
      (kernel ms - bound ms), with the kernel's ms as phase 2 times the
      call and as its device time inside the graphs of phase 5's passes,
      per launch (a mode's from its own traced pass).
+  6. ``sharded``, multi-device mapping (``blasr_tpu_torch/dist``) on the
+     bench workload: the port's CLI (-m 4, --device cuda) in this process,
+     then ``run_sharded`` on two hosts of this card (two ``python -c``
+     processes started together under BLASR_TPU_NUM_HOSTS=2): host 0's
+     merged file byte-identical to the same two shards mapped one after
+     another in this process, parts and sentinels removed, every run
+     launching K1-K7; the lines where it differs from the one process's
+     run printed (map_batch's SDP pass fills its last third of rows by
+     batch position, in the JAX package too), and with --sdpTupleSize 0
+     one host and two hosts byte-identical; then two ranks of a gloo group on
+     cuda:0 (``--sharded-rank``, the script's own child mode) on the
+     bench's first batch of bucket 2048: map_batch_ref_sharded (R = 2) on
+     the card equal to the same call on the CPU (plain versions) field for
+     field and >= 95% of the batch placed after globalize_sharded, and
+     map_batch_data_parallel (blocks of half the batch, the batch-level
+     choices made over the whole batch) equal on every rank to
+     single-rank map_batch over the whole batch on the card, array for
+     array; each step's wall time
+     and the runs' collectAlignments clocks printed.
 The second-to-last lines are a JSON kernel table and the card's name and
 power limit; the last line is ``{"ok": true, "device": {...}}``.
 Exits nonzero without a result when no CUDA device is present or when
@@ -160,6 +180,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from types import SimpleNamespace
 
 # the port needs neither JAX nor the JAX package: fail loudly if it does
 sys.modules["jax"] = None
@@ -1249,31 +1270,42 @@ def compare_k7(card, sources, reps: int = 20, rounds: int = 3) -> None:
                 f"{prof_ms} ms a launch; equal to plain on {card}")
 
 
+def first_batch(gi, sims, device):
+    """The bench workload's first batch in bucket 2048 as
+    Mapper._run_bucket forms it, on the host: (its Mapper on ``device``,
+    the SimReads of its reads, reads int8 [B, L], lengths int32 [B], and
+    the positional arguments and keywords of its map_batch call)."""
+    from blasr_tpu_torch.params import MappingParams, ShapeConfig
+    from blasr_tpu_torch.pipeline.map_read import Mapper
+    L = 2048
+    cfg = ShapeConfig(buckets=(1024, 2048), batch_size=32, max_anchors=512)
+    mapper = Mapper(gi, MappingParams().make_sane(), cfg, device=device)
+    batch = mapper.batch_size_for(L)
+    chosen = [s for s in sims if cfg.bucket_for(len(s.rec.seq)) == L]
+    chosen = chosen[:batch]
+    arr = np.full((batch, L), 4, np.int8)
+    lens = np.zeros(batch, np.int32)
+    for i, s in enumerate(chosen):
+        n = min(len(s.rec.seq), L)
+        arr[i, :n] = s.rec.seq[:n]
+        lens[i] = n
+    pos, kw = mapper._batch_call_args(L)
+    return mapper, chosen, arr, lens, pos, kw
+
+
 def bench_batch(gi, sims):
     """The bench workload's first batch in bucket 2048 as
     Mapper._run_bucket forms it: the arguments of its map_batch call and of
     the find_anchors call inside it, its anchors (K5), the chain arguments
-    map_batch passes and the device index."""
+    map_batch passes, the device index and the batch's SimReads."""
     from blasr_tpu_torch.kernels.anchor import find_anchors
-    from blasr_tpu_torch.params import MappingParams, ShapeConfig
-    from blasr_tpu_torch.pipeline.map_read import Mapper, _revcomp_batch
-    L = 2048
-    cfg = ShapeConfig(buckets=(1024, 2048), batch_size=32, max_anchors=512)
-    mapper = Mapper(gi, MappingParams().make_sane(), cfg, device="cuda")
-    batch = mapper.batch_size_for(L)
-    recs = [s.rec for s in sims if cfg.bucket_for(len(s.rec.seq)) == L]
-    arr = np.full((batch, L), 4, np.int8)
-    lens = np.zeros(batch, np.int32)
-    for i, r in enumerate(recs[:batch]):
-        n = min(len(r.seq), L)
-        arr[i, :n] = r.seq[:n]
-        lens[i] = n
+    from blasr_tpu_torch.pipeline.map_read import _revcomp_batch
+    mapper, chosen, arr, lens, pos, kw = first_batch(gi, sims, "cuda")
     dev = torch.device("cuda")
     reads = torch.from_numpy(arr).to(dev)
     rl = torch.from_numpy(lens).to(dev)
     reads2 = torch.cat([reads, _revcomp_batch(reads, rl)])
     rlen2 = torch.cat([rl, rl])
-    pos, kw = mapper._batch_call_args(L)
     ix = mapper.dev
     anchor_args = (ix.genome, ix.keys_sorted, ix.pos_sorted, reads2, rlen2)
     anchor_kw = dict(
@@ -1294,7 +1326,7 @@ def bench_batch(gi, sims):
                     drift_penalty=kw["cand_drift"])
     return dict(anchors=anchors, rlen2=rlen2, reads2=reads2,
                 chain_kw=chain_kw, ix=ix, reads=reads, rl=rl, pos=pos, kw=kw,
-                anchor_args=anchor_args, anchor_kw=anchor_kw)
+                anchor_args=anchor_args, anchor_kw=anchor_kw, sims=chosen)
 
 
 def anchors_bound(anchors, rlen2, kw):
@@ -1878,7 +1910,6 @@ def count_k4_kernels(card) -> int:
     function at the bench shape (N=192, L=2048, W=3072; sdp_bench_case's
     windows and planted read k-mers on a random genome); 0 if it issued
     exactly one CUDA kernel, K4."""
-    from types import SimpleNamespace
     from blasr_tpu_torch.kernels import sdp
     rng = np.random.default_rng(31)
     genome = rng.integers(0, 4, 1_000_000).astype(np.int8)
@@ -3170,6 +3201,20 @@ def log_captures(card, what: str) -> None:
             f"+{c['pool_bytes'] / 2**20:.1f} MiB on {card}")
 
 
+def placed_count(sims, per_read) -> int:
+    """The reads whose best alignment (lowest score) lies on the read's
+    strand and overlaps its simulated interval."""
+    placed = 0
+    for s, alns in zip(sims, per_read):
+        if not alns:
+            continue
+        best = min(alns, key=lambda a: a.score)
+        if (best.strand == s.strand and best.tstart < s.tend
+                and best.tend > s.tstart):
+            placed += 1
+    return placed
+
+
 def phase_bench(card, cuda_ops, gi, sims, mode: str, dev=None):
     """One bench pass in ``mode`` (BENCH_MODES) on the device index ``dev``,
     through graphs: a warm pass, which captures every key the pass
@@ -3221,14 +3266,7 @@ def phase_bench(card, cuda_ops, gi, sims, mode: str, dev=None):
         mapper.map_reads(recs)
     stages = st.totals()
     rps = len(recs) / wall
-    placed = 0
-    for s, alns in zip(sims, per_read):
-        if not alns:
-            continue
-        best = min(alns, key=lambda a: a.score)
-        if (best.strand == s.strand and best.tstart < s.tend
-                and best.tend > s.tstart):
-            placed += 1
+    placed = placed_count(sims, per_read)
     frac = placed / len(recs)
     log(f"# bench ({label}): {len(recs)} reads in {wall:.3f}s = {rps:.2f} "
         f"reads/s on {card} (graph replays); placed {placed}/{len(recs)} "
@@ -3561,6 +3599,308 @@ def phase_profile(card, gi, sims, dev, mode: str = "distance",
     return per_call, {name: n for name, (n, _) in by_name.items()}
 
 
+# ---------------------------------------------------------------- phase 6
+
+# the hand-written kernels of the bench's distance mode: each sharded run
+# on the card launches every one
+SHARDED_KERNELS = ("banded_dp",) + PATH_KERNELS
+BATCH_FIELDS = ("ints", "ops", "clusters", "flat")
+
+
+def mesh_static(pos, kw) -> dict:
+    """map_batch's keywords for the mesh functions: the bench call's, with
+    its thresholds (the positional arguments after the gap costs) named."""
+    return dict(kw, sig_thresh=float(pos[2]),
+                min_interval_weight=float(pos[3]), sdp_bypass=float(pos[4]))
+
+
+def sharded_rank(job_path: str, rank: int) -> int:
+    """``--sharded-rank JOB RANK``: one of two ranks of a gloo group at
+    ``tcp://localhost:JOB["port"]``, both on this card.  Builds the bench
+    world and its first batch of bucket 2048, then runs
+    map_batch_ref_sharded on a (1, 2) mesh on cuda:0 and on the CPU (the
+    plain versions) and map_batch_data_parallel on a (2, 1) mesh on cuda:0
+    against the batch Mapper's replicated index; writes each run's batch
+    to ``JOB["out"].rank<RANK>.npz`` and prints one ``SHARDED {json}``
+    line: each run's wall seconds (host clock, to its batch's host copy)
+    and the kernel launches it counted."""
+    import torch.distributed as dist
+    from blasr_tpu_torch.dist.mesh import (
+        make_mesh, map_batch_data_parallel, map_batch_ref_sharded)
+    from blasr_tpu_torch.kernels import cuda_ops
+    with open(job_path) as f:
+        job = json.load(f)
+    torch.set_num_threads(4)
+    dist.init_process_group("gloo", init_method="tcp://localhost:"
+                            f"{job['port']}", rank=rank, world_size=2)
+    try:
+        t0 = time.perf_counter()
+        gi, sims = bench_world()
+        mapper, _, arr, lens, pos, kw = first_batch(gi, sims, "cuda")
+        static = mesh_static(pos, kw)
+        times = {"world": time.perf_counter() - t0}
+        out, launches = {}, {}
+        for name, shape, device in (("ref_cuda", (1, 2), "cuda"),
+                                    ("ref_cpu", (1, 2), "cpu"),
+                                    ("data_cuda", (2, 1), "cuda")):
+            mesh = make_mesh(*shape, device=device)
+            dist.barrier()
+            cuda_ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            if name.startswith("ref"):
+                pb, offs, n_dp = map_batch_ref_sharded(
+                    mesh, gi, arr, lens, pos[0], pos[1], **static)
+                out["offs"], out["n_dp"] = offs, np.int64(n_dp)
+            else:
+                pb = map_batch_data_parallel(mesh, mapper.dev, arr, lens,
+                                             pos[0], pos[1], **static)
+            host = {f: getattr(pb, f).cpu().numpy() for f in BATCH_FIELDS}
+            times[name] = time.perf_counter() - t0
+            launches[name] = {k: n for k, n in cuda_ops.LAUNCHES.items()
+                              if n}
+            out.update({f"{name}.{f}": a for f, a in host.items()})
+        np.savez(f"{job['out']}.rank{rank}", **out)
+        print("SHARDED " + json.dumps(dict(rank=rank, times=times,
+                                           launches=launches)), flush=True)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def wait_all(procs, timeout: float, what: str) -> list:
+    """Each process's standard output once all have ended with 0; any left
+    running at ``timeout`` (or after another failed) is killed."""
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for i, (p, o) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            log(f"# {what} {i} exited {p.returncode}:\n{o[-3000:]}")
+        assert p.returncode == 0, f"{what} {i} exited {p.returncode}"
+    return outs
+
+
+def clock_of(metrics_path: str, name: str) -> float:
+    """A host clock from a ``--metrics`` summary file."""
+    with open(metrics_path) as f:
+        for line in f:
+            k, v = line.split()
+            if k == name:
+                return float(v)
+    raise AssertionError(f"{name} not in {metrics_path}")
+
+
+def two_host_split(run, argv, out: str) -> bytes:
+    """The CLI's run of ``argv`` as two hosts, one after another in this
+    process (BLASR_TPU_NUM_HOSTS=2), merged by merge_outputs: the bytes of
+    ``out``."""
+    from blasr_tpu_torch.dist.multihost import merge_outputs
+    try:
+        os.environ["BLASR_TPU_NUM_HOSTS"] = "2"
+        for h in range(2):
+            os.environ["BLASR_TPU_HOST_ID"] = str(h)
+            assert run(argv + ["--out", out]) == 0
+    finally:
+        os.environ.pop("BLASR_TPU_NUM_HOSTS", None)
+        os.environ.pop("BLASR_TPU_HOST_ID", None)
+    merge_outputs(out, 2, [])
+    with open(out, "rb") as f:
+        return f.read()
+
+
+def phase_sharded(card, cuda_ops, sims, bb) -> None:
+    """Phase 6 on the bench workload: run_sharded on two hosts of this card
+    (two processes together) against the same two shards mapped in this
+    process, byte for byte, and against one host's run (the lines that
+    differ are printed; without the SDP pass, byte for byte); then two
+    gloo ranks on cuda:0 (``--sharded-rank``): the
+    ref-sharded batch on the card equals it on the CPU (plain versions)
+    field for field and places >= 95% of the reads once globalized, and
+    the data-parallel output equals single-rank map_batch over the whole
+    batch on the card."""
+    from blasr_tpu_torch.cli.blasr import run
+    from blasr_tpu_torch.dist.mesh import globalize_sharded
+    from blasr_tpu_torch.io.fasta import write_fasta
+    from blasr_tpu_torch.pipeline.map_read import (PackedBatch, map_batch,
+                                                   unpack_batch)
+    from blasr_tpu_torch.sim import random_genome
+    from torch_dist_rank import free_port
+
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        genome, reads = os.path.join(d, "g.fa"), os.path.join(d, "r.fa")
+        write_fasta(genome, random_genome(4_600_000, seed=11))
+        write_fasta(reads, [s.rec for s in sims])
+        argv = [reads, genome, "-m", "4", "--device", "cuda"]
+        single, merged = os.path.join(d, "single.m4"), os.path.join(d, "o.m4")
+        log(f"# phase 6: bench FASTA written in "
+            f"{time.perf_counter() - t0:.1f}s")
+
+        cuda_ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        assert run(argv + ["--out", single, "--metrics",
+                           os.path.join(d, "metrics.single")]) == 0
+        wall = time.perf_counter() - t0
+        launched = dict(cuda_ops.LAUNCHES)
+        assert all(launched[k] > 0 for k in SHARDED_KERNELS), \
+            f"the single CLI run did not launch every kernel: {launched}"
+        log(f"# sharded 1/3, one process: CLI -m 4 over {len(sims)} reads "
+            f"in {wall:.2f}s (set-up, index and captures included), "
+            f"collectAlignments {clock_of(os.path.join(d, 'metrics.single'), 'collectAlignments'):.3f}s "
+            f"on {card}")
+
+        procs = []
+        t0 = time.perf_counter()
+        for h in range(2):
+            host_argv = argv + ["--out", merged, "--metrics",
+                                os.path.join(d, f"metrics.host{h}")]
+            code = ("import json, sys\n"
+                    "sys.modules['jax'] = None\n"
+                    "sys.modules['blasr_tpu'] = None\n"
+                    f"sys.path.insert(0, {HERE!r})\n"
+                    "from blasr_tpu_torch.dist.multihost import run_sharded\n"
+                    "from blasr_tpu_torch.kernels import cuda_ops\n"
+                    f"rc = run_sharded({host_argv!r})\n"
+                    "print('LAUNCHES ' + json.dumps(cuda_ops.LAUNCHES))\n"
+                    "sys.exit(rc)\n")
+            env = dict(os.environ, BLASR_TPU_NUM_HOSTS="2",
+                       BLASR_TPU_HOST_ID=str(h))
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", code], stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True, env=env, cwd=d))
+        outs = wait_all(procs, 600, "run_sharded host")
+        wall = time.perf_counter() - t0
+        for h, o in enumerate(outs):
+            line = [x for x in o.splitlines() if x.startswith("LAUNCHES ")]
+            launched = json.loads(line[-1][len("LAUNCHES "):])
+            assert all(launched[k] > 0 for k in SHARDED_KERNELS), \
+                f"host {h} did not launch every kernel: {launched}"
+            log(f"#   host {h}: collectAlignments "
+                f"{clock_of(os.path.join(d, f'metrics.host{h}'), 'collectAlignments'):.3f}s, "
+                f"launches {({k: n for k, n in launched.items() if n})}")
+        left = [f for f in os.listdir(d) if f.startswith("o.m4.host")]
+        assert not left, f"parts or sentinels left: {left}"
+        # the same two shards mapped one after another in this process and
+        # merged by merge_outputs: the batches run_sharded's hosts formed
+        t0 = time.perf_counter()
+        split = two_host_split(run, argv, os.path.join(d, "split.m4"))
+        log(f"# sharded 1/3, the two shards one after another in this "
+            f"process: {time.perf_counter() - t0:.2f}s")
+        with open(merged, "rb") as f1:
+            got = f1.read()
+        assert got and got == split, \
+            "run_sharded's merged m4 differs from the same two shards mapped " \
+            "in one process"
+        with open(single, "rb") as f1:
+            one = f1.read()
+        diff = sorted(set(one.decode().splitlines())
+                      ^ set(got.decode().splitlines()))
+        reads = sorted({x.split()[0] for x in diff})
+        log(f"# sharded 1/3, run_sharded on two hosts of one card: both "
+            f"processes in {wall:.2f}s (each with its own start, index and "
+            f"captures), merged by host 0: {len(got.splitlines())} lines, "
+            f"byte-identical to the same two shards mapped in one process; "
+            f"parts and sentinels removed; against one host's run "
+            f"({len(one.splitlines())} lines) {len(diff)} lines differ, of "
+            f"reads {reads} on {card}")
+        # what makes them differ: map_batch's SDP pass fills its last third
+        # of rows by batch position (the JAX package's map_batch does the
+        # same), so a read's alignment can depend on the reads batched with
+        # it.  Without the SDP pass the host count changes no byte.
+        t0 = time.perf_counter()
+        flat = argv + ["--sdpTupleSize", "0"]
+        one0 = os.path.join(d, "single0.m4")
+        assert run(flat + ["--out", one0]) == 0
+        with open(one0, "rb") as f1:
+            one0 = f1.read()
+        split0 = two_host_split(run, flat, os.path.join(d, "split0.m4"))
+        assert one0 and one0 == split0, \
+            "without the SDP pass, two hosts' merged m4 differs from one host's"
+        log(f"# sharded 1/3, --sdpTupleSize 0 (no SDP pass): one host and two "
+            f"hosts merged byte-identical, {len(one0.splitlines())} lines, in "
+            f"{time.perf_counter() - t0:.2f}s on {card}")
+
+    with tempfile.TemporaryDirectory() as d:
+        job = os.path.join(d, "job.json")
+        with open(job, "w") as f:
+            json.dump(dict(port=free_port(), out=os.path.join(d, "out")), f)
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--sharded-rank",
+             job, str(r)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True, cwd=HERE) for r in range(2)]
+        outs = wait_all(procs, 600, "sharded rank")
+        wall = time.perf_counter() - t0
+        ranks = [dict(np.load(os.path.join(d, f"out.rank{r}.npz")))
+                 for r in range(2)]
+    info = [json.loads([x for x in o.splitlines()
+                        if x.startswith("SHARDED ")][-1][len("SHARDED "):])
+            for o in outs]
+    log(f"# sharded ranks: two processes in {wall:.2f}s; per rank "
+        + "; ".join(json.dumps({k: round(v, 3) for k, v in i["times"].items()})
+                    for i in info) + f" (host clock, s) on {card}")
+
+    def batch(rank, name):
+        return PackedBatch(*(torch.from_numpy(rank[f"{name}.{f}"])
+                             for f in BATCH_FIELDS))
+
+    for i in info:
+        ln = i["launches"]
+        for name in ("ref_cuda", "data_cuda"):
+            assert all(ln[name].get(k, 0) > 0 for k in SHARDED_KERNELS), \
+                f"rank {i['rank']} {name} did not launch every kernel: {ln}"
+        assert not ln["ref_cpu"], f"the CPU run launched kernels: {ln}"
+        log(f"#   rank {i['rank']} launches: ref-sharded on the card "
+            f"{ln['ref_cuda']}; data-parallel {ln['data_cuda']}")
+
+    for r, rank in enumerate(ranks):
+        for f in BATCH_FIELDS:
+            a, b = rank[f"ref_cuda.{f}"], rank[f"ref_cpu.{f}"]
+            assert a.dtype == b.dtype and np.array_equal(a, b), \
+                f"rank {r}: ref-sharded {f} on the card differs from the CPU"
+            assert np.array_equal(a, ranks[0][f"ref_cuda.{f}"]), \
+                f"rank {r}: ref-sharded {f} differs from rank 0's"
+    res = unpack_batch(batch(ranks[0], "ref_cuda"))
+    n_dp = int(ranks[0]["n_dp"])
+    ts, te = globalize_sharded(res, ranks[0]["offs"], n_dp)
+    B = len(bb["sims"])
+    per_read = [[SimpleNamespace(score=res.score[row][c], strand=strand,
+                                 tstart=int(ts[row][c]), tend=int(te[row][c]))
+                 for strand, row in ((0, i), (1, B + i))
+                 for c in np.flatnonzero(res.valid[row]
+                                         & (res.dp_slot[row] >= 0))]
+                for i in range(B)]
+    share = placed_count(bb["sims"], per_read) / B
+    log(f"# sharded 2/3, map_batch_ref_sharded R=2 on two ranks of cuda:0 "
+        f"(gloo): the bench batch (B={len(bb['sims'])}, L=2048) equals the "
+        f"same call on the CPU (plain versions) in every field; offsets "
+        f"{ranks[0]['offs'].tolist()}, n_dp {n_dp}; placed "
+        f"{100 * share:.1f}% after globalize_sharded on {card}")
+    assert share >= 0.95, f"ref-sharded placed only {100 * share:.1f}%"
+
+    t0 = time.perf_counter()
+    whole = map_batch(bb["ix"], bb["reads"], bb["rl"], *bb["pos"], **bb["kw"])
+    whole = {f: getattr(whole, f).cpu().numpy() for f in BATCH_FIELDS}
+    wall = time.perf_counter() - t0
+    for r, rank in enumerate(ranks):
+        for f in BATCH_FIELDS:
+            a = rank[f"data_cuda.{f}"]
+            assert a.dtype == whole[f].dtype and np.array_equal(a, whole[f]), \
+                f"rank {r}: data-parallel {f} differs from map_batch on the " \
+                "whole batch"
+    log(f"# sharded 3/3, map_batch_data_parallel on two ranks of cuda:0 "
+        f"(gloo), blocks of {bb['reads'].shape[0] // 2} reads, the batch-level "
+        f"choices made over the whole batch: each rank's output equals "
+        f"single-rank map_batch over the whole batch on the card "
+        f"({wall:.3f}s, host clock), array for array, on {card}")
+
+
 def main() -> int:
     global np, torch
     try:
@@ -3597,6 +3937,8 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--k4-kernels"]:
         return count_k4_kernels(card)
+    if sys.argv[1:2] == ["--sharded-rank"]:
+        return sharded_rank(sys.argv[2], int(sys.argv[3]))
     if sys.argv[1:] == ["--device-times"]:
         sys.path.insert(0, os.path.join(HERE, "tests"))
         return k5k6_device_times(card)
@@ -3666,6 +4008,9 @@ def main() -> int:
             f"{a} | {b} x {n[:110]}" for n, (a, b) in sorted(differ.items()))))
     check_k4_one_kernel()
     log(f"# phase 5 done in {time.time() - t0:.1f}s")
+    t0 = time.time()
+    phase_sharded(card, cuda_ops, sims, bb)
+    log(f"# phase 6 (sharded) done in {time.time() - t0:.1f}s")
     assert "jax" not in sys.modules or sys.modules["jax"] is None
     loaded = [m for m in sys.modules if m.startswith("blasr_tpu.")]
     assert not loaded, f"JAX-package modules were loaded: {loaded}"

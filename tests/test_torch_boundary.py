@@ -61,8 +61,13 @@ COPIES = [
     ("pipeline/extend.py", "pipeline/extend.py", "module"),
     ("pipeline/onegap.py", "pipeline/onegap.py", "module"),
     ("io/formats.py", "io/formats.py", None),
+    # the two that differ are held to their seams by
+    # test_multihost_differs_only_at_its_seams
     ("dist/multihost.py", "dist/multihost.py",
-     ["shard_reads", "shard_path"]),
+     ["shard_reads", "shard_path", "merge_outputs", "_out_path_of",
+      "init_distributed", "run_sharded"]),
+    # the host pieces of the mesh; the rest is torch.distributed
+    ("dist/mesh.py", "dist/mesh.py", ["shard_index", "globalize_sharded"]),
     ("kernels/sw.py", "kernels/sw.py", "module"),
     ("cli/sw_matcher.py", "cli/sw_matcher.py", "module"),
     # every top-level function; the two that differ are held to their
@@ -101,6 +106,13 @@ ALLOWED = {
     # torch.profiler trace, no JAX compile cache, contextlib imported at
     # the top
     "run",
+    # dist/multihost.py: a torch.distributed launch (WORLD_SIZE, RANK
+    # beside MASTER_ADDR, or an initialised default group) in place of
+    # jax.distributed; no process group is started
+    "init_distributed",
+    # dist/multihost.py: the docstring only (the port's CLI, a barrier
+    # that needs no process group)
+    "run_sharded",
 }
 
 # what the port's cli/blasr.py changes in the functions ALLOWED names: a
@@ -187,6 +199,27 @@ def test_cli_differs_only_at_its_seams(name):
     assert ast.dump(port) != ast.dump(orig)
     assert ast.dump(_strip_cli_seams(port)) == \
         ast.dump(_strip_cli_seams(orig)), f"cli/blasr.py {name} drifted"
+
+
+def _body(node):
+    """A function's statements after its docstring."""
+    return [ast.dump(s) for s in node.body[1:]]
+
+
+def test_multihost_differs_only_at_its_seams():
+    """dist/multihost.py's two ALLOWED functions: run_sharded is its JAX
+    original but for the docstring; init_distributed keeps the original's
+    BLASR_TPU_* overrides first and its (0, 1) last, and differs only
+    between them."""
+    port = _defs(os.path.join(ROOT, "blasr_tpu_torch", "dist",
+                              "multihost.py"))
+    orig = _defs(os.path.join(ROOT, "blasr_tpu", "dist", "multihost.py"))
+    for name in ("run_sharded", "init_distributed"):
+        assert ast.dump(port[name]) != ast.dump(orig[name])
+        assert ast.dump(port[name].args) == ast.dump(orig[name].args)
+    assert _body(port["run_sharded"]) == _body(orig["run_sharded"])
+    p, o = _body(port["init_distributed"]), _body(orig["init_distributed"])
+    assert p[0] == o[0] and p[-1] == o[-1] and p[1:-1] != o[1:-1]
 
 
 def test_port_runs_without_jax(tmp_path):

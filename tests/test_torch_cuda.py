@@ -5,7 +5,9 @@ chain members) against their plain PyTorch versions, on a card; the
 Mapper's batches as CUDA graph replays (``pipeline/graphs.py``) against
 eager dispatch; and the
 pairwise SDP path (``sdp_align``, the ``sdpMatcher`` CLI) on the card
-against the same calls on the CPU.  Skipped without a CUDA
+against the same calls on the CPU; the multi-device paths
+(``dist/mesh.py``) on two gloo ranks of the card against the same ranks on
+the CPU.  Skipped without a CUDA
 device.  K1 in every mode and K2-K6 take the edge inputs of
 ``tests/torch_edge_cases.py`` (K2 its planted walks and K1's cell words
 on the K1 edge shapes, the hp ones included), on which
@@ -20,6 +22,8 @@ file there without the conftest:
 
     python -m pytest --noconftest -o addopts="" -m cuda tests/test_torch_cuda.py
 """
+
+import json
 
 import numpy as np
 import pytest
@@ -924,3 +928,110 @@ def test_graph_pool_freed_with_its_index(graph_world):
     assert key not in graphs._CACHES
     torch.cuda.empty_cache()
     assert torch.cuda.memory_reserved() <= held - pool
+
+
+# ---------------------------------------- multi-device mapping (dist/mesh)
+
+def _mesh_world():
+    """tests/test_dist.py's world through the port's copies: a 50 kb genome
+    (seed 21, k = 12), eight simulated reads of 150-226 bp in L = 256; the
+    matrix and map_batch's keywords of that test, with the Mapper's
+    short-tuple SDP pass (k_sdp = 11), so every kernel runs."""
+    from blasr_tpu_torch.params import ShapeConfig
+    from blasr_tpu_torch.sim import random_genome, simulate_reads
+    L = 256
+    contigs = random_genome(50_000, seed=21)
+    gi = build_genome_index(contigs, k=12)
+    sims = simulate_reads(contigs, 8, read_len=(150, L - 30), accuracy=0.9,
+                          seed=22)
+    reads = np.full((8, L), 4, dtype=np.int8)
+    lens = np.zeros(8, dtype=np.int32)
+    for i, s in enumerate(sims):
+        n = min(len(s.rec.seq), L)
+        reads[i, :n] = s.rec.seq[:n]
+        lens[i] = n
+    submat = np.asarray(MappingParams().make_sane().score_matrix,
+                        np.float32).reshape(25)
+    W = ShapeConfig(buckets=(L,), band_width=128).window_len(L)
+    static = dict(cfg_k=12, L=L, W=W, w_b=128, C=4, A=64, O=4, E=36,
+                  T=L + W, max_chain=64, min_match=12,
+                  max_anchors_per_pos=1000, max_lcp=0, indel_rate=0.3,
+                  k_sdp=11)
+    return gi, reads, lens, submat, static
+
+
+def test_mesh_ranks_on_card_equal_cpu(cuda, tmp_path):
+    """map_batch_ref_sharded on a (1, 2) mesh and map_batch_data_parallel
+    on a (2, 1) mesh, two gloo ranks on this card, each shard's map_batch
+    launching K1-K7, equal the same ranks on the CPU array for array; the
+    data-parallel output is one map_batch over the whole batch on the
+    card."""
+    from torch_dist_rank import finish_ranks, start_ranks
+    gi, reads, lens, submat, static = _mesh_world()
+    inp = str(tmp_path / "world.npz")
+    np.savez(inp, reads=reads, lens=lens, submat=submat,
+             gaps=np.asarray([4, 4, 5, 5], np.float32))
+    cases = [dict(name=f"{kind}-{dev}", kind=kind, n_data=nd, n_ref=nr,
+                  device=dev, glen=50_000, gseed=21, inputs=inp,
+                  static=static)
+             for kind, nd, nr in (("ref", 1, 2), ("data", 2, 1))
+             for dev in ("cuda", "cpu")]
+    out = finish_ranks(start_ranks(tmp_path, cases))
+    kernels = ("banded_dp", "banded_traceback", "chain_scan", "sdp_window",
+               "anchor_search", "band_offsets", "chain_members")
+    for kind in ("ref", "data"):
+        for card, host in zip(out[f"{kind}-cuda"], out[f"{kind}-cpu"]):
+            for f in ("ints", "ops", "clusters", "flat"):
+                np.testing.assert_array_equal(card[f], host[f], err_msg=f)
+            launched = json.loads(str(card["launches"]))
+            assert all(launched[k] > 0 for k in kernels), launched
+            assert not any(json.loads(str(host["launches"])).values())
+    whole = tmr.map_batch(
+        tmr.DeviceIndex.from_host(gi, "cuda"),
+        torch.from_numpy(reads).cuda(), torch.from_numpy(lens).cuda(),
+        submat, [4.0, 4.0, 5.0, 5.0, 0.0, 0.0], use_pallas=True, **static)
+    for card in out["data-cuda"]:
+        for f in ("ints", "ops", "clusters", "flat"):
+            np.testing.assert_array_equal(
+                card[f], getattr(whole, f).cpu().numpy(), err_msg=f)
+
+
+def test_shard_lut_forms_map_the_same_on_card(cuda):
+    """The port's shard index derives bucket_pairs from bucket_starts (the
+    JAX shard index has none): K5 reads either LUT, and map_batch on a
+    shard gives one batch with either, on the card and on the CPU."""
+    from blasr_tpu_torch.dist import mesh
+    gi, reads, lens, submat, static = _mesh_world()
+    shards = mesh.shard_index(gi, 2, fast_path=True)
+    g6 = [4.0, 4.0, 5.0, 5.0, 0.0, 0.0]
+    flats = []
+    for dev in ("cuda", "cpu"):
+        idx = mesh.shard_device_index(gi, shards, 0, dev)
+        for ix in (idx, idx._replace(bucket_pairs=None)):
+            flats.append(tmr.map_batch(
+                ix, torch.from_numpy(reads).to(dev),
+                torch.from_numpy(lens).to(dev), submat, g6,
+                use_pallas=True, **static).flat.cpu())
+    for f in flats[1:]:
+        assert torch.equal(f, flats[0])
+
+
+def test_merge_on_card_equals_cpu(cuda):
+    """merge_ref_shards (plain torch: the JAX merge is XLA outside any
+    Pallas kernel) gives one batch on CUDA tensors and on the CPU, on
+    random shard outputs with tied scores, invalid rows and a fault."""
+    from blasr_tpu_torch.dist.mesh import merge_ref_shards
+    rng = np.random.default_rng(3)
+    R, n2, C, n_dp, half, c_stat = 3, 8, 4, 16, 24, 16
+    ints = rng.integers(0, 4, (R, n2, C, tmr.N_COLS)).astype(np.int32)
+    ints[..., tmr.COL_VALID] = rng.integers(0, 2, (R, n2, C))
+    ints[..., tmr.COL_DPSLOT] = rng.integers(-1, n_dp, (R, n2, C))
+    ops = rng.integers(0, 1 << 20, (R, n_dp, half)).astype(np.int32)
+    cl = rng.integers(0, 3, (R, n2, c_stat, 2)).astype(np.int32)
+    faults = np.asarray([0, 0, 1], np.int32)
+    outs = [merge_ref_shards(*(torch.from_numpy(a).to(dev)
+                               for a in (ints, ops, cl, faults)))
+            for dev in ("cuda", "cpu")]
+    for f in ("ints", "ops", "clusters", "flat"):
+        assert torch.equal(getattr(outs[0], f).cpu(), getattr(outs[1], f))
+    assert int(outs[1].flat[-1]) == 1
