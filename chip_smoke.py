@@ -174,6 +174,7 @@ the blasr_tpu_torch package is not beside this file.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import subprocess
@@ -2026,18 +2027,30 @@ def make_hpstr(d):
 
 
 def make_small_bwt(d, small):
-    """tests/test_golden.py::make_small_bwt's --bwt input, built with the
-    port's own BWT code (the JAX test makes it with sawriter and sa2bwt;
-    either BWT inverts to the same genome)."""
-    from blasr_tpu_torch.index.bwt import build_bwt, save_bwt
-    from blasr_tpu_torch.index.genome import concat_contigs
-    from blasr_tpu_torch.io.fasta import read_fasta
+    """tests/test_golden.py::make_small_bwt's --bwt input, built as that
+    test builds it, with the port's sawriter and sa2bwt."""
     reads, genome, _ = small
-    codes, seqdb = concat_contigs(read_fasta(genome))
-    bwt, counts = build_bwt(codes)
-    save_bwt(os.path.join(d, "genome.bwt"), bwt, counts, seqdb.names,
-             seqdb.lengths)
-    return reads, genome, ["--bwt", os.path.join(d, "genome.bwt.npz")]
+    return reads, genome, ["--bwt", tools_index(d, genome, "--bwt")]
+
+
+def tools_index(d, genome, kind: str) -> str:
+    """The index the port's sawriter --fullSuffixArray (``--sa``), then its
+    sa2bwt (``--bwt``), build from ``genome`` in folder ``d``."""
+    from blasr_tpu_torch.cli.sa2bwt import run as sa2bwt_run
+    from blasr_tpu_torch.cli.sawriter import run as sawriter_run
+    os.makedirs(d, exist_ok=True)
+    t0 = time.time()
+    sa = os.path.join(d, "genome.sa.npz")
+    if not os.path.exists(sa):
+        assert sawriter_run([sa, genome, "--fullSuffixArray"]) == 0
+    out = sa
+    if kind == "--bwt":
+        out = os.path.join(d, "genome.bwt.npz")
+        assert sa2bwt_run([genome, sa, out]) == 0
+    log(f"# {kind} index of {os.path.basename(genome)} built by the port's "
+        f"sawriter{' and sa2bwt' if kind == '--bwt' else ''} in "
+        f"{time.time() - t0:.1f}s")
+    return out
 
 
 def make_zmw(d):
@@ -2460,6 +2473,196 @@ def phase_mapper_modes(worlds, cuda_ops):
             assert alone != on_card, "the rescue Mapper changed nothing"
         out[needed] = launches
     return out
+
+
+# the static arguments of map_batch that the options of phase_options set
+OPTION_KWARGS = ("O", "A", "C", "k_sdp", "sdp_occ", "p_value_type",
+                 "lookback", "global_chain", "advance_exact", "full_widen")
+
+
+def option_worlds(worlds):
+    """The worlds of tests/test_torch_options_*.py (copied: those modules
+    import JAX), each as (index, reads, ShapeConfig)."""
+    from blasr_tpu_torch.index.genome import build_genome_index
+    from blasr_tpu_torch.io.fasta import FastaRecord, read_sequences
+    from blasr_tpu_torch.params import ShapeConfig
+    from blasr_tpu_torch.sim import random_genome, simulate_reads
+    reads, genome, _ = worlds["small"]
+    out = {"small": (build_genome_index(list(read_sequences(genome)), k=12),
+                     list(read_sequences(reads))[:5],
+                     ShapeConfig(buckets=(1024,), batch_size=5))}
+    # test_flags.py::repeat_genome_world and its read
+    g = random_genome(40_000, seed=31)[0].seq.copy()
+    seg = g[5000:6500].copy()
+    for pos in (15000, 25000, 35000):
+        g[pos:pos + 1500] = seg
+    out["repeat"] = (build_genome_index([FastaRecord("contig0", g)], k=12),
+                     [FastaRecord("rep/9/0_1300", seg[100:1400].copy())],
+                     ShapeConfig(buckets=(2048,), batch_size=1,
+                                 occ_per_pos=1))
+    # test_repetitive.py:139's tandem unit, a read inside the repeat
+    rng = np.random.default_rng(4)
+    unit = rng.integers(0, 4, 600).astype(np.int8)
+    g = np.concatenate([np.tile(unit, 10),
+                        rng.integers(0, 4, 5000).astype(np.int8)])
+    out["tandem"] = (build_genome_index([FastaRecord("c", g)], k=12),
+                     [FastaRecord("r", unit[:400])],
+                     ShapeConfig(buckets=(512,), batch_size=1))
+    # test_sdp_guide.py::desert_world
+    contigs = random_genome(20_000, seed=77)
+    g = contigs[0].seq
+    desert = g[3000:3600].copy()
+    desert[::10] = (desert[::10] + 1) % 4
+    rs = np.concatenate([g[2000:3000], desert, g[3750:5000]])
+    out["desert"] = (build_genome_index(contigs, k=12),
+                     [FastaRecord("desert/1/0_%d" % len(rs), rs)],
+                     ShapeConfig(buckets=(4096,), batch_size=1))
+    # tests/conftest.py's genome and test_torch_options_weak.py's read
+    contigs = random_genome(200_000, seed=42, n_contigs=2)
+    frag = contigs[0].seq[3000:4000].copy()
+    frag[::16] = (frag[::16] + 1) % 4
+    rng = np.random.default_rng(1)
+    m = rng.random(len(frag)) < 0.15
+    frag[m] = (frag[m] + rng.integers(1, 4, int(m.sum()))) % 4
+    out["weak"] = (build_genome_index(contigs, k=12),
+                   [FastaRecord("weak/1/0_1000", frag)],
+                   ShapeConfig(buckets=(1024,), batch_size=1, occ_per_pos=1,
+                               max_anchors=64))
+    # test_pipeline.py's world
+    contigs = random_genome(120_000, seed=5, n_contigs=2)
+    out["batch"] = (build_genome_index(contigs, k=12),
+                    [s.rec for s in simulate_reads(
+                        contigs, 20, read_len=(300, 900), accuracy=0.87,
+                        seed=7)],
+                    ShapeConfig(buckets=(1024,), batch_size=8,
+                                max_anchors=256))
+    return out
+
+
+# (option, world, MappingParams fields, what the run's map_batch calls
+# must show): the device-changing options of tests/test_torch_options_*.py
+POLICY = dict(hit_policy="all", n_best=10)
+OPTION_CASES = [
+    ("--advanceExactMatches 5", "small", dict(advance_exact_matches=5),
+     lambda a: a[0]["advance_exact"] == 5),
+    ("--globalChainType 1", "small", dict(global_chain_type=1),
+     lambda a: a[0]["global_chain"]),
+    ("--nowarp", "small", dict(warp=False),
+     lambda a: not a[0]["global_chain"]),
+    ("--pvaltype 1", "small", dict(p_value_type=1),
+     lambda a: a[0]["p_value_type"] == 1),
+    ("--pvaltype 2", "small", dict(p_value_type=2),
+     lambda a: a[0]["p_value_type"] == 2),
+    ("--advanceHalf", "small", dict(advance_half=True),
+     lambda a: a[0]["lookback"] == 256),
+    ("--minExpand 2", "repeat", dict(min_expand=2, max_expand=2, **POLICY),
+     lambda a: a[0]["O"] > 1),
+    ("--maxAnchorsPerPosition 64 (emit-all)", "repeat",
+     dict(max_anchors_per_position=64, **POLICY),
+     lambda a: a[0]["O"] == 64),
+    ("the ambiguity rescue's deep pass", "tandem", {},
+     lambda a: a[-1]["full_widen"] and a[-1]["C"] >= 32
+     and a[-1]["A"] >= 2048),
+    ("--fastSDP --sdpTupleSize 8", "desert",
+     dict(sdp_tuple_size=8, fast_sdp=True),
+     lambda a: a == [dict(a[0], k_sdp=8, sdp_occ=1)]),
+    ("--useSensitiveSearch", "weak", dict(do_sensitive_search=True),
+     lambda a: [(x["O"], x["A"], x["advance_exact"]) for x in a]
+     == [(1, 64, 0), (2, 128, 0)]),
+]
+
+
+@contextlib.contextmanager
+def batch_call_args():
+    """The map_batch kwargs Mapper._batch_call_args builds while the block
+    runs: [the OPTION_KWARGS of each distinct call, in call order]."""
+    from blasr_tpu_torch.pipeline.map_read import Mapper
+    seen, orig = [], Mapper._batch_call_args
+
+    def rec(self, L, tb_cap=0):
+        pos, kw = orig(self, L, tb_cap)
+        args = {k: kw[k] for k in OPTION_KWARGS}
+        if args not in seen:
+            seen.append(args)
+        return pos, kw
+    Mapper._batch_call_args = rec
+    try:
+        yield seen
+    finally:
+        Mapper._batch_call_args = orig
+
+
+def phase_options(d, worlds, cuda_ops):
+    """C15 on the card: each device-changing option of
+    tests/test_torch_options_*.py mapped on cuda (launch counts zeroed
+    just before and read just after: K1 and every PATH_KERNELS kernel)
+    and held to the same run on cpu, every alignment's fields and the
+    option's map_batch arguments; batch-size invariance (batch 3 against
+    batch 8) on cuda; then the small world through the CLI on the port
+    sawriter's ``--sa`` index, cuda against cpu."""
+    from blasr_tpu_torch.cli.blasr import run as cli
+    from blasr_tpu_torch.params import MappingParams
+    from blasr_tpu_torch.pipeline.map_read import Mapper
+    ow = option_worlds(worlds)
+    kernels = ("banded_dp",) + PATH_KERNELS
+
+    def mapped(world, p, device, cfg=None):
+        gi, recs, c = ow[world]
+        with batch_call_args() as args:
+            out = mapper_fields(Mapper(gi, p, cfg or c, device=device)
+                                .map_reads(recs))
+        return out, args
+
+    for label, world, kw, shows in OPTION_CASES:
+        p = MappingParams(**kw).make_sane()
+        cuda_ops.reset_launch_counts()
+        t0 = time.time()
+        on_card, card_args = mapped(world, p, "cuda")
+        torch.cuda.synchronize()
+        launches = {k: cuda_ops.LAUNCHES[k] for k in kernels}
+        t1 = time.time()
+        on_cpu, cpu_args = mapped(world, p, "cpu")
+        log(f"# {label} ({world} world): {sum(map(len, on_card))} "
+            f"alignments of {len(on_card)} reads; cuda == cpu: "
+            f"{on_card == on_cpu} (cuda {t1 - t0:.1f}s, cpu "
+            f"{time.time() - t1:.1f}s); map_batch calls {card_args}; "
+            f"launches {launches}")
+        assert on_card == on_cpu, f"{label}: cuda and cpu differ"
+        assert card_args == cpu_args and shows(card_args), \
+            f"{label}: map_batch arguments {card_args}"
+        assert all(on_card), f"{label}: a read did not map"
+        assert all(launches.values()), f"{label}: launches {launches}"
+    c = ow["batch"][2]
+    p = MappingParams().make_sane()
+    cuda_ops.reset_launch_counts()
+    t0 = time.time()
+    by8, _ = mapped("batch", p, "cuda")
+    by3, _ = mapped("batch", p, "cuda", dataclasses.replace(c, batch_size=3))
+    launches = {k: cuda_ops.LAUNCHES[k] for k in kernels}
+    log(f"# batch-size invariance on cuda (20 reads, batch 8 and 3): "
+        f"identical {by8 == by3} ({time.time() - t0:.1f}s); launches "
+        f"{launches}")
+    assert by8 == by3 and all(launches.values())
+    # the port's own sawriter index through --sa
+    reads, genome, _ = worlds["small"]
+    sa = tools_index(os.path.join(d, "tools"), genome, "--sa")
+    text = {}
+    for device in ("cuda", "cpu"):
+        cuda_ops.reset_launch_counts()
+        t0 = time.time()
+        out = os.path.join(d, f"out.sa.{device}.m4")
+        assert cli([reads, genome, "-m", "4", "--sa", sa, "--out", out,
+                    "--device", device]) == 0
+        text[device] = open(out).read()
+        launches = {k: cuda_ops.LAUNCHES[k] for k in kernels}
+        log(f"# --sa (the port's sawriter index), small world on {device}: "
+            f"{len(text[device].splitlines())} lines "
+            f"({time.time() - t0:.1f}s); launches {launches}")
+        if device == "cuda":
+            assert all(launches.values()), launches
+    assert text["cuda"] and text["cuda"] == text["cpu"], \
+        "--sa: cuda and cpu differ"
+    log("# --sa on cuda == cpu: True")
 
 
 @contextlib.contextmanager
@@ -3275,7 +3478,7 @@ def phase_bench(card, cuda_ops, gi, sims, mode: str, dev=None):
         "event nodes of each graph, summed over batches): "
         + json.dumps({k: round(v, 3) for k, v in stages.items()}))
     log("# host clocks (s): " + json.dumps(
-        {k: round(v, 3) for k, v in clocks.items()})
+        {k: round(v, 6) for k, v in clocks.items()})
         + " counters: " + json.dumps(counters))
     log(f"# main-path launches ({label}): {launches}; dispatches "
         f"{json.dumps(calls)}")
@@ -3972,6 +4175,10 @@ def main() -> int:
         t0 = time.time()
         mode_runs = phase_mapper_modes(worlds, cuda_ops)
         log(f"# phase 3 Mapper modes done in {time.time() - t0:.1f}s")
+        t0 = time.time()
+        phase_options(d, worlds, cuda_ops)
+        log(f"# phase 3 C15 options and the tools' --sa index done in "
+            f"{time.time() - t0:.1f}s")
         t0 = time.time()
         phase_modes(d, cuda_ops)
         log(f"# phase 3 modes done in {time.time() - t0:.1f}s")

@@ -6,7 +6,8 @@
 * Every module, function and class the port copied from ``blasr_tpu``
   (params, sim, the io and index modules, the native helpers, the host
   half of map_read, metrics, scoring, select, longread, extend, onegap,
-  zmw, the multihost helpers, formats, the full SW and swMatcher)
+  zmw, the multihost helpers, formats, the full SW and swMatcher, the
+  index and FASTA tools)
   matches its original by
   ``ast.dump``, module names normalized; the differences the port needs
   are listed below.
@@ -41,6 +42,7 @@ COPIES = [
     ("io/dataset.py", "io/dataset.py", "module"),
     ("io/refsa.py", "io/refsa.py", "module"),
     ("io/refbin.py", "io/refbin.py", "module"),
+    ("index/__init__.py", "index/__init__.py", "module"),
     ("index/genome.py", "index/genome.py", "module"),
     ("index/suffix_array.py", "index/suffix_array.py", "module"),
     ("index/bwt.py", "index/bwt.py", "module"),
@@ -48,8 +50,10 @@ COPIES = [
     ("native/__init__.py", "native/__init__.py",
      ["sais_native", "cigar_native", "cigar_native_batch", "runs_to_list",
       "bwt_invert_native"]),
-    ("cli/bwt2sa.py", "cli/bwt2sa.py", ["contigs_from_concat"]),
-    ("cli/small_tools.py", "cli/small_tools.py", ["load_ctab"]),
+    ("cli/sawriter.py", "cli/sawriter.py", "module"),
+    ("cli/sa2bwt.py", "cli/sa2bwt.py", "module"),
+    ("cli/bwt2sa.py", "cli/bwt2sa.py", "module"),
+    ("cli/small_tools.py", "cli/small_tools.py", "module"),
     ("pipeline/map_read.py", "pipeline/map_read.py",
      ["Alignment", "LazyCigar", "unpack_pairs", "pairs_to_cigar",
       "split_match_runs", "merge_adjacent_indels", "Mapper"]),
