@@ -12,6 +12,7 @@
 
 extern "C" int blasr_banded_dp_setup();
 extern "C" int blasr_banded_traceback_setup();
+extern "C" int blasr_banded_dp_wide_setup();
 extern "C" int blasr_chain_scan_setup();
 extern "C" int blasr_sdp_window_setup();
 extern "C" int blasr_anchor_search_setup();
@@ -23,7 +24,7 @@ extern "C" int blasr_setup_kernels() {
       blasr_banded_dp_setup,     blasr_banded_traceback_setup,
       blasr_chain_scan_setup,    blasr_sdp_window_setup,
       blasr_anchor_search_setup, blasr_band_offsets_setup,
-      blasr_chain_members_setup};
+      blasr_chain_members_setup, blasr_banded_dp_wide_setup};
   for (auto step : steps) {
     const int rc = step();
     if (rc != 0) return rc;

@@ -12,7 +12,8 @@ packed (op | count << 2) halfword pairs.
   device; the mapping path calls it only on CPU tensors (the CUDA path is
   :func:`blasr_tpu_torch.kernels.pallas_banded.banded_align_cuda`).
 * :func:`banded_traceback` launches the hand-written CUDA walk (``K2``,
-  ``csrc/banded_traceback.cu``) on CUDA tensors and runs
+  ``csrc/banded_traceback.cu``; ``K2-W``, ``csrc/banded_traceback_wide.cu``,
+  at a band width other than 128) on CUDA tensors and runs
   :func:`banded_traceback_plain` on CPU tensors.
 
 All costs are integer-valued float32 below 2^24, so every comparison that
@@ -82,9 +83,14 @@ def pair_capacity(t_max: int) -> int:
 def _shift(padded: torch.Tensor, k: torch.Tensor, w_b: int) -> torch.Tensor:
     """out[n, w] = row[n, w + k[n]] where padded = [fill, row, fill*w_b].
 
-    The start index clamps into [0, w_b + 1] exactly as
-    ``lax.dynamic_slice`` clamps it."""
-    start = (k + 1).clamp(0, w_b + 1)
+    The start index k + 1 is taken as ``lax.dynamic_slice`` takes it: a
+    negative one counts from the end of the padded row (numpy style), then
+    it clamps into [0, w_b + 1].  So a band that steps back (k < -1: the
+    diagonal predecessor at a shift of -1 or less, the vertical one at -2
+    or less) reads only fill, as in the JAX kernel."""
+    start = k + 1
+    start = torch.where(start < 0, start + padded.shape[1], start)
+    start = start.clamp(0, w_b + 1)
     idx = start[:, None] + torch.arange(w_b, device=padded.device)
     return padded.gather(1, idx)
 
@@ -464,8 +470,8 @@ def banded_traceback_plain(result: BandedResult, offsets, qa, qb, ta, tb, *,
 
 def banded_traceback(result: BandedResult, offsets, qa, qb, ta, tb, *,
                      t_max: int, w_b: int = 128) -> TracebackResult:
-    """Run-length traceback: the CUDA walk (K2) on CUDA tensors, the plain
-    version on CPU tensors."""
+    """Run-length traceback: the CUDA walk (K2, or K2-W at a band width
+    other than 128) on CUDA tensors, the plain version on CPU tensors."""
     return on_device(
         "banded_traceback", result.tbbits.device,
         lambda: banded_traceback_plain(result, offsets, qa, qb, ta, tb,

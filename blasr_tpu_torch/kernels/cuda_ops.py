@@ -39,7 +39,8 @@ _PKG_DIR = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG_DIR / "csrc"
 SOURCES = ("banded_dp.cu", "banded_traceback.cu", "chain_scan.cu",
            "sdp_window.cu", "anchor_search.cu", "band_offsets.cu",
-           "chain_members.cu", "setup.cu")
+           "chain_members.cu", "banded_dp_wide.cu",
+           "banded_traceback_wide.cu", "setup.cu")
 HEADERS = ("block_scan.cuh", "setup.cuh", "chain_members_plan.h")
 BUILD_DIR = _PKG_DIR.parent / "build" / "blasr_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -50,7 +51,12 @@ LAUNCHES = {"banded_dp": 0, "banded_dp_qv": 0, "banded_dp_hp": 0,
             "banded_dp_gen": 0, "banded_dp_hp_gen": 0, "banded_dp_qv_gen": 0,
             "banded_traceback": 0, "chain_scan": 0, "sdp_window": 0,
             "anchor_search": 0, "anchor_search_block": 0, "band_offsets": 0,
-            "chain_members": 0}
+            "chain_members": 0, "banded_dp_w": 0, "banded_dp_w_qv": 0,
+            "banded_dp_w_hp": 0, "banded_dp_w_gen": 0,
+            "banded_dp_w_hp_gen": 0, "banded_dp_w_qv_gen": 0,
+            "banded_traceback_w": 0}
+# the band width of K1 and K2; K1-W and K2-W take every other one
+K1_WIDTH = 128
 # K7's calls by path since the last reset (csrc/chain_members_plan.h):
 # "lift" (the shared path: the lifting table in shared memory, one CTA a
 # row), "chase" (a warp a chain over the row's parents staged in shared
@@ -157,6 +163,12 @@ ARGTYPES = {
     "blasr_banded_dp_mode": (_I, [_P] * 9 + [_I] * 5 + [_P] + [_F] * 8
                              + [_P] * 4 + [_P]),
     "blasr_banded_traceback": (_I, [_P] * 8 + [_I] * 3 + [_P] * 7 + [_P]),
+    "blasr_banded_dp_wide": (_I, [_P] * 9 + [_I] * 6 + [_P] + [_F] * 8
+                             + [_P] * 5 + [_P]),
+    "blasr_banded_dp_wide_ws_bytes": (ctypes.c_size_t, [_I]),
+    "blasr_banded_dp_wide_max_smem": (_I, []),
+    "blasr_banded_traceback_wide": (_I, [_P] * 8 + [_I] * 4 + [_P] * 7
+                                    + [_P]),
     "blasr_chain_scan": (_I, [_P] * 3 + [_I] + [_P] * 3 + [_I] * 5
                          + [_F] * 3 + [_I, _F, _I, _I] + [_P] * 10
                          + [_P, _LL] + [_P]),
@@ -245,10 +257,13 @@ def _launched(rc: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA launch failed with error {rc}")
 
 
-def dp_launch_key(use_qv: bool, use_hp: bool, gen: bool) -> str:
-    """The :data:`LAUNCHES` key of a K1 mode: ``banded_dp`` with ``_qv``,
-    ``_hp`` and ``_gen`` (a general matrix) as they apply."""
-    return ("banded_dp" + ("_qv" if use_qv else "") + ("_hp" if use_hp else "")
+def dp_launch_key(use_qv: bool, use_hp: bool, gen: bool,
+                  w_b: int = K1_WIDTH) -> str:
+    """The :data:`LAUNCHES` key of a K1 mode: ``banded_dp`` (``banded_dp_w``
+    for K1-W, a band width other than 128) with ``_qv``, ``_hp`` and
+    ``_gen`` (a general matrix) as they apply."""
+    return ("banded_dp" + ("_w" if w_b != K1_WIDTH else "")
+            + ("_qv" if use_qv else "") + ("_hp" if use_hp else "")
             + ("_gen" if gen else ""))
 
 
@@ -256,10 +271,12 @@ def banded_dp_launch(reads, windows, offsets, qa, qb, ta, tb, *,
                      match: float, mismatch: float, ins_open: float,
                      ins_ext: float, del_open: float, del_ext: float,
                      qv1=None, qv2=None, submat=None, use_hp: bool = False,
-                     hp_open: float = 0.0,
-                     hp_ext: float = 0.0) -> BandedResult:
+                     hp_open: float = 0.0, hp_ext: float = 0.0,
+                     w_b: int = K1_WIDTH) -> BandedResult:
     """K1 on CUDA tensors: reads/windows int8 [N, L]/[N, W], offsets int32
-    [N, L] (slope 0..2 per active row), qa..tb int32 [N].  With qv1/qv2
+    [N, L] (slope 0..2 per active row), qa..tb int32 [N].  At a band width
+    ``w_b`` other than 128 it launches K1-W (``csrc/banded_dp_wide.cu``)
+    in the same mode instead, which takes any offsets.  With qv1/qv2
     (int32 [N, L] packed QV tracks) it launches K1-QV, which takes its
     costs from the tracks and only ``match`` from the arguments.
     ``use_hp`` adds the homopolymer-insertion band at ``hp_open`` /
@@ -291,9 +308,11 @@ def banded_dp_launch(reads, windows, offsets, qa, qb, ta, tb, *,
         m = np.ascontiguousarray(submat, dtype=np.float32).reshape(-1)
         if m.shape != (25,):
             raise ValueError(f"submat has {m.size} entries, expected 25")
-    key = dp_launch_key(use_qv, use_hp, gen)
+    if w_b < 1:
+        raise ValueError(f"band width {w_b}")
+    key = dp_launch_key(use_qv, use_hp, gen, w_b)
     score = torch.empty(N, dtype=torch.float32, device=dev)
-    tbbits = torch.empty((N, L, 128), dtype=torch.int32, device=dev)
+    tbbits = torch.empty((N, L, w_b), dtype=torch.int32, device=dev)
     state = torch.empty(N, dtype=torch.int32, device=dev)
     valid = torch.empty(N, dtype=torch.bool, device=dev)
     if N == 0:
@@ -303,9 +322,25 @@ def banded_dp_launch(reads, windows, offsets, qa, qb, ta, tb, *,
             valid.data_ptr())
     ins = (reads.data_ptr(), windows.data_ptr(), offsets.data_ptr(),
            qa.data_ptr(), qb.data_ptr(), ta.data_ptr(), tb.data_ptr())
+    scratch = None
+    if w_b != K1_WIDTH:
+        # K1-W's workspace, in shared memory where it fits
+        ws = lib.blasr_banded_dp_wide_ws_bytes(w_b)
+        if ws > lib.blasr_banded_dp_wide_max_smem():
+            scratch = torch.empty(N * ws, dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if use_hp or gen:
+        if w_b != K1_WIDTH:
+            rc = lib.blasr_banded_dp_wide(
+                *ins, qv1.data_ptr() if use_qv else None,
+                qv2.data_ptr() if use_qv else None, N, L, W, w_b,
+                int(use_hp), int(gen), m.ctypes.data if gen else None,
+                float(match), float(mismatch), float(ins_open),
+                float(ins_ext), float(del_open), float(del_ext),
+                float(hp_open), float(hp_ext),
+                None if scratch is None else scratch.data_ptr(), *outs,
+                stream)
+        elif use_hp or gen:
             rc = lib.blasr_banded_dp_mode(
                 *ins, qv1.data_ptr() if use_qv else None,
                 qv2.data_ptr() if use_qv else None, N, L, W, int(use_hp),
@@ -328,22 +363,22 @@ def banded_dp_launch(reads, windows, offsets, qa, qb, ta, tb, *,
 
 
 def banded_traceback_cuda(result: BandedResult, offsets, qa, qb, ta, tb, *,
-                          t_max: int, w_b: int = 128) -> TracebackResult:
-    """K2 on CUDA tensors (same contract as ``banded_traceback_plain``)."""
+                          t_max: int, w_b: int = K1_WIDTH) -> TracebackResult:
+    """K2 on CUDA tensors (same contract as ``banded_traceback_plain``); at
+    a band width other than 128, K2-W (``csrc/banded_traceback_wide.cu``)."""
     tbb = result.tbbits
     dev = tbb.device
     if dev.type != "cuda":
         raise ValueError("banded_traceback_cuda needs CUDA tensors")
-    if w_b != 128:
-        raise ValueError("the CUDA traceback walks 128-cell bands")
     N, L, _ = tbb.shape
-    _check(tbb, "tbbits", torch.int32, (N, L, 128), dev)
+    _check(tbb, "tbbits", torch.int32, (N, L, w_b), dev)
     _check(offsets, "offsets", torch.int32, (N, L), dev)
     for name, x in (("qa", qa), ("qb", qb), ("ta", ta), ("tb", tb),
                     ("final_state", result.final_state)):
         _check(x, name, torch.int32, (N,), dev)
     _check(result.valid, "valid", torch.bool, (N,), dev)
-    if tbb.data_ptr() % 16:
+    wide = w_b != K1_WIDTH
+    if not wide and tbb.data_ptr() % 16:
         raise ValueError("K2 copies 16-byte aligned rows of tbbits: its "
                          "storage must start 16-byte aligned")
     P = pair_capacity(t_max)
@@ -353,18 +388,21 @@ def banded_traceback_cuda(result: BandedResult, offsets, qa, qb, ta, tb, *,
     overflow = torch.empty(N, dtype=torch.bool, device=dev)
     if N > 0:
         lib = _load(dev)
+        ins = (tbb.data_ptr(), offsets.data_ptr(), qa.data_ptr(),
+               qb.data_ptr(), ta.data_ptr(), tb.data_ptr(),
+               result.final_state.data_ptr(), result.valid.data_ptr())
+        outs = (pairs.data_ptr(), *(c.data_ptr() for c in counts),
+                overflow.data_ptr())
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-            rc = lib.blasr_banded_traceback(
-                tbb.data_ptr(), offsets.data_ptr(), qa.data_ptr(),
-                qb.data_ptr(), ta.data_ptr(), tb.data_ptr(),
-                result.final_state.data_ptr(), result.valid.data_ptr(),
-                N, L, P, pairs.data_ptr(), counts[0].data_ptr(),
-                counts[1].data_ptr(), counts[2].data_ptr(),
-                counts[3].data_ptr(), counts[4].data_ptr(),
-                overflow.data_ptr(), stream)
-        _launched(rc, "banded_traceback")
-        LAUNCHES["banded_traceback"] += 1
+            if wide:
+                rc = lib.blasr_banded_traceback_wide(*ins, N, L, w_b, P,
+                                                     *outs, stream)
+            else:
+                rc = lib.blasr_banded_traceback(*ins, N, L, P, *outs, stream)
+        key = "banded_traceback_w" if wide else "banded_traceback"
+        _launched(rc, key)
+        LAUNCHES[key] += 1
     return TracebackResult(pairs=pairs, n_pairs=counts[0],
                            n_match=counts[1], n_mismatch=counts[2],
                            n_ins=counts[3], n_del=counts[4],

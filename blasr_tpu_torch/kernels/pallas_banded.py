@@ -2,14 +2,16 @@
 and of the forms of ``blasr_tpu/kernels/banded.py::banded_align`` that the
 Pallas kernel does not take).
 
-``banded_align_cuda`` has ``banded_align``'s contract with band width 128
-and a band offset that advances by 0, 1 or 2 per row.  On CUDA tensors it
-launches the hand-written kernel K1 (``csrc/banded_dp.cu``) in the mode
-its arguments ask for: distance (K1), the packed QV tracks ``qv1``/``qv2``
-(K1-QV), the homopolymer-insertion band ``use_hp`` (K1-HP), each with a
-two-valued score matrix (match on the ACGT diagonal, one mismatch value
-elsewhere) or, in its GEN form, any 5x5 matrix; on CPU tensors it runs
-the plain version, :func:`blasr_tpu_torch.kernels.banded.banded_align`.
+``banded_align_cuda`` has ``banded_align``'s contract.  On CUDA tensors
+at band width 128 it launches the hand-written kernel K1
+(``csrc/banded_dp.cu``), whose band offset must advance by 0, 1 or 2 per
+row, and at any other width K1-W (``csrc/banded_dp_wide.cu``), which takes
+any offsets; each in the mode its arguments ask for: distance (K1), the
+packed QV tracks ``qv1``/``qv2`` (K1-QV), the homopolymer-insertion band
+``use_hp`` (K1-HP), each with a two-valued score matrix (match on the ACGT
+diagonal, one mismatch value elsewhere) or, in its GEN form, any 5x5
+matrix.  On CPU tensors it runs the plain version,
+:func:`blasr_tpu_torch.kernels.banded.banded_align`.
 """
 
 from __future__ import annotations
@@ -71,16 +73,14 @@ def banded_align_cuda(reads, windows, offsets, qa, qb, ta, tb, submat,
                       hp_ext=0.0, qv1=None, qv2=None,
                       slope_checked: bool = False) -> BandedResult:
     """Same contract as ``banded_align`` (forward pass in any of its
-    modes) plus band width 128 and the slope limit (module docstring).
-    A two-valued matrix runs K1's two-valued form, any other its GEN
-    form.  On CUDA the call checks the slope, which waits on the device,
-    unless the caller did so already (``slope_checked``: ``map_batch``
-    computes :func:`slope_fault` and raises when its batch is
-    unpacked)."""
-    if w_b != 128:
-        raise ValueError(f"banded_align_cuda needs w_b == 128, got {w_b}")
+    modes), plus K1's slope limit at band width 128 (module docstring).
+    A two-valued matrix runs the kernel's two-valued form, any other its
+    GEN form.  On CUDA at band 128 the call checks the slope, which waits
+    on the device, unless the caller did so already (``slope_checked``:
+    ``map_batch`` computes :func:`slope_fault` and raises when its batch
+    is unpacked); K1-W has no limit to check."""
     def launch(ops):
-        if not slope_checked:
+        if w_b == ops.K1_WIDTH and not slope_checked:
             check_slope(offsets, qa, qb)
         m = np.asarray(torch.as_tensor(submat).detach().cpu(),
                        dtype=np.float32).reshape(25)
@@ -90,7 +90,7 @@ def banded_align_cuda(reads, windows, offsets, qa, qb, ta, tb, submat,
             ins_ext=float(ins_ext), del_open=float(del_open),
             del_ext=float(del_ext), qv1=qv1, qv2=qv2,
             submat=None if two_valued(m) else m, use_hp=use_hp,
-            hp_open=float(hp_open), hp_ext=float(hp_ext))
+            hp_open=float(hp_open), hp_ext=float(hp_ext), w_b=w_b)
 
     return on_device(
         "banded_align_cuda", reads.device,

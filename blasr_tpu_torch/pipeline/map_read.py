@@ -510,8 +510,10 @@ def map_batch(index: DeviceIndex, reads, read_len, submat, gap_costs,
     reads int8 [B, L] and read_len int32 [B] live on the index's device;
     ``submat`` is the flattened 5x5 matrix (numpy, host), ``gap_costs`` the
     six floats (ins_open, ins_ext, del_open, del_ext, hp_open, hp_ext).
-    ``use_pallas`` (band width 128) sends the DP to K1 on CUDA, in the
-    mode the other flags ask for: ``use_hp`` the homopolymer-insertion
+    On CUDA the DP runs K1 at band width 128 and K1-W at any other
+    (``use_pallas``, band 128, also sends CPU tensors through K1's entry,
+    whose slope fault the batch then carries), in the mode the other flags
+    ask for: ``use_hp`` the homopolymer-insertion
     band (K1-HP), ``use_qv`` the QV-steered DP (K1-QV) on the packed
     per-read cost tracks qv1/qv2 (int32 [B, L], forward orientation), a
     matrix that is not two-valued the GEN form of either; with
@@ -707,19 +709,17 @@ def map_batch(index: DeviceIndex, reads, read_len, submat, gap_costs,
         qv2_2 = torch.cat([qv2, _revcomp_qv(qv2, read_len)], dim=0)
         qv = dict(qv1=qv1_2[read_row].contiguous(),
                   qv2=qv2_2[read_row].contiguous())
-    if use_pallas:
-        # K1's slope limit, checked on the device: the flag rides in flat
-        # and unpack_batch raises on it
-        fault = slope_fault(dp_args[2], dp_args[3], dp_args[4])
+    fault = torch.zeros((), dtype=torch.bool, device=dev)
+    if use_pallas or dev.type == "cuda":
+        # K1 at band 128, K1-W at any other width (the plain DP on CPU
+        # tensors); K1's slope limit is checked on the device: the flag
+        # rides in flat and unpack_batch raises on it
+        if w_b == 128:
+            fault = slope_fault(dp_args[2], dp_args[3], dp_args[4])
         res = banded_align_cuda(*dp_args, submat, *g, w_b=w_b, **hp, **qv,
                                 slope_checked=True)
-    elif dev.type == "cpu":
-        fault = torch.zeros((), dtype=torch.bool, device=dev)
-        res = banded_align(*dp_args, submat, *g, w_b=w_b, **hp, **qv)
     else:
-        raise NotImplementedError(
-            "a band width other than 128 runs only on the CPU in "
-            "blasr_tpu_torch (K1 takes band 128)")
+        res = banded_align(*dp_args, submat, *g, w_b=w_b, **hp, **qv)
     valid_sel = sel_valid & res.valid
     _mark("banded_dp", dev)
 
@@ -1052,12 +1052,6 @@ class Mapper:
         if rescue is not None and rescue.device != self.device:
             raise ValueError(f"the rescue Mapper runs on {rescue.device}, "
                              f"this one on {self.device}")
-        # K1 takes band 128 in every mode; other widths run the plain DP,
-        # on CPU tensors only
-        if self.device.type == "cuda" and self.cfg.band_width != 128:
-            raise NotImplementedError(
-                f"band width {self.cfg.band_width} runs only on the CPU in "
-                "blasr_tpu_torch (K1 takes band 128)")
         self.dev = (dev if dev is not None
                     else DeviceIndex.from_host(gi, self.device))
         # map_batch gathers every bucket's windows from the padded genome
@@ -1078,7 +1072,8 @@ class Mapper:
                                        dtype=torch.float32,
                                        device=self.device)
         # K1 on CUDA (the plain DP on CPU tensors) in every mode: distance,
-        # QV, the affine path's hp band, each with any matrix
+        # QV, the affine path's hp band, each with any matrix; map_batch
+        # runs K1-W on CUDA at any other band width
         self.use_pallas = self.cfg.band_width == 128
         if p.affine_align:
             gaps = [p.affine_open + p.insertion, max(p.affine_extend, 1),

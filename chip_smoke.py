@@ -29,8 +29,9 @@ are the script's own child modes.
 Phases (any failed check exits nonzero):
   1. header: torch / CUDA / nvcc versions, the card's name and power limit;
      build the hand-written kernels K1 (banded DP: distance, QV, hp band,
-     each with a two-valued or a general matrix),
-     K2 (traceback walk), K3 (chain scan), K4 (SDP window pass), K5 (anchor
+     each with a two-valued or a general matrix; K1-W the same at any
+     other band width),
+     K2 (traceback walk; K2-W at any other band width), K3 (chain scan), K4 (SDP window pass), K5 (anchor
      search), K6 (band offsets) and K7 (chain members) from
      ``blasr_tpu_torch/csrc``, one nvcc per source, all at once;
   2. each kernel against its plain PyTorch version at the main path's
@@ -51,7 +52,8 @@ Phases (any failed check exits nonzero):
      inputs of tests/torch_edge_cases.py; K4 (the whole
      window_fragment_diags_banded, one launch) at N=192, L=2048,
      W=3072, D=512, occ 2 and 1, on bench-genome windows with planted
-     read k-mers, and on the edge inputs; K3 at A=8192 (past one
+     read k-mers, and on the edge inputs (at band widths 128, 64 and
+     256, as K6's); K3 at A=8192 (past one
      block's shared memory) and K4 at L=65536 (a row over 64 CTAs); K5
      on the bench batch (the
      find_anchors call of its map_batch, and the same call in K5's block
@@ -65,7 +67,12 @@ Phases (any failed check exits nonzero):
      captured from the batch's map_batch; the lifting path, counted in
      MEMBER_PATHS), on sdp_align's call on the 64-pair world (B=64, C=1,
      M=256, A=1024) and on the edge inputs, anchors int64 and int32, its
-     call timed as K3's;
+     call timed as K3's; K1-W (the banded DP at band widths other than
+     128, csrc/banded_dp_wide.cu) in its six modes (distance, QV, hp,
+     and the GEN form of each) and K2-W (the walk at those widths) on
+     their cell words at t_max = 3T/8 and T, against the plain versions at
+     w_b 48, 64, 256 (N=64, L=256) and 1100 (L=1024), exact, timed with CUDA
+     events;
   3. the golden worlds of tests/test_golden.py through the port's CLI with
      ``--device cuda``, byte for byte against tests/golden/, each group
      launching K1 (or K1-QV, K1-HP) and K2-K6 and every batch a replay of
@@ -93,7 +100,13 @@ Phases (any failed check exits nonzero):
      of this slice, each on cuda (its kernel launched) == cpu:
      --affineAlign --useQuality (K1-QV), --scoreMatrix alone, with
      --affineAlign and with --useQuality (K1-GEN, K1-HP-GEN, K1-QV-GEN), a
-     rescue Mapper and occ_block_sample (K5's block mode); then two simulated
+     rescue Mapper and occ_block_sample (K5's block mode); the Mapper at
+     ShapeConfig(band_width=64) and (band_width=256) on the small world,
+     and at band 64 in K1-W's other five modes, each on cuda after a
+     warmup (its K1-W mode, K2-W and K3-K7 launched, never K1 or K2, every
+     batch a graph replay) == cpu in every Alignment field; the port's
+     samtom4 and samFilter on the golden.sam the card wrote; then two
+     simulated
      reads of ~40 kb on a 1 Mbp genome (bucket 65536) and one of ~100 kb
      (map_long_reads: two segments at bucket 65536, stitched) mapped on
      the card, each on its simulated interval and strand, dispatched
@@ -196,6 +209,8 @@ SDP_SRC = "blasr_tpu_torch/csrc/sdp_window.cu"
 ANCHOR_SRC = "blasr_tpu_torch/csrc/anchor_search.cu"
 BAND_SRC = "blasr_tpu_torch/csrc/band_offsets.cu"
 MEMBERS_SRC = "blasr_tpu_torch/csrc/chain_members.cu"
+DP_WIDE_SRC = "blasr_tpu_torch/csrc/banded_dp_wide.cu"
+TB_WIDE_SRC = "blasr_tpu_torch/csrc/banded_traceback_wide.cu"
 # published H100 SXM peaks: HBM bytes/s, float32 (non-tensor-core) ops/s
 HBM_BPS = 3.35e12
 F32_OPS = 67e12
@@ -423,20 +438,20 @@ def cold_ms(fn, reps: int) -> float:
     return sum(a.elapsed_time(b) for a, b in evs) / reps
 
 
-def check_walk(res, rest, t_max: int, name: str):
-    """K2 (banded_traceback on CUDA tensors) against the plain walk, every
-    output exactly; its pair buffer is handed out dirty first, so the
-    zeros after each stop are the kernel's own.  Returns (K2's result,
-    max |diff|)."""
+def check_walk(res, rest, t_max: int, name: str, w_b: int = 128):
+    """K2 (banded_traceback on CUDA tensors; K2-W at a band width other
+    than 128) against the plain walk, every output exactly; its pair
+    buffer is handed out dirty first, so the zeros after each stop are the
+    kernel's own.  Returns (K2's result, max |diff|)."""
     from blasr_tpu_torch.kernels.banded import (banded_traceback,
                                                 banded_traceback_plain,
                                                 pair_capacity)
     N = res.tbbits.shape[0]
     torch.full((N, pair_capacity(t_max) // 2), -1, dtype=torch.int32,
                device="cuda")
-    k2 = banded_traceback(res, *rest, t_max=t_max)
+    k2 = banded_traceback(res, *rest, t_max=t_max, w_b=w_b)
     torch.cuda.synchronize()
-    pl = banded_traceback_plain(res, *rest, t_max=t_max)
+    pl = banded_traceback_plain(res, *rest, t_max=t_max, w_b=w_b)
     torch.cuda.synchronize()
     for f in k2._fields:
         a, b = getattr(k2, f), getattr(pl, f)
@@ -738,6 +753,142 @@ def k1_mode_edges(modes) -> float:
         f"(the tile edges and the homopolymer world): exact; K2 == plain on "
         f"their hp cell words at t_max = 3T/8 and T: exact")
     return tb_err
+
+
+# the band widths K4 and K6 take their edge inputs at in phase 2 (the
+# Mapper runs them at any width since K1-W)
+EDGE_WIDTHS = (128, 64, 256)
+# K1-W's six modes (csrc/banded_dp_wide.cu) with their float32 operations
+# per active cell (K1's counts: the recurrence is the same per cell)
+WIDE_MODE_OPS = {"distance": K1_OPS_PER_CELL, "qv": K1QV_OPS_PER_CELL,
+                 "hp": HP_OPS_PER_CELL, "gen": K1_OPS_PER_CELL,
+                 "hp-gen": HP_OPS_PER_CELL, "qv-gen": K1QV_OPS_PER_CELL}
+# the band widths phase 2 holds K1-W and K2-W at; the kernel line reports
+# K1-W's and K2-W's times at WIDE_LINE_WIDTH
+# with the rows L of each case: 256 rows at the narrow widths keep the 24
+# plain DP calls (~3 ms a row each) short, 1024 at 1100 (288 MB of cells)
+WIDE_SMOKE_WIDTHS = {48: 256, 64: 256, 256: 256, 1100: 1024}
+WIDE_LINE_WIDTH = 256
+
+
+def wide_mode_kw(mode, qv, w_b):
+    """(banded_align arguments after the gap costs, banded_dp_launch's
+    keyword arguments, the matrix, the gap costs, the launch key) of a
+    K1-W mode at band width ``w_b``."""
+    from blasr_tpu_torch.kernels.cuda_ops import dp_launch_key
+    from blasr_tpu_torch.kernels.pallas_banded import two_valued
+    from torch_edge_cases import DEFAULT_SUBMAT, K1_MODES, k1_mode_kwargs
+    if mode in ("distance", "qv"):
+        sub, gaps, kw = DEFAULT_SUBMAT, (4.0, 4.0, 5.0, 5.0), {}
+        use_qv = mode == "qv"
+    else:
+        sub, gaps, kw = k1_mode_kwargs(mode)
+        use_qv = K1_MODES[mode][3]
+    if use_qv:
+        kw = dict(kw, **qv)
+    gen = not two_valued(sub)
+    lkw = dict(match=float(sub[0]), mismatch=float(sub[1]),
+               ins_open=gaps[0], ins_ext=gaps[1], del_open=gaps[2],
+               del_ext=gaps[3], submat=sub if gen else None, w_b=w_b, **kw)
+    return kw, lkw, sub, gaps, dp_launch_key(use_qv, "use_hp" in kw, gen,
+                                             w_b)
+
+
+def phase_wide(card):
+    """K1-W in its six modes and K2-W on their cell words against the
+    plain versions at band widths 48, 64, 256 and 1100 (N = 64 items, L =
+    WIDE_SMOKE_WIDTHS[w_b] rows, the window of
+    ShapeConfig(band_width=w_b)), exactly; each
+    launch once of its own count; K1-W's launch and K2-W's call timed with
+    CUDA events (3 back to back), the plain versions on their one call.
+    Returns the kernel line's entries, their times at WIDE_LINE_WIDTH."""
+    from blasr_tpu_torch.kernels import cuda_ops
+    from blasr_tpu_torch.kernels.banded import (BandedResult, banded_align,
+                                                banded_traceback,
+                                                banded_traceback_plain,
+                                                pair_capacity)
+    from blasr_tpu_torch.kernels.pallas_banded import banded_align_cuda
+    from blasr_tpu_torch.params import MappingParams, ShapeConfig
+    dev = torch.device("cuda")
+    params = MappingParams().make_sane()
+    N = 64
+    out = {}
+    for w_b, L in WIDE_SMOKE_WIDTHS.items():
+        W = ShapeConfig(band_width=w_b).window_len(L)
+        T = L + W
+        rng = np.random.default_rng(w_b)
+        arrs = random_case(rng, N, L, W, w_b=w_b)
+        args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                for a in arrs]
+        q1, q2 = qv_words(rng, N, L, params, 6)
+        qv = dict(qv1=torch.from_numpy(q1).to(dev),
+                  qv2=torch.from_numpy(q2).to(dev))
+        qa, qb = args[3], args[4]
+        cells = float((qb - qa).sum()) * w_b
+        k1_bytes = (N * L + N * W + 4 * N * L + 16 * N
+                    + 4 * w_b * N * L + 9 * N)
+        words = []
+        for mode, ops in WIDE_MODE_OPS.items():
+            kw, lkw, sub, gaps, key = wide_mode_kw(mode, qv, w_b)
+            before = cuda_ops.LAUNCHES[key]
+            k1 = banded_align_cuda(*args, sub, *gaps, w_b=w_b, **kw)
+            torch.cuda.synchronize()
+            assert cuda_ops.LAUNCHES[key] == before + 1, \
+                f"{key} not launched at w_b={w_b}"
+            ref, pms = timed(lambda: banded_align(*args, sub, *gaps,
+                                                  w_b=w_b, **kw))
+            err = check_dp(k1, ref, f"{key} w_b={w_b}")
+            kms = cuda_ms(lambda: cuda_ops.banded_dp_launch(*args, **lkw),
+                          3)
+            kb = bound(k1_bytes + (8 * N * L if "qv" in mode else 0),
+                       cells * ops)
+            rec = out.setdefault(key, dict(err=0.0, widths={}))
+            rec["err"] = max(rec["err"], err)
+            rec["widths"][w_b] = dict(ms=kms, plain_ms=pms, bound=kb)
+            log(f"# {key} ({mode}) w_b={w_b} == plain: exact "
+                f"({int(k1.valid.sum())}/{N} valid); kernel {kms:.4f} ms, "
+                f"plain {pms:.1f} ms, bound {kb[0]:.4f} ms ({kb[1]}) per "
+                f"call (N={N}, L={L}, W={W}) on {card}")
+            words.append(k1)
+        res = BandedResult(*(torch.cat(x) for x in zip(*words)))
+        del words
+        rest = [torch.cat([a] * len(WIDE_MODE_OPS)) for a in args[2:]]
+        n6 = N * len(WIDE_MODE_OPS)
+        for t_max in ((3 * T) // 8, T):
+            # the pair buffer handed out dirty first, as in check_walk
+            torch.full((n6, pair_capacity(t_max) // 2), -1,
+                       dtype=torch.int32, device=dev)
+            before = cuda_ops.LAUNCHES["banded_traceback_w"]
+            k2 = banded_traceback(res, *rest, t_max=t_max, w_b=w_b)
+            torch.cuda.synchronize()
+            assert cuda_ops.LAUNCHES["banded_traceback_w"] == before + 1
+            pl, pms = timed(lambda: banded_traceback_plain(  # noqa: B023
+                res, *rest, t_max=t_max, w_b=w_b))
+            for f in k2._fields:
+                a, b = getattr(k2, f), getattr(pl, f)
+                assert a.dtype == b.dtype and torch.equal(a, b), \
+                    f"K2-W w_b={w_b} t_max={t_max}: {f} differs"
+            err = max_abs(list(k2), list(pl))
+            kms = cuda_ms(lambda: banded_traceback(  # noqa: B023
+                res, *rest, t_max=t_max, w_b=w_b), 3)
+            steps = float(k2.n_pairs.sum())
+            kb = bound(SECTOR * steps + 42 * n6 + 4 * k2.pairs.numel(),
+                       30 * steps)
+            rec = out.setdefault("banded_traceback_w",
+                                 dict(err=0.0, widths={}))
+            rec["err"] = max(rec["err"], err)
+            if t_max == (3 * T) // 8:
+                rec["widths"][w_b] = dict(ms=kms, plain_ms=pms, bound=kb)
+            log(f"# banded_traceback_w w_b={w_b} t_max={t_max} == plain on "
+                f"the six modes' words: exact, {int(k2.overflow.sum())} "
+                f"rows overflow, {steps:.0f} steps; kernel {kms:.4f} ms, "
+                f"plain {pms:.1f} ms, bound {kb[0]:.4f} ms ({kb[1]}) per "
+                f"call ({n6} items) on {card}")
+        del res, rest
+        torch.cuda.empty_cache()
+    for rec in out.values():
+        rec.update(rec["widths"][WIDE_LINE_WIDTH])
+    return out
 
 
 def build_source(kernel: str, src: str):
@@ -1755,14 +1906,17 @@ def phase_anchor_band(card, bb):
     log(f"# K5 == plain on the {len(ANCHOR_CASES)} edge inputs (the block-* "
         f"ones in its block mode): exact")
     for name in BAND_CASES:
-        c = band_case(name)
-        a = [None if c[f] is None else torch.from_numpy(c[f]).to(dev)
-             for f in ("mq", "mt", "ws", "frag_diag", "frag_valid")]
-        a = (*a[:3], c["L"], c["W"], c["w_b"], *a[3:], c["between_only"])
-        k6_err = max(k6_err, check_equal(
-            [map_read._band_offsets(*a)], [map_read._band_offsets_plain(*a)],
-            ("offsets",), f"K6 {name}"))
-    log(f"# K6 == plain on the {len(BAND_CASES)} edge inputs: exact")
+        for w_b in EDGE_WIDTHS:
+            c = band_case(name, w_b)
+            a = [None if c[f] is None else torch.from_numpy(c[f]).to(dev)
+                 for f in ("mq", "mt", "ws", "frag_diag", "frag_valid")]
+            a = (*a[:3], c["L"], c["W"], w_b, *a[3:], c["between_only"])
+            k6_err = max(k6_err, check_equal(
+                [map_read._band_offsets(*a)],
+                [map_read._band_offsets_plain(*a)], ("offsets",),
+                f"K6 {name} w_b={w_b}"))
+    log(f"# K6 == plain on the {len(BAND_CASES)} edge inputs at band widths "
+        f"{EDGE_WIDTHS}: exact")
     kms, pms, kb, dev_ms = k6[0]
     return {
         "anchor_search": dict(err=k5_err, ms=k5_ms, plain_ms=k5_plain,
@@ -1852,16 +2006,20 @@ def phase_chain_sdp(card, gi, bb):
             f"{pms:.1f} ms, bound {kb[0]:.4f} ms ({kb[1]}; {compares:.0f} "
             f"compares) on {card}")
     for name in SDP_CASES:
-        reads, rlen, windows, wlens, offs, occ, k = sdp_case(name)
-        rk, rv = read_kmer_keys(torch.from_numpy(reads).to(dev),
-                                torch.from_numpy(rlen).to(dev), k)
-        a = (rk, rv, *(torch.from_numpy(x).to(dev)
-                       for x in (windows, wlens, offs)))
-        out = sdp.window_fragment_diags_banded(*a, k=k, occ=occ)
-        ref = sdp.window_fragment_diags_banded_plain(*a, k=k, occ=occ)
-        k4_err = max(k4_err, check_equal(out, ref, ("diag", "valid"),
-                                         f"K4 {name}"))
-    log(f"# K4 == plain on the {len(SDP_CASES)} edge inputs: exact")
+        for w_b in EDGE_WIDTHS:
+            reads, rlen, windows, wlens, offs, occ, k = sdp_case(name, w_b)
+            rk, rv = read_kmer_keys(torch.from_numpy(reads).to(dev),
+                                    torch.from_numpy(rlen).to(dev), k)
+            a = (rk, rv, *(torch.from_numpy(x).to(dev)
+                           for x in (windows, wlens, offs)))
+            out = sdp.window_fragment_diags_banded(*a, k=k, occ=occ,
+                                                   w_b=w_b)
+            ref = sdp.window_fragment_diags_banded_plain(*a, k=k, occ=occ,
+                                                         w_b=w_b)
+            k4_err = max(k4_err, check_equal(out, ref, ("diag", "valid"),
+                                             f"K4 {name} w_b={w_b}"))
+    log(f"# K4 == plain on the {len(SDP_CASES)} edge inputs at band widths "
+        f"{EDGE_WIDTHS}: exact")
 
     # the repaired shapes: K3 past one block's shared memory (the rows'
     # arrays in global scratch), K4 at bucket 65536 (the slab tiled)
@@ -2473,6 +2631,142 @@ def phase_mapper_modes(worlds, cuda_ops):
             assert alone != on_card, "the rescue Mapper changed nothing"
         out[needed] = launches
     return out
+
+
+def alignment_record(a) -> tuple:
+    """Every field of an Alignment, arrays as (dtype, bytes)."""
+    def value(x):
+        if isinstance(x, np.ndarray):
+            return (x.dtype.str, x.shape, x.tobytes())
+        if isinstance(x, dict):
+            return tuple(sorted((k, value(v)) for k, v in x.items()))
+        return x
+    return tuple((f.name, value(list(getattr(a, f.name))
+                                if f.name == "cigar" and a.cigar is not None
+                                else getattr(a, f.name)))
+                 for f in dataclasses.fields(a))
+
+
+# (label, band width, world, its reads, MappingParams options, the K1-W
+# mode it launches): the Mapper at band widths other than 128
+WIDTH_CASES = [
+    ("band 64", 64, "small", slice(0, 8), {}, "banded_dp_w"),
+    ("band 256", 256, "small", slice(0, 4), {}, "banded_dp_w"),
+    ("band 64 --useQuality", 64, "hpstr", slice(1, 3),
+     dict(ignore_qualities=False), "banded_dp_w_qv"),
+    ("band 64 --affineAlign", 64, "small", slice(0, 2),
+     dict(affine_align=True), "banded_dp_w_hp"),
+    ("band 64 --scoreMatrix", 64, "small", slice(0, 2),
+     dict(score_matrix=SCORE_MATRIX), "banded_dp_w_gen"),
+    ("band 64 --scoreMatrix --affineAlign", 64, "small", slice(0, 2),
+     dict(score_matrix=SCORE_MATRIX, affine_align=True),
+     "banded_dp_w_hp_gen"),
+    ("band 64 --scoreMatrix --useQuality", 64, "hpstr", slice(1, 3),
+     dict(score_matrix=SCORE_MATRIX, ignore_qualities=False),
+     "banded_dp_w_qv_gen"),
+]
+# the kernels every run at a band width other than 128 launches beside its
+# K1-W mode
+WIDE_PATH_KERNELS = ("banded_traceback_w", "chain_scan", "sdp_window",
+                     "anchor_search", "band_offsets", "chain_members")
+
+
+def phase_widths(worlds, cuda_ops):
+    """Mapper.map_reads at ShapeConfig(band_width=64) and (band_width=256)
+    on the small golden world, and at band 64 in the other five modes of
+    K1-W (the QV ones on the hpstr world's reads over its homopolymer
+    runs), each on cuda after a warmup that captures its graphs (launch
+    and dispatch counts zeroed just before the run and read just after:
+    its K1-W mode, K2-W and K3-K7 launched, no K1 or K2, every batch a
+    graph replay) and held to the same run on cpu in every Alignment
+    field.  Returns the launches by key: each K1-W mode's from its run,
+    K1-W (distance) and K2-W summed over the band 64 and 256 runs."""
+    from blasr_tpu_torch.index.genome import build_genome_index
+    from blasr_tpu_torch.io.fasta import read_sequences
+    from blasr_tpu_torch.params import MappingParams, ShapeConfig
+    from blasr_tpu_torch.pipeline import graphs
+    from blasr_tpu_torch.pipeline.map_read import Mapper
+    idx = {}
+    launches = {}
+    for label, w_b, world, sel, opts, key in WIDTH_CASES:
+        reads, genome, _ = worlds[world]
+        if world not in idx:
+            idx[world] = build_genome_index(list(read_sequences(genome)),
+                                            k=12)
+        gi, recs = idx[world], list(read_sequences(reads))[sel]
+        p = MappingParams(**opts).make_sane()
+        cfg = ShapeConfig(buckets=(1024,), batch_size=8, band_width=w_b)
+        t0 = time.time()
+        m = Mapper(gi, p, cfg, device="cuda")
+        m.warmup()
+        torch.cuda.synchronize()
+        cuda_ops.reset_launch_counts()
+        graphs.reset_counts()
+        on_card = m.map_reads(recs)
+        torch.cuda.synchronize()
+        got = dict(cuda_ops.LAUNCHES)
+        calls = dict(graphs.DISPATCHES)
+        t1 = time.time()
+        on_cpu = Mapper(gi, p, cfg, device="cpu").map_reads(recs)
+        same = ([[alignment_record(a) for a in x] for x in on_card]
+                == [[alignment_record(a) for a in x] for x in on_cpu])
+        log(f"# {label}: {sum(map(len, on_card))} alignments of "
+            f"{len(recs)} reads; cuda == cpu in every field: {same} (cuda "
+            f"{t1 - t0:.1f}s with the warmup, cpu {time.time() - t1:.1f}s); "
+            f"launches { {k: v for k, v in got.items() if v} }; dispatches "
+            f"{calls}")
+        assert same, f"{label}: cuda and cpu differ"
+        assert sum(map(bool, on_card)) >= len(recs) - 1, label
+        assert all(a.band_width == w_b for x in on_card for a in x)
+        check_replays(calls, label)
+        assert got[key] > 0 and all(got[k] > 0 for k in WIDE_PATH_KERNELS), \
+            f"{label}: kernels not launched: {got}"
+        k1_keys = [k for k in got if k.startswith("banded_dp")
+                   and not k.startswith("banded_dp_w")]
+        assert not any(got[k] for k in k1_keys + ["banded_traceback"]), \
+            f"{label} launched K1 or K2: {got}"
+        assert sum(got[k] for k in got if k.startswith("banded_dp_w")) \
+            == got[key], f"{label} launched another K1-W mode: {got}"
+        for k in (key, "banded_traceback_w"):
+            launches[k] = launches.get(k, 0) + got[k]
+    return launches
+
+
+def phase_sam_tools(d):
+    """The port's samtom4 and samFilter on the SAM the card wrote for
+    golden.sam (out.sam, the small world): the m4 has one 13-field line a
+    record, equal to samtom4 of the checked-in golden.sam; samFilter keeps
+    every record by default and the hole numbers asked for, each an
+    original line.  Runs without JAX and without h5py."""
+    from blasr_tpu_torch.cli.sam_filter import run as sam_filter
+    from blasr_tpu_torch.cli.sam_to_m4 import run as sam_to_m4
+    sam, genome = os.path.join(d, "out.sam"), os.path.join(d, "genome.fa")
+    recs = [ln for ln in open(sam).read().splitlines()
+            if not ln.startswith("@")]
+    m4s = []
+    for src, out in ((sam, "card.m4"), (os.path.join(GOLDEN, "golden.sam"),
+                                        "golden.m4.from_sam")):
+        assert sam_to_m4([src, genome, os.path.join(d, out)]) == 0
+        m4s.append(open(os.path.join(d, out)).read())
+    lines = m4s[0].splitlines()
+    assert m4s[0] == m4s[1] and len(lines) == len(recs) > 0
+    assert all(len(ln.split()) == 13 for ln in lines)
+    kept = {}
+    for name, flags in (("all", []), ("allbest", ["--hitPolicy", "allbest"]),
+                        ("holes", ["-holeNumbers", "0-5"])):
+        out = os.path.join(d, f"filtered.{name}.sam")
+        assert sam_filter([sam, out] + flags) == 0
+        kept[name] = [ln for ln in open(out).read().splitlines()
+                      if not ln.startswith("@")]
+        assert set(kept[name]) <= set(recs), name
+    assert kept["all"] == recs and kept["allbest"] == recs
+    holes = [ln for ln in recs if int(ln.split("/")[1]) <= 5]
+    assert kept["holes"] == holes and holes
+    assert "h5py" not in sys.modules
+    log(f"# samtom4 on the card's golden.sam: {len(lines)} lines, equal to "
+        f"samtom4 of the checked-in golden.sam; samFilter kept "
+        f"{len(kept['all'])}/{len(recs)} (all), {len(kept['allbest'])} "
+        f"(allbest), {len(kept['holes'])} (-holeNumbers 0-5)")
 
 
 # the static arguments of map_batch that the options of phase_options set
@@ -4166,6 +4460,9 @@ def main() -> int:
     kres.update(phase_chain_sdp(card, gi, bb))
     kres.update(phase_anchor_band(card, bb))
     kres.update(phase_members(card, bb))
+    t1 = time.time()
+    kres.update(phase_wide(card))
+    log(f"# phase 2 K1-W and K2-W done in {time.time() - t1:.1f}s")
     log(f"# phase 2 done in {time.time() - t0:.1f}s")
     with tempfile.TemporaryDirectory() as d:
         t0 = time.time()
@@ -4175,6 +4472,13 @@ def main() -> int:
         t0 = time.time()
         mode_runs = phase_mapper_modes(worlds, cuda_ops)
         log(f"# phase 3 Mapper modes done in {time.time() - t0:.1f}s")
+        t0 = time.time()
+        width_runs = phase_widths(worlds, cuda_ops)
+        log(f"# phase 3 band widths 64 and 256 done in "
+            f"{time.time() - t0:.1f}s")
+        t0 = time.time()
+        phase_sam_tools(d)
+        log(f"# phase 3 SAM tools done in {time.time() - t0:.1f}s")
         t0 = time.time()
         phase_options(d, worlds, cuda_ops)
         log(f"# phase 3 C15 options and the tools' --sa index done in "
@@ -4233,6 +4537,8 @@ def main() -> int:
     for k in ("banded_dp_gen", "banded_dp_hp_gen", "banded_dp_qv_gen",
               "anchor_search_block"):
         launches[k] = mode_runs[k][k]
+    # K1-W's modes and K2-W from the band-width runs of phase 3
+    launches.update(width_runs)
     rows = [("banded_dp", DP_SRC, "blasr_tpu/kernels/pallas_banded.py:388"),
             ("banded_dp_qv", DP_SRC,
              "blasr_tpu/kernels/pallas_banded.py:388"),
@@ -4249,7 +4555,13 @@ def main() -> int:
             ("band_offsets", BAND_SRC,
              "blasr_tpu/pipeline/map_read.py:320"),
             ("chain_members", MEMBERS_SRC,
-             "blasr_tpu/kernels/chain.py:325")]
+             "blasr_tpu/kernels/chain.py:325"),
+            *((k, DP_WIDE_SRC, "blasr_tpu/kernels/banded.py:362")
+              for k in ("banded_dp_w", "banded_dp_w_qv", "banded_dp_w_hp",
+                        "banded_dp_w_gen", "banded_dp_w_hp_gen",
+                        "banded_dp_w_qv_gen")),
+            ("banded_traceback_w", TB_WIDE_SRC,
+             "blasr_tpu/kernels/banded.py:424")]
     # rule 2's measure: launches per pass pair x (kernel ms - bound ms),
     # the kernel's ms as phase 2's events time the call and as its device
     # time inside the graphs of phase 5's passes (torch.profiler, per

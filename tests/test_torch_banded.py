@@ -304,10 +304,11 @@ def test_slope_limit_offsets_matches_jax():
 
 
 def test_fast_path_contract():
-    """banded_align_cuda keeps pallas_banded_align's band width and slope
-    contract on every device: another band width is refused, not
-    rerouted.  A general matrix is K1's GEN form on the card, so on CPU
-    tensors it is the plain DP with that matrix."""
+    """banded_align_cuda keeps pallas_banded_align's slope contract at
+    band 128.  Another band width is K1-W on the card, so on CPU tensors
+    it is the plain DP at that width; a general matrix is K1's GEN form
+    on the card, so on CPU tensors it is the plain DP with that
+    matrix."""
     rng = np.random.default_rng(2)
     arrs = _torch(_case(rng, 2, 64, 256))
     sm = _submat().copy()
@@ -318,8 +319,14 @@ def test_fast_path_contract():
     for f, a, b in zip(gen._fields, gen,
                        tb.banded_align(*arrs, sm, 4.0, 4.0, 5.0, 5.0)):
         assert torch.equal(a, b), f
-    with pytest.raises(ValueError):
-        tpb.banded_align_cuda(*arrs, _submat(), 4.0, 4.0, 5.0, 5.0, w_b=64)
+    narrow = _torch(_case(rng, 2, 64, 256, w_b=64))
+    w64 = tpb.banded_align_cuda(*narrow, _submat(), 4.0, 4.0, 5.0, 5.0,
+                                w_b=64)
+    assert w64.tbbits.shape == (2, 64, 64) and w64.valid.all()
+    for f, a, b in zip(w64._fields, w64,
+                       tb.banded_align(*narrow, _submat(), 4.0, 4.0, 5.0,
+                                       5.0, w_b=64)):
+        assert torch.equal(a, b), f
     bad = arrs[2].clone()
     bad[:, 20] += 5                             # a jump of 5 in one row
     with pytest.raises(ValueError):

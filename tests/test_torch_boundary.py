@@ -54,6 +54,17 @@ COPIES = [
     ("cli/sa2bwt.py", "cli/sa2bwt.py", "module"),
     ("cli/bwt2sa.py", "cli/bwt2sa.py", "module"),
     ("cli/small_tools.py", "cli/small_tools.py", "module"),
+    ("io/samparse.py", "io/samparse.py", "module"),
+    ("io/cmph5.py", "io/cmph5.py", "module"),
+    ("cli/sam_filter.py", "cli/sam_filter.py", "module"),
+    ("cli/sam_to_m4.py", "cli/sam_to_m4.py", "module"),
+    ("cli/sam_to_h5.py", "cli/sam_to_h5.py", "module"),
+    ("cli/load_pulses.py", "cli/load_pulses.py", "module"),
+    ("cli/pls2fasta.py", "cli/pls2fasta.py", "module"),
+    ("cli/bax2bam.py", "cli/bax2bam.py", "module"),
+    ("cli/bam2bax.py", "cli/bam2bax.py", "module"),
+    ("cli/cmph5_store_quality_by_context.py",
+     "cli/cmph5_store_quality_by_context.py", "module"),
     ("pipeline/map_read.py", "pipeline/map_read.py",
      ["Alignment", "LazyCigar", "unpack_pairs", "pairs_to_cigar",
       "split_match_runs", "merge_adjacent_indels", "Mapper"]),
@@ -84,7 +95,7 @@ COPIES = [
 ALLOWED = {
     # device seam: torch device + index upload, the host matrix and gap
     # costs as Python values, K1 (use_pallas) in every mode at band 128
-    # (another band width raises on CUDA), the rescue Mapper on the same
+    # (K1-W at any other width on CUDA), the rescue Mapper on the same
     # device
     "Mapper.__init__",
     # builds the CUDA kernels and captures each bucket's CUDA graph
@@ -172,6 +183,28 @@ def test_copied_code_has_not_drifted(port, orig, names):
             continue
         assert ast.dump(a) == ast.dump(b) or name in ALLOWED, \
             f"{name} drifted from blasr_tpu"
+
+
+# modules of the JAX package with no counterpart in the port: hostcache.py
+# keys the JAX compile cache on the host's CPU, which the port, compiling
+# no XLA programs, has no use for (its CUDA kernels build once per
+# checkout, cuda_ops.library_path)
+NOT_PORTED = {"hostcache.py"}
+
+
+def test_every_jax_module_has_a_counterpart():
+    """Each ``.py`` module of ``blasr_tpu/`` has one at the same path in
+    ``blasr_tpu_torch/``, but the modules NOT_PORTED names."""
+    def modules(pkg):
+        root = os.path.join(ROOT, pkg)
+        return {os.path.relpath(os.path.join(dp, f), root)
+                for dp, _, files in os.walk(root) for f in files
+                if f.endswith(".py")}
+    jax_mods, port_mods = modules("blasr_tpu"), modules("blasr_tpu_torch")
+    assert NOT_PORTED <= jax_mods
+    missing = sorted(jax_mods - port_mods - NOT_PORTED)
+    assert not missing, f"modules of blasr_tpu with no counterpart: {missing}"
+    assert not NOT_PORTED & port_mods
 
 
 def _strip_cli_seams(node):
@@ -358,10 +391,10 @@ def test_cuda_device_without_card_raises(monkeypatch):
 
 def test_mapper_refuses_unported_modes():
     """The Mapper options once refused are taken on the CPU (the affine
-    path with and without QVs, a rescue Mapper, occ_block_sample); what
-    it still refuses is a band width other than 128 on CUDA (K1 takes
-    band 128), before any upload, and a rescue Mapper on another
-    device."""
+    path with and without QVs, a rescue Mapper, occ_block_sample, a band
+    width other than 128: K1-W's on the card, the plain DP here, with
+    use_pallas false and the width in every batch's arguments); what it
+    still refuses is a rescue Mapper on another device."""
     import dataclasses
     from blasr_tpu_torch.index.genome import build_genome_index
     from blasr_tpu_torch.params import MappingParams, ShapeConfig
@@ -381,9 +414,14 @@ def test_mapper_refuses_unported_modes():
                    ShapeConfig(occ_block_sample=True), device="cpu")
     assert block._batch_call_args(1024)[1]["occ_block_sample"]
     narrow = ShapeConfig(band_width=64)
-    assert not Mapper(gi, MappingParams(), narrow, device="cpu").use_pallas
-    with pytest.raises(NotImplementedError):
-        Mapper(gi, MappingParams(), narrow, device="cuda")
+    m64 = Mapper(gi, MappingParams(), narrow, device="cpu")
+    assert not m64.use_pallas
+    kw64 = m64._batch_call_args(1024)[1]
+    kw128 = rescue._batch_call_args(1024)[1]
+    W64 = narrow.window_len(1024)
+    assert kw64 == dict(kw128, w_b=64, use_pallas=False, W=W64,
+                        T=1024 + W64)
+    assert kw128["w_b"] == 128 and kw128["use_pallas"]
     with pytest.raises(ValueError):
         Mapper(gi, MappingParams(), dataclasses.replace(narrow,
                                                         band_width=128),

@@ -1,7 +1,9 @@
 """The hand-written CUDA kernels (K1 banded DP in its distance, QV, hp
 band and general-matrix modes, K2 traceback walk, K3 chain scan, K4 SDP
 window pass, K5 anchor search with its block mode, K6 band offsets, K7
-chain members) against their plain PyTorch versions, on a card; the
+chain members; K1-W and K2-W, the DP and walk at other band widths, K4
+and K6 at band widths 64 and 256, and the Mapper at band 64 on the card
+against the CPU) against their plain PyTorch versions, on a card; the
 Mapper's batches as CUDA graph replays (``pipeline/graphs.py``) against
 eager dispatch; and the
 pairwise SDP path (``sdp_align``, the ``sdpMatcher`` CLI) on the card
@@ -44,10 +46,11 @@ from torch_edge_cases import (ANCHOR_CASES, BAND_CASES,  # noqa: E402
                               BANDED_CASES, BANDED_QV_SEED, CHAIN_CASES,
                               K1_MODE_CASES, K1_MODES, K_SDP,
                               MEMBER_CASES, MEMBER_PATH_CASES, SDP_CASES,
-                              TRACEBACK_CASES, anchor_case, anchor_world,
-                              band_case, banded_case, chain_case,
-                              chain_rows, k1_mode_kwargs, long_sdp_case,
-                              member_case, sdp_case, traceback_case)
+                              TRACEBACK_CASES, WIDE_WIDTHS, anchor_case,
+                              anchor_world, band_case, banded_case,
+                              chain_case, chain_rows, k1_mode_kwargs,
+                              long_sdp_case, member_case, sdp_case,
+                              traceback_case, wide_case)
 
 pytestmark = pytest.mark.cuda
 
@@ -1035,3 +1038,194 @@ def test_merge_on_card_equals_cpu(cuda):
     for f in ("ints", "ops", "clusters", "flat"):
         assert torch.equal(getattr(outs[0], f).cpu(), getattr(outs[1], f))
     assert int(outs[1].flat[-1]) == 1
+
+
+# ------------------------------------------------ band widths other than 128
+
+WIDE_MODES = ("distance", "qv", "hp", "gen", "hp-gen", "qv-gen")
+
+
+def _wide_mode(cuda, w_b, mode):
+    """(K1-W in ``mode`` on tests/torch_edge_cases.py::wide_case(w_b), the
+    plain DP, the inputs), after asserting one launch of the mode's own
+    count and none of any other DP's."""
+    arrs = wide_case(w_b)
+    N, L = arrs[0].shape
+    args = [torch.from_numpy(a).to(cuda) for a in arrs]
+    if mode in ("distance", "qv"):
+        submat, gaps, kw = _submat(), (4.0, 4.0, 5.0, 5.0), {}
+    else:
+        submat, gaps, kw = k1_mode_kwargs(mode)
+    use_qv = mode == "qv" or K1_MODES.get(mode, (0, 0, 0, False))[3]
+    if use_qv:
+        q1, q2 = qv_words(np.random.default_rng(BANDED_QV_SEED), N, L)
+        kw = dict(kw, qv1=torch.from_numpy(q1).to(cuda),
+                  qv2=torch.from_numpy(q2).to(cuda))
+    before = dict(cuda_ops.LAUNCHES)
+    k1 = tpb.banded_align_cuda(*args, submat, *gaps, w_b=w_b, **kw)
+    torch.cuda.synchronize()
+    after = dict(cuda_ops.LAUNCHES)
+    key = cuda_ops.dp_launch_key(use_qv, "use_hp" in kw,
+                                 not tpb.two_valued(submat), w_b)
+    assert key.startswith("banded_dp_w")
+    assert {k: after[k] - before[k] for k in after
+            if k.startswith("banded_dp")} == {
+        k: int(k == key) for k in after if k.startswith("banded_dp")}
+    return k1, tb.banded_align(*args, submat, *gaps, w_b=w_b, **kw), args
+
+
+@pytest.mark.parametrize("mode", WIDE_MODES)
+@pytest.mark.parametrize("w_b", WIDE_WIDTHS)
+def test_wide_dp_kernel_matches_plain(cuda, w_b, mode):
+    """K1-W in each of its six modes against the plain DP at band widths
+    48, 64 and 256 on the tile-edge shapes, the homopolymer world and
+    offsets beyond K1's slope limit, every output exactly."""
+    k1, p1, args = _wide_mode(cuda, w_b, mode)
+    assert k1.tbbits.shape == (args[0].shape[0], args[0].shape[1], w_b)
+    assert p1.valid[:4].all()
+    for f, a, b in zip(k1._fields, k1, p1):
+        assert a.dtype == b.dtype and torch.equal(a, b), f
+
+
+def _same_wide_walk(res, rest, t_max, w_b):
+    """K2-W against the plain walk, every output exactly, one launch; the
+    pair buffer is handed out dirty first."""
+    N = res.tbbits.shape[0]
+    P = tb.pair_capacity(t_max)
+    torch.full((N, P // 2), -1, dtype=torch.int32, device=res.tbbits.device)
+    before = dict(cuda_ops.LAUNCHES)
+    k2 = tb.banded_traceback(res, *rest, t_max=t_max, w_b=w_b)
+    torch.cuda.synchronize()
+    assert cuda_ops.LAUNCHES["banded_traceback_w"] == \
+        before["banded_traceback_w"] + 1
+    assert cuda_ops.LAUNCHES["banded_traceback"] == before["banded_traceback"]
+    p2 = tb.banded_traceback_plain(res, *rest, t_max=t_max, w_b=w_b)
+    for name, a, b in zip(k2._fields, k2, p2):
+        assert a.dtype == b.dtype and torch.equal(a, b), (name, t_max)
+    return k2
+
+
+@pytest.mark.parametrize("frac", ["3T/8", "T"])
+@pytest.mark.parametrize("w_b", WIDE_WIDTHS)
+def test_wide_traceback_kernel_matches_plain(cuda, w_b, frac):
+    """K2-W over K1-W's cell words of all six modes at a width, in one
+    batch, at t_max = 3T/8 and T."""
+    res, args = [], None
+    for mode in WIDE_MODES:
+        k1, _, args = _wide_mode(cuda, w_b, mode)
+        res.append(k1)
+    res = tb.BandedResult(*(torch.cat(x) for x in zip(*res)))
+    rest = [torch.cat([a] * len(WIDE_MODES)) for a in args[2:]]
+    L, W = args[0].shape[1], args[1].shape[1]
+    t_max = (3 * (L + W)) // 8 if frac == "3T/8" else L + W
+    k2 = _same_wide_walk(res, rest, t_max, w_b)
+    if frac == "T":
+        assert not k2.overflow.any()
+
+
+@pytest.mark.parametrize("w_b", [1100, 4000])
+def test_wide_dp_kernel_large_widths(cuda, w_b):
+    """K1-W above 1024 band cells (two and four cells a thread), with its
+    workspace in shared memory (1100) and in a global scratch (4000), in
+    distance and QV mode; K2-W on its words."""
+    N, L = 6, 256
+    W = L + 3 * w_b
+    args = [t.to(cuda) for t in _case(np.random.default_rng(w_b), N, L, W,
+                                      steep=(1,), w_b=w_b)]
+    q1, q2 = qv_words(np.random.default_rng(BANDED_QV_SEED), N, L)
+    sm = _submat()
+    for kw in ({}, dict(qv1=torch.from_numpy(q1).to(cuda),
+                        qv2=torch.from_numpy(q2).to(cuda))):
+        k1 = tpb.banded_align_cuda(*args, sm, 4.0, 4.0, 5.0, 5.0, w_b=w_b,
+                                   **kw)
+        p1 = tb.banded_align(*args, sm, 4.0, 4.0, 5.0, 5.0, w_b=w_b, **kw)
+        assert p1.valid.sum() >= N - 1
+        for f, a, b in zip(k1._fields, k1, p1):
+            assert a.dtype == b.dtype and torch.equal(a, b), (f, kw.keys())
+        _same_wide_walk(k1, args[2:], L + W, w_b)
+
+
+def test_wide_wrappers_check_their_inputs(cuda):
+    args = [t.to(cuda) for t in _case(np.random.default_rng(3), 4, 128,
+                                      384, w_b=64)]
+    kw = dict(match=-5.0, mismatch=6.0, ins_open=4.0, ins_ext=4.0,
+              del_open=5.0, del_ext=5.0)
+    with pytest.raises(ValueError):
+        cuda_ops.banded_dp_launch(*args, **kw, w_b=0)
+    res = cuda_ops.banded_dp_launch(*args, **kw, w_b=64)
+    with pytest.raises(ValueError):       # tbbits of another width
+        cuda_ops.banded_traceback_cuda(res, *args[2:], t_max=512, w_b=96)
+
+
+@pytest.mark.parametrize("w_b", [64, 256])
+@pytest.mark.parametrize("name", SDP_CASES)
+def test_sdp_kernel_matches_plain_at_width(cuda, name, w_b):
+    """K4 against window_fragment_diags_banded_plain at band widths 64 and
+    256 (the guide offsets centred for that width), one launch a call."""
+    reads, rlen, windows, wlens, offs, occ, k = sdp_case(name, w_b)
+    rk, rv = tanchor.read_kmer_keys(torch.from_numpy(reads).to(cuda),
+                                    torch.from_numpy(rlen).to(cuda), k)
+    args = (rk, rv, torch.from_numpy(windows).to(cuda),
+            torch.from_numpy(wlens).to(cuda), torch.from_numpy(offs).to(cuda))
+    before = cuda_ops.LAUNCHES["sdp_window"]
+    k4 = tsdp.window_fragment_diags_banded(*args, k=k, occ=occ, w_b=w_b)
+    torch.cuda.synchronize()
+    assert cuda_ops.LAUNCHES["sdp_window"] == before + 1
+    plain = tsdp.window_fragment_diags_banded_plain(*args, k=k, occ=occ,
+                                                    w_b=w_b)
+    for a, b in zip(k4, plain):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("w_b", [64, 256])
+@pytest.mark.parametrize("name", BAND_CASES)
+def test_band_kernel_matches_plain_at_width(cuda, name, w_b):
+    """K6 against _band_offsets_plain at band widths 64 and 256, one
+    launch a call."""
+    c = band_case(name, w_b)
+
+    def t(x):
+        return None if x is None else torch.from_numpy(x).to(cuda)
+
+    args = (t(c["mq"]), t(c["mt"]), t(c["ws"]), c["L"], c["W"], w_b,
+            t(c["frag_diag"]), t(c["frag_valid"]), c["between_only"])
+    before = cuda_ops.LAUNCHES["band_offsets"]
+    k6 = tmr._band_offsets(*args)
+    torch.cuda.synchronize()
+    assert cuda_ops.LAUNCHES["band_offsets"] == before + 1
+    plain = tmr._band_offsets_plain(*args)
+    assert k6.dtype == plain.dtype and torch.equal(k6, plain)
+
+
+def _mapped_fields(per_read):
+    return [[(a.strand, a.tindex, a.tstart, a.tend, a.qstart, a.qend,
+              list(a.cigar), a.score, a.n_match, a.n_mismatch, a.n_ins,
+              a.n_del, a.map_qv, a.band_width) for a in alns]
+            for alns in per_read]
+
+
+@pytest.mark.parametrize("w_b", [64, 256])
+def test_mapper_band_width_on_card_equals_cpu(graph_world, w_b):
+    """A Mapper at band 64 or 256 on the card (it once refused every width
+    but 128 on CUDA) maps 16 reads of the graph world through K1-W and
+    K2-W, never K1 or K2, each batch a graph replay after its capture,
+    to the same alignments as the Mapper on the CPU."""
+    from blasr_tpu_torch.params import ShapeConfig
+    from blasr_tpu_torch.pipeline import graphs
+    gi, ix, recs = graph_world
+    cfg = ShapeConfig(buckets=(512, GRAPH_L), batch_size=GRAPH_BATCH,
+                      band_width=w_b)
+    p = MappingParams().make_sane()
+    m = tmr.Mapper(gi, p, cfg, device="cuda", dev=ix)
+    assert not m.use_pallas
+    cuda_ops.reset_launch_counts()
+    graphs.reset_counts()
+    got = m.map_reads(recs[:16])
+    torch.cuda.synchronize()
+    launches = dict(cuda_ops.LAUNCHES)
+    assert launches["banded_dp_w"] > 0 and launches["banded_traceback_w"] > 0
+    assert launches["banded_dp"] == 0 and launches["banded_traceback"] == 0
+    assert graphs.DISPATCHES["replays"] > 0
+    want = tmr.Mapper(gi, p, cfg, device="cpu").map_reads(recs[:16])
+    assert sum(len(a) for a in want) >= 12
+    assert _mapped_fields(got) == _mapped_fields(want)

@@ -166,9 +166,10 @@ def _ballot_edges(rng, N, L, W, w_b):
     return reads, windows, offs
 
 
-def sdp_case(name):
+def sdp_case(name, w_b=128):
     """(reads int8 [N, L], read_len, windows int8 [N, W], wlens, offs
-    int32 [N, L], occ, k) for the SDP window pass.  Read segments are
+    int32 [N, L], occ, k) for the SDP window pass at band width ``w_b``
+    (the guide offsets are band starts, centred on the planted diagonal).  Read segments are
     planted into the windows along a diagonal, twice in some rows so that
     read positions have a second hit; ``name`` picks the edge:
 
@@ -187,7 +188,7 @@ def sdp_case(name):
     * suffix ``-occ1`` / ``-occ2``: one or two hits per position."""
     base, occ = name.rsplit("-occ", 1)
     rng = np.random.default_rng(sum(map(ord, name)))
-    N, L, W, w_b = 6, 256, 896, 128
+    N, L, W = 6, 256, 896
     k = 16 if base == "k16-short" else K_SDP
     if base == "ballot-edges":
         reads, windows, offs = _ballot_edges(rng, N, L, W, w_b)
@@ -356,6 +357,40 @@ def banded_case(name, w_b=128):
     i32 = np.int32
     return (reads, windows, offs.astype(i32), qa.astype(i32), qb.astype(i32),
             ta.astype(i32), tb.astype(i32))
+
+
+# band widths other than 128, which K1-W and K2-W take
+# (csrc/banded_dp_wide.cu, csrc/banded_traceback_wide.cu): 48 (not a
+# multiple of 32), 64 and 256
+WIDE_WIDTHS = (48, 64, 256)
+# the inputs of :func:`wide_case`, in order (all at L = 256, W = 512)
+WIDE_PARTS = ("tile-edges", "negative-offsets", "slope2-across-tile",
+              "hp-runs", "wild-shifts")
+
+
+def wide_case(w_b):
+    """Banded-DP inputs at band width ``w_b`` (22 items, L = 256, W =
+    512): :func:`banded_case`'s ``tile-edges``, ``negative-offsets``,
+    ``slope2-across-tile`` and ``hp-runs`` at that width, then
+    ``wild-shifts``, the ``tile-edges`` inputs on band offsets that K1's
+    slope limit refuses and K1-W takes: a step back by 3 then a jump by 5
+    (item 0), a jump past the band, w_b + 5 (item 1), a random walk of
+    steps -2..4 (item 2) and two steps back on consecutive rows (item
+    3)."""
+    parts = [banded_case(name, w_b) for name in WIDE_PARTS[:-1]]
+    wild = [np.array(a) for a in banded_case("tile-edges", w_b)]
+    offs = wild[2].astype(np.int64)
+    offs[0, 60:] -= 3
+    offs[0, 90:] += 5
+    offs[1, 25:] += w_b + 5
+    steps = np.random.default_rng(w_b).integers(-2, 5, offs.shape[1])
+    offs[2] = offs[2, 0] + np.cumsum(steps)
+    offs[3, 40:] -= 1
+    offs[3, 41:] -= 2
+    wild[2] = offs.astype(np.int32)
+    parts.append(tuple(wild))
+    return tuple(np.concatenate([p[k] for p in parts])
+                 for k in range(len(parts[0])))
 
 
 def _hp_rows(name, L, qa):
@@ -674,8 +709,9 @@ _BAND_L = {"long-rows": 4096, "rows-1001": 1001, "smem-rows-8192": 8192,
            "global-rows-8193": 8193}
 
 
-def band_case(name):
-    """Inputs of ``_band_offsets`` as int64 / bool numpy arrays: chain
+def band_case(name, w_b=128):
+    """Inputs of ``_band_offsets`` at band width ``w_b`` as int64 / bool
+    numpy arrays: chain
     members mq/mt [N, MC] (BIG32 where invalid, q-ascending as
     chain_members leaves them), window starts ws [N], fragments frag_diag /
     frag_valid [N, L, F] near the members' diagonals (or None), plus L, W,
@@ -685,7 +721,7 @@ def band_case(name):
     "global-rows-8193" lie on either side of its shared-memory limit;
     "last-row-only" gives item 0 one member, on row L - 1."""
     rng = np.random.default_rng(sum(map(ord, name)))
-    N, L, W, w_b, MC = 6, 512, 1024, 128, 24
+    N, L, W, MC = 6, 512, 1024, 24
     if name in _BAND_L:
         L = _BAND_L[name]
         W = 2 * L
