@@ -1,6 +1,6 @@
 // The one set-up entry of the kernel library: every kernel's function
-// attributes (the opt-ins to dynamic shared memory, K2's carveout), set on
-// the current device before the first launch there.
+// attributes (the opt-ins to dynamic shared memory, K2's and K2-W's
+// carveout), set on the current device before the first launch there.
 //
 // A launch sets no attribute itself, so a stream capture records launches
 // only, and what a captured launch needs was set before the capture: an
@@ -13,6 +13,7 @@
 extern "C" int blasr_banded_dp_setup();
 extern "C" int blasr_banded_traceback_setup();
 extern "C" int blasr_banded_dp_wide_setup();
+extern "C" int blasr_banded_traceback_wide_setup();
 extern "C" int blasr_chain_scan_setup();
 extern "C" int blasr_sdp_window_setup();
 extern "C" int blasr_anchor_search_setup();
@@ -24,7 +25,8 @@ extern "C" int blasr_setup_kernels() {
       blasr_banded_dp_setup,     blasr_banded_traceback_setup,
       blasr_chain_scan_setup,    blasr_sdp_window_setup,
       blasr_anchor_search_setup, blasr_band_offsets_setup,
-      blasr_chain_members_setup, blasr_banded_dp_wide_setup};
+      blasr_chain_members_setup, blasr_banded_dp_wide_setup,
+      blasr_banded_traceback_wide_setup};
   for (auto step : steps) {
     const int rc = step();
     if (rc != 0) return rc;

@@ -25,7 +25,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from blasr_tpu_torch.kernels.dispatch import on_device
+from blasr_tpu_torch.kernels.dispatch import on_device, per_distinct_row
 from blasr_tpu_torch.kernels.xla_math import fma_f32, log_f32
 
 BIG = 0x3FFFFFFF
@@ -127,10 +127,30 @@ def find_anchors_plain(genome, keys_sorted, pos_sorted, reads, read_len, *,
     is -log P = log(M/n) + (l-k)*log(4) for a seed occurring n times in an
     M-slot index and extending to length l.  ``occ_block_sample`` samples
     an over-abundant seed's occurrences as O consecutive slots from a base
-    lo + (q * 97) % (nocc - O + 1) instead of the strided picket."""
+    lo + (q * 97) % (nocc - O + 1) instead of the strided picket.  A
+    read's anchors depend on its own bases only, so the search runs once
+    per distinct read row (``per_distinct_row``)."""
     if gwords is None:
         raise NotImplementedError(
             "find_anchors needs the packed genome words (DeviceIndex)")
+    kw = dict(k=k, occ_per_pos=occ_per_pos, max_anchors=max_anchors,
+              anchor_ext=anchor_ext, min_match=min_match,
+              max_anchors_per_pos=max_anchors_per_pos, max_lcp=max_lcp,
+              advance_exact=advance_exact,
+              occ_block_sample=occ_block_sample, bucket_starts=bucket_starts,
+              bucket_pairs=bucket_pairs, gwords=gwords, gnwords=gnwords,
+              pos_records=pos_records)
+    return per_distinct_row(
+        lambda reads, read_len: _anchor_rows(genome, keys_sorted, pos_sorted,
+                                             reads, read_len, **kw),
+        reads, read_len)
+
+
+def _anchor_rows(genome, keys_sorted, pos_sorted, reads, read_len, *, k,
+                 occ_per_pos, max_anchors, anchor_ext, min_match,
+                 max_anchors_per_pos, max_lcp, advance_exact,
+                 occ_block_sample, bucket_starts, bucket_pairs, gwords,
+                 gnwords, pos_records) -> Anchors:
     dev = reads.device
     i64 = torch.int64
     B, L = reads.shape

@@ -26,7 +26,7 @@ from typing import NamedTuple
 
 import torch
 
-from blasr_tpu_torch.kernels.dispatch import on_device
+from blasr_tpu_torch.kernels.dispatch import on_device, per_distinct_row
 
 INF = 1e30
 
@@ -148,7 +148,25 @@ def banded_align(reads, windows, offsets, qa, qb, ta, tb, submat,
     Row-for-row the recurrence of ``blasr_tpu.kernels.banded._align_one``
     in all its modes (QV excludes the hp band, as there); any offsets
     path is accepted (band shifts use the clamped dynamic-slice
-    semantics)."""
+    semantics).
+
+    Items are independent, so the recurrence runs once per distinct item
+    (``per_distinct_row``)."""
+    def run(reads, windows, offsets, qa, qb, ta, tb, *qv):
+        return _align_items(reads, windows, offsets, qa, qb, ta, tb, submat,
+                            ins_open, ins_ext, del_open, del_ext, w_b=w_b,
+                            use_hp=use_hp, hp_open=hp_open, hp_ext=hp_ext,
+                            qv1=qv[0] if qv else None,
+                            qv2=qv[1] if qv else None)
+
+    return per_distinct_row(run, reads, windows, offsets, qa, qb, ta, tb,
+                            *(() if qv1 is None else (qv1, qv2)))
+
+
+def _align_items(reads, windows, offsets, qa, qb, ta, tb, submat,
+                 ins_open, ins_ext, del_open, del_ext, *, w_b, use_hp,
+                 hp_open, hp_ext, qv1, qv2) -> BandedResult:
+    """:func:`banded_align`'s recurrence over every item given."""
     dev = reads.device
     N, L = reads.shape
     W = windows.shape[1]

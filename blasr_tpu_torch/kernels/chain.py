@@ -22,7 +22,7 @@ from typing import NamedTuple
 import torch
 
 from blasr_tpu_torch.kernels.anchor import Anchors
-from blasr_tpu_torch.kernels.dispatch import on_device
+from blasr_tpu_torch.kernels.dispatch import on_device, per_distinct_row
 from blasr_tpu_torch.kernels.xla_math import fma_f32
 
 NEG = -1e30
@@ -105,8 +105,22 @@ def chain_anchors_plain(anchors: Anchors, read_len: torch.Tensor, *,
                         drift_penalty: float = 0.0) -> Candidates:
     """See ``blasr_tpu.kernels.chain.chain_anchors`` for the weightors,
     the transition window (``lookback``), ``global_chain`` and
-    ``drift_penalty``."""
-    q, t, l, valid = anchors.q, anchors.t, anchors.l, anchors.valid
+    ``drift_penalty``.  Each read's chains depend on its own anchors only,
+    so the scan runs once per distinct row (``per_distinct_row``)."""
+    kw = dict(n_cand=n_cand, indel_rate=indel_rate, drift_frac=drift_frac,
+              drift_slack=drift_slack, rank_by_pvalue=rank_by_pvalue,
+              p_value_type=p_value_type, lookback=lookback,
+              global_chain=global_chain, drift_penalty=drift_penalty)
+    return per_distinct_row(
+        lambda q, t, l, valid, nlogp, rlen: _chain_rows(
+            q, t, l, valid, nlogp, rlen, **kw),
+        anchors.q, anchors.t, anchors.l, anchors.valid, anchors.nlogp,
+        read_len)
+
+
+def _chain_rows(q, t, l, valid, nlogp_in, read_len, *, n_cand, indel_rate,
+                drift_frac, drift_slack, rank_by_pvalue, p_value_type,
+                lookback, global_chain, drift_penalty) -> Candidates:
     dev = q.device
     f32, i64 = torch.float32, torch.int64
     B, A = q.shape
@@ -122,7 +136,6 @@ def chain_anchors_plain(anchors: Anchors, read_len: torch.Tensor, *,
     t = t.to(i64)
     l = l.to(i64)
     lf = l.to(f32)
-    nlogp_in = anchors.nlogp
     jidx = torch.arange(A, device=dev)
     best = torch.full((B, A), NEG, dtype=f32, device=dev)
     sq = torch.zeros((B, A), dtype=i64, device=dev)

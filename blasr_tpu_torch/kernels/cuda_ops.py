@@ -169,6 +169,7 @@ ARGTYPES = {
     "blasr_banded_dp_wide_max_smem": (_I, []),
     "blasr_banded_traceback_wide": (_I, [_P] * 8 + [_I] * 4 + [_P] * 7
                                     + [_P]),
+    "blasr_banded_traceback_wide_plan": (_I, [_I]),
     "blasr_chain_scan": (_I, [_P] * 3 + [_I] + [_P] * 3 + [_I] * 5
                          + [_F] * 3 + [_I, _F, _I, _I] + [_P] * 10
                          + [_P, _LL] + [_P]),
@@ -272,7 +273,7 @@ def banded_dp_launch(reads, windows, offsets, qa, qb, ta, tb, *,
                      ins_ext: float, del_open: float, del_ext: float,
                      qv1=None, qv2=None, submat=None, use_hp: bool = False,
                      hp_open: float = 0.0, hp_ext: float = 0.0,
-                     w_b: int = K1_WIDTH) -> BandedResult:
+                     w_b: int = K1_WIDTH, lib=None) -> BandedResult:
     """K1 on CUDA tensors: reads/windows int8 [N, L]/[N, W], offsets int32
     [N, L] (slope 0..2 per active row), qa..tb int32 [N].  At a band width
     ``w_b`` other than 128 it launches K1-W (``csrc/banded_dp_wide.cu``)
@@ -284,7 +285,8 @@ def banded_dp_launch(reads, windows, offsets, qa, qb, ta, tb, *,
     the host, read base major) is a general matrix: the GEN form of the
     mode (K1-GEN, K1-HP-GEN, K1-QV-GEN), which takes every substitution
     cost from it instead of ``match`` / ``mismatch``.  Each form counts
-    its own launches."""
+    its own launches.  ``lib``: another build of ``banded_dp_wide.cu``
+    (``chip_smoke.py --compare K1W``), for K1-W only."""
     dev = reads.device
     if dev.type != "cuda":
         raise ValueError("banded_dp_launch needs CUDA tensors")
@@ -317,7 +319,12 @@ def banded_dp_launch(reads, windows, offsets, qa, qb, ta, tb, *,
     valid = torch.empty(N, dtype=torch.bool, device=dev)
     if N == 0:
         return BandedResult(score, tbbits, state, valid)
-    lib = _load(dev)
+    if lib is None:
+        lib = _load(dev)
+    elif w_b == K1_WIDTH:
+        raise ValueError("lib= takes another build of K1-W only")
+    else:
+        set_up(lib, dev)
     outs = (score.data_ptr(), tbbits.data_ptr(), state.data_ptr(),
             valid.data_ptr())
     ins = (reads.data_ptr(), windows.data_ptr(), offsets.data_ptr(),
@@ -363,9 +370,11 @@ def banded_dp_launch(reads, windows, offsets, qa, qb, ta, tb, *,
 
 
 def banded_traceback_cuda(result: BandedResult, offsets, qa, qb, ta, tb, *,
-                          t_max: int, w_b: int = K1_WIDTH) -> TracebackResult:
+                          t_max: int, w_b: int = K1_WIDTH,
+                          lib=None) -> TracebackResult:
     """K2 on CUDA tensors (same contract as ``banded_traceback_plain``); at
-    a band width other than 128, K2-W (``csrc/banded_traceback_wide.cu``)."""
+    a band width other than 128, K2-W (``csrc/banded_traceback_wide.cu``;
+    ``lib``: another build of it, ``chip_smoke.py --compare K2W``)."""
     tbb = result.tbbits
     dev = tbb.device
     if dev.type != "cuda":
@@ -386,8 +395,13 @@ def banded_traceback_cuda(result: BandedResult, offsets, qa, qb, ta, tb, *,
     pairs = torch.empty((N, P // 2), dtype=torch.int32, device=dev)
     counts = torch.empty((5, N), dtype=torch.int32, device=dev)
     overflow = torch.empty(N, dtype=torch.bool, device=dev)
+    if lib is not None and not wide:
+        raise ValueError("lib= takes another build of K2-W only")
     if N > 0:
-        lib = _load(dev)
+        if lib is None:
+            lib = _load(dev)
+        else:
+            set_up(lib, dev)
         ins = (tbb.data_ptr(), offsets.data_ptr(), qa.data_ptr(),
                qb.data_ptr(), ta.data_ptr(), tb.data_ptr(),
                result.final_state.data_ptr(), result.valid.data_ptr())

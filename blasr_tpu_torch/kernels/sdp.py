@@ -21,7 +21,7 @@ import torch
 from blasr_tpu_torch.kernels.anchor import Anchors, read_kmer_keys
 from blasr_tpu_torch.kernels.chain import (BIG, chain_anchors,
                                            chain_members)
-from blasr_tpu_torch.kernels.dispatch import on_device
+from blasr_tpu_torch.kernels.dispatch import on_device, per_distinct_row
 
 _CHUNK = 32  # diagonals compared per vectorized step
 INVALID_WINDOW = 0xFFFFFFFF   # key of a window position without a k-mer
@@ -151,8 +151,17 @@ def window_fragment_diags_banded_plain(rkeys, rvalid, windows, wlens, offs,
 
     The JAX loop walks the slab one diagonal at a time and keeps the first
     and second hit per position; here a chunk of diagonals is compared at
-    once and the running hit count picks the same two diagonals."""
+    once and the running hit count picks the same two diagonals, once per
+    distinct row (``per_distinct_row``)."""
     assert occ in (1, 2), occ
+    return per_distinct_row(
+        lambda *rows: _fragment_diags_rows(*rows, k=k, occ=occ, D=D,
+                                           w_b=w_b),
+        rkeys, rvalid, windows, wlens, offs)
+
+
+def _fragment_diags_rows(rkeys, rvalid, windows, wlens, offs, *, k, occ, D,
+                         w_b):
     dev = rkeys.device
     i64 = torch.int64
     N, L = rkeys.shape

@@ -26,7 +26,7 @@ from blasr_tpu_torch.params import MappingParams, ShapeConfig
 from blasr_tpu_torch.kernels.anchor import find_anchors, read_kmer_keys
 from blasr_tpu_torch.kernels.banded import banded_align, banded_traceback
 from blasr_tpu_torch.kernels.chain import chain_anchors, chain_members
-from blasr_tpu_torch.kernels.dispatch import on_device
+from blasr_tpu_torch.kernels.dispatch import on_device, per_distinct_row
 from blasr_tpu_torch.kernels.pallas_banded import (SLOPE_ERROR,
                                                    banded_align_cuda,
                                                    slope_fault)
@@ -333,7 +333,17 @@ def _band_offsets_plain(mq, mt, ws, L, W, w_b,
                         frag_diag=None, frag_valid=None, between_only=False):
     """Band start per query row from the chain guide path, densified by
     SDP fragments (see the JAX ``_band_offsets``).  Monotone, slope 0..2
-    per row — the banded kernel's contract."""
+    per row — the banded kernel's contract.  Rows are independent, so
+    each distinct row is computed once (``per_distinct_row``)."""
+    frags = () if frag_diag is None else (frag_diag, frag_valid)
+    return per_distinct_row(
+        lambda mq, mt, ws, *f: (_band_offset_rows(
+            mq, mt, ws, L, W, w_b, *(f or (None, None)), between_only),),
+        mq, mt, ws, *frags)[0]
+
+
+def _band_offset_rows(mq, mt, ws, L, W, w_b, frag_diag, frag_valid,
+                      between_only):
     N, MC = mq.shape
     assert L <= 1 << 16, (
         "band-offset packing supports buckets up to 65536 query rows")

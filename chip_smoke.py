@@ -4,11 +4,12 @@
 Run from the repository root on a machine with a CUDA card:
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --compare K1|K2|K3|K5|K6|K7 A/kernel.cu B/kernel.cu
+    python3 chip_smoke.py --compare K1|K2|K3|K5|K6|K7|K1W|K2W A/kernel.cu B/kernel.cu
 
 The second form only builds the named kernel from each given source (K1
 banded_dp.cu, K2 banded_traceback.cu, K3 chain_scan.cu, K5
-anchor_search.cu, K6 band_offsets.cu, K7 chain_members.cu; e.g. a parent
+anchor_search.cu, K6 band_offsets.cu, K7 chain_members.cu, K1W
+banded_dp_wide.cu, K2W banded_traceback_wide.cu; e.g. a parent
 commit's unpacked beside this one's), holds their outputs equal on phase
 2's inputs (K1:
 K1 and K1-QV, then K1-HP and the GEN forms of the sources that have them,
@@ -19,8 +20,10 @@ a long read's at L = 65536; K6: the bench batch's two _band_offsets calls
 and a long read's; K7: the bench batch's chain_members call,
 sdp_align's on the 64-pair world and one at the --maxExpand 4 retry's
 A = 8192, a source with the lifting table also with a row's chains over
-two CTAs, three rounds) and times them
-in turns, A B B A (see ``compare_k1`` .. ``compare_k7``): K5, K6 and K7
+two CTAs, three rounds; K1W and K2W: phase 2's band-width cases in every
+mode and the bench's DP shape, N = 640, L = 2048, at w_b 64 and 256) and
+times them in turns, A B B A (see ``compare_k1`` .. ``compare_k7``,
+``compare_k1w``, ``compare_k2w``): K5, K6 and K7
 by their device time alone (``device_ms``), K5 and K6 also by the call's,
 K7 also by torch.profiler.  ``--device-times`` (run by phase 2 as a
 child), ``--k4-kernels`` (phase 5's) and ``--sharded-rank`` (phase 6's)
@@ -72,7 +75,8 @@ Phases (any failed check exits nonzero):
      and the GEN form of each) and K2-W (the walk at those widths) on
      their cell words at t_max = 3T/8 and T, against the plain versions at
      w_b 48, 64, 256 (N=64, L=256) and 1100 (L=1024), exact, timed with CUDA
-     events;
+     events, then timed at the bench's DP shape (N=640, L=2048) at w_b 64
+     and 256 beside K1, K1-QV and K2 at 128, ms a call and ps a cell;
   3. the golden worlds of tests/test_golden.py through the port's CLI with
      ``--device cuda``, byte for byte against tests/golden/, each group
      launching K1 (or K1-QV, K1-HP) and K2-K6 and every batch a replay of
@@ -800,8 +804,9 @@ def phase_wide(card):
     WIDE_SMOKE_WIDTHS[w_b] rows, the window of
     ShapeConfig(band_width=w_b)), exactly; each
     launch once of its own count; K1-W's launch and K2-W's call timed with
-    CUDA events (3 back to back), the plain versions on their one call.
-    Returns the kernel line's entries, their times at WIDE_LINE_WIDTH."""
+    CUDA events (3 back to back), the plain versions on their one call;
+    then ``wide_bench_times``.  Returns the kernel line's entries, their
+    times at WIDE_LINE_WIDTH."""
     from blasr_tpu_torch.kernels import cuda_ops
     from blasr_tpu_torch.kernels.banded import (BandedResult, banded_align,
                                                 banded_traceback,
@@ -888,6 +893,62 @@ def phase_wide(card):
         torch.cuda.empty_cache()
     for rec in out.values():
         rec.update(rec["widths"][WIDE_LINE_WIDTH])
+    wide_bench_times(card)
+    return out
+
+
+# the bench's DP shape (phase 2's K1 case: N items, L rows, W window),
+# at which K1-W and K2-W are timed beside K1 and K2 at 128 on inputs
+# planted the same way (random_case, seed 7), at these widths
+BENCH_DP = (640, 2048, 3072)
+BENCH_WIDE_WIDTHS = (64, 256)
+
+
+def bench_dp_case(w_b: int):
+    """(random_case's inputs at BENCH_DP and band width ``w_b`` on the
+    card, the QV words of K1-QV's case, the active cells (qb - qa) * w_b)."""
+    from blasr_tpu_torch.params import MappingParams
+    N, L, W = BENCH_DP
+    rng = np.random.default_rng(7)
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to("cuda")
+            for a in random_case(rng, N, L, W, w_b=w_b)]
+    q1, q2 = qv_words(rng, N, L, MappingParams().make_sane(), 6)
+    qv = dict(qv1=torch.from_numpy(q1).to("cuda"),
+              qv2=torch.from_numpy(q2).to("cuda"))
+    return args, qv, float((args[4] - args[3]).sum()) * w_b
+
+
+def wide_bench_times(card, reps: int = 5) -> dict:
+    """K1-W (distance, QV) and K2-W (t_max = 3T/8) at the bench's DP shape
+    at BENCH_WIDE_WIDTHS, beside K1, K1-QV and K2 at 128 on inputs planted
+    the same way: ms a call (CUDA events around ``reps`` back to back
+    calls, the DP's launch alone, K2 warm) and ps an active cell, one line
+    each.  Returns {(kernel, w_b): (ms, ps a cell)}."""
+    from blasr_tpu_torch.kernels import cuda_ops
+    from blasr_tpu_torch.kernels.banded import banded_traceback
+    out = {}
+    for w_b in (128,) + BENCH_WIDE_WIDTHS:
+        args, qv, cells = bench_dp_case(w_b)
+        N, L, W = BENCH_DP
+        res = None
+        for mode in ("distance", "qv"):
+            _, lkw, _, _, key = wide_mode_kw(mode, qv, w_b)
+            r = cuda_ops.banded_dp_launch(*args, **lkw)
+            ms = cuda_ms(lambda: cuda_ops.banded_dp_launch(  # noqa: B023
+                *args, **lkw), reps)
+            out[(key, w_b)] = (ms, 1e9 * ms / cells)
+            res = r if res is None else res
+        t_max = (3 * (L + W)) // 8
+        key = "banded_traceback" + ("_w" if w_b != 128 else "")
+        ms = cuda_ms(lambda: banded_traceback(  # noqa: B023
+            res, *args[2:], t_max=t_max, w_b=w_b), reps)
+        out[(key, w_b)] = (ms, 1e9 * ms / cells)
+        del res, args
+        torch.cuda.empty_cache()
+    for (key, w_b), (ms, ps) in out.items():
+        log(f"# bench DP shape (N={BENCH_DP[0]}, L={BENCH_DP[1]}, "
+            f"W={BENCH_DP[2]}): {key} w_b={w_b} {ms:.4f} ms a call, "
+            f"{ps:.3f} ps an active cell on {card}")
     return out
 
 
@@ -1047,6 +1108,107 @@ def compare_k1(card, sources, reps: int = 5, rounds: int = 3) -> None:
                 in_turns(card, f"{key} on {label} (N={n}, L={l})", srcs,
                          lambda j: run_mode(libs[with_modes[j]], mode, x),
                          reps)
+
+
+def compare_k1w(card, sources, reps: int = 5) -> None:
+    """K1-W from each given banded_dp_wide.cu (one C interface) through
+    the package's wrapper: at phase 2's shapes (WIDE_SMOKE_WIDTHS, N = 64)
+    in its six modes and at the bench's DP shape (BENCH_DP) at
+    BENCH_WIDE_WIDTHS in distance and QV mode, every output held to the
+    first source's, then timed in turns, A B B A."""
+    from blasr_tpu_torch.kernels import cuda_ops
+    from blasr_tpu_torch.params import MappingParams, ShapeConfig
+    names = ("blasr_banded_dp_wide", "blasr_banded_dp_wide_ws_bytes",
+             "blasr_banded_dp_wide_max_smem")
+    libs = [cuda_ops.bind(build_source("K1W", src)[0], names)
+            for src in sources]
+    params = MappingParams().make_sane()
+    cases = []
+    for w_b, L in WIDE_SMOKE_WIDTHS.items():
+        N, W = 64, ShapeConfig(band_width=w_b).window_len(L)
+        rng = np.random.default_rng(w_b)
+        args = [torch.from_numpy(np.ascontiguousarray(a)).to("cuda")
+                for a in random_case(rng, N, L, W, w_b=w_b)]
+        q1, q2 = qv_words(rng, N, L, params, 6)
+        qv = dict(qv1=torch.from_numpy(q1).to("cuda"),
+                  qv2=torch.from_numpy(q2).to("cuda"))
+        for mode in WIDE_MODE_OPS:
+            cases.append((f"{mode} (N={N}, L={L}, w_b={w_b})", args,
+                          wide_mode_kw(mode, qv, w_b)[1]))
+    for w_b in BENCH_WIDE_WIDTHS:
+        args, qv, _ = bench_dp_case(w_b)
+        for mode in ("distance", "qv"):
+            cases.append((f"{mode} (N={BENCH_DP[0]}, L={BENCH_DP[1]}, "
+                           f"w_b={w_b})", args,
+                           wide_mode_kw(mode, qv, w_b)[1]))
+    for label, args, lkw in cases:
+        def run(i):
+            return cuda_ops.banded_dp_launch(  # noqa: B023
+                *args, **lkw, lib=libs[i])
+
+        outs = [run(i) for i in range(len(libs))]
+        torch.cuda.synchronize()
+        for i in range(1, len(libs)):
+            for a, b in zip(outs[i], outs[0]):
+                assert torch.equal(a, b), \
+                    f"K1-W from {sources[i]} differs from {sources[0]} " \
+                    f"({label})"
+        del outs
+        in_turns(card, f"K1-W {label}", sources, run, reps)
+
+
+def compare_k2w(card, sources, reps: int = 5) -> None:
+    """K2-W from each given banded_traceback_wide.cu (one C interface)
+    through the package's wrapper, on the package's K1-W cell words: the
+    six modes' words at phase 2's shapes (WIDE_SMOKE_WIDTHS, N = 64 each)
+    and the distance words at the bench's DP shape (BENCH_DP) at
+    BENCH_WIDE_WIDTHS, at t_max = 3T/8 and T: every output held to the
+    first source's, then timed in turns warm and with the L2 flushed."""
+    from blasr_tpu_torch.kernels import cuda_ops
+    from blasr_tpu_torch.kernels.banded import BandedResult
+    from blasr_tpu_torch.params import MappingParams, ShapeConfig
+    libs = [cuda_ops.bind(build_source("K2W", src)[0],
+                          ("blasr_banded_traceback_wide",))
+            for src in sources]
+    params = MappingParams().make_sane()
+    cases = []
+    for w_b, L in WIDE_SMOKE_WIDTHS.items():
+        N, W = 64, ShapeConfig(band_width=w_b).window_len(L)
+        rng = np.random.default_rng(w_b)
+        args = [torch.from_numpy(np.ascontiguousarray(a)).to("cuda")
+                for a in random_case(rng, N, L, W, w_b=w_b)]
+        q1, q2 = qv_words(rng, N, L, params, 6)
+        qv = dict(qv1=torch.from_numpy(q1).to("cuda"),
+                  qv2=torch.from_numpy(q2).to("cuda"))
+        words = [cuda_ops.banded_dp_launch(*args, **wide_mode_kw(
+            mode, qv, w_b)[1]) for mode in WIDE_MODE_OPS]
+        res = BandedResult(*(torch.cat(x) for x in zip(*words)))
+        rest = [torch.cat([a] * len(WIDE_MODE_OPS)) for a in args[2:]]
+        cases.append((f"N={res.tbbits.shape[0]}, L={L}, w_b={w_b}", res,
+                      rest, L + W, w_b))
+    for w_b in BENCH_WIDE_WIDTHS:
+        args, qv, _ = bench_dp_case(w_b)
+        res = cuda_ops.banded_dp_launch(*args, **wide_mode_kw(
+            "distance", qv, w_b)[1])
+        cases.append((f"N={BENCH_DP[0]}, L={BENCH_DP[1]}, w_b={w_b}", res,
+                      args[2:], BENCH_DP[1] + BENCH_DP[2], w_b))
+    for label, res, rest, T, w_b in cases:
+        for t_max in ((3 * T) // 8, T):
+            def run(i):
+                return cuda_ops.banded_traceback_cuda(  # noqa: B023
+                    res, *rest, t_max=t_max, w_b=w_b, lib=libs[i])
+
+            outs = [run(i) for i in range(len(libs))]
+            torch.cuda.synchronize()
+            for i in range(1, len(libs)):
+                for a, b in zip(outs[i], outs[0]):
+                    assert torch.equal(a, b), \
+                        f"K2-W from {sources[i]} differs from " \
+                        f"{sources[0]} ({label}, t_max={t_max})"
+            del outs
+            for mode in ("warm", "cold"):
+                in_turns(card, f"K2-W ({label}, t_max={t_max})", sources,
+                         run, reps, mode)
 
 
 def compare_k2(card, sources, reps: int = 5) -> None:
@@ -4429,8 +4591,9 @@ def main() -> int:
     if sys.argv[1:2] == ["--compare"]:
         sys.path.insert(0, os.path.join(HERE, "tests"))
         {"K1": compare_k1, "K2": compare_k2, "K3": compare_k3,
-         "K5": compare_k5, "K6": compare_k6,
-         "K7": compare_k7}[sys.argv[2]](card, sys.argv[3:])
+         "K5": compare_k5, "K6": compare_k6, "K7": compare_k7,
+         "K1W": compare_k1w,
+         "K2W": compare_k2w}[sys.argv[2]](card, sys.argv[3:])
         return 0
     if sys.argv[1:] == ["--k4-kernels"]:
         return count_k4_kernels(card)

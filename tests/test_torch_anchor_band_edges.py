@@ -37,8 +37,9 @@ from blasr_tpu_torch.pipeline import map_read as tmr  # noqa: E402
 from torch_edge_cases import (ANCHOR_CASES, ANCHOR_ROW5_EXCESS,  # noqa
                               BAND_CASES, BIG32, anchor_case, anchor_world,
                               band_case)
+from torch_shared import TORCH_THREADS  # noqa: E402
 
-torch.set_num_threads(2)
+torch.set_num_threads(TORCH_THREADS)
 
 INDEX_FIELDS = ("genome", "keys_sorted", "pos_sorted", "contig_starts",
                 "contig_ends", "bucket_starts", "bucket_pairs", "gwords",

@@ -23,8 +23,9 @@ from blasr_tpu.kernels import anchor as janchor  # noqa: E402
 from blasr_tpu.pipeline import map_read as jmr  # noqa: E402
 from blasr_tpu_torch.kernels import anchor as tanchor  # noqa: E402
 from blasr_tpu_torch.pipeline import map_read as tmr  # noqa: E402
+from torch_shared import TORCH_THREADS  # noqa: E402
 
-torch.set_num_threads(2)
+torch.set_num_threads(TORCH_THREADS)
 
 FIELDS = ("genome", "keys_sorted", "pos_sorted", "contig_starts",
           "contig_ends", "bucket_starts", "bucket_pairs", "gwords",

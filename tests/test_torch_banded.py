@@ -26,8 +26,9 @@ from test_torch_cuda import qv_words  # noqa: E402
 from torch_edge_cases import (BANDED_CASES, BANDED_NOT_PALLAS,  # noqa: E402
                               BANDED_QV_SEED, TB_TILE, TRACEBACK_CASES,
                               banded_case, traceback_case)
+from torch_shared import TORCH_THREADS, shared  # noqa: E402
 
-torch.set_num_threads(2)
+torch.set_num_threads(TORCH_THREADS)
 
 
 @pytest.fixture(autouse=True)
@@ -261,7 +262,12 @@ def test_plain_traceback_edges_match_jax(name):
 
 
 @pytest.fixture(scope="module")
-def dp_edges():
+def dp_edges(tmp_path_factory):
+    """``build_dp_edges``, once per test run (tests/torch_shared.py)."""
+    return shared(tmp_path_factory, __file__, "dp_edges", build_dp_edges)
+
+
+def build_dp_edges(_):
     """The plain DP on the K1 edge shapes, once per shape."""
     out = {}
     sm = _submat()
@@ -290,6 +296,44 @@ def test_plain_traceback_dp_edges_match_jax(dp_edges, name, frac):
     assert got.n_pairs[res.valid].min() > 0
     if frac == "T":
         assert not got.overflow.any()
+
+
+def test_per_distinct_row_groups_rows_by_their_bits():
+    """kernels/dispatch.py::per_distinct_row runs its function on each
+    distinct row once (a float by its bits: 0.0 and -0.0 are two rows)
+    and copies each result to the rows that repeat it, named tuples and
+    None outputs kept."""
+    from blasr_tpu_torch.kernels.dispatch import per_distinct_row
+    x = torch.tensor([[1.0, 2.0], [0.0, -0.0], [1.0, 2.0], [0.0, 0.0]])
+    y = torch.tensor([7, 7, 7, 7])
+    seen = []
+
+    def fn(a, b):
+        seen.append(a.shape[0])
+        return tb.BandedResult(a.sum(dim=1), a * 2, b + 1, None)
+
+    out = per_distinct_row(fn, x, y)
+    assert seen == [3]
+    assert torch.equal(out.tbbits, x * 2) and torch.equal(out.final_state,
+                                                          y + 1)
+    assert out.valid is None
+    assert torch.signbit(out.tbbits[1, 1]) and not torch.signbit(
+        out.tbbits[3, 1])
+
+
+def test_plain_dp_on_repeated_items_equals_each_item():
+    """The plain DP on a batch whose items repeat (as a mapping batch's
+    empty slots do) gives every item the result it gets alone."""
+    arrs = banded_case("tile-edges")
+    rep = np.array([0, 1, 0, 2, 1, 0, 3, 3])
+    sm = torch.from_numpy(_submat())
+    many = tb.banded_align(*_torch([a[rep] for a in arrs]), sm, 4.0, 4.0,
+                           5.0, 5.0)
+    for i, j in enumerate(rep):
+        one = tb.banded_align(*_torch([a[j:j + 1] for a in arrs]), sm, 4.0,
+                              4.0, 5.0, 5.0)
+        for f, a, b in zip(one._fields, many, one):
+            assert torch.equal(a[i:i + 1], b), (f, i)
 
 
 def test_slope_limit_offsets_matches_jax():

@@ -33,8 +33,9 @@ from test_torch_cuda import qv_words  # noqa: E402
 from torch_edge_cases import (BANDED_QV_SEED, HP_ROW_CASES,  # noqa: E402
                               K1_MODE_CASES, K1_MODES, banded_case,
                               k1_mode_kwargs)
+from torch_shared import TORCH_THREADS  # noqa: E402
 
-torch.set_num_threads(2)
+torch.set_num_threads(TORCH_THREADS)
 
 FIELDS = ("score", "tbbits", "final_state", "valid")
 

@@ -13,7 +13,10 @@ limit) at each width:
   QV-GEN at 64; QV at 256; distance at 128 on the same inputs (score,
   tbbits, final_state, valid);
 * the walk on the port's cell words of every mode at a width, in one
-  batch, at t_max = 3T/8 and T (every output).
+  batch, at t_max = 3T/8 and T (every output);
+* the DP and the walk at K1-W's lane-count edges (31, 32, 33, 255, 256,
+  257) on the shifts that move its warp layout by whole and part lanes
+  (tests/torch_edge_cases.py::lane_shifts, cut to 48 rows).
 
 JAX compiles once per width and form (the matrix is an argument, so a
 GEN mode shares its form's program): seven DP programs and six walks."""
@@ -33,10 +36,12 @@ from blasr_tpu.kernels.banded import banded_traceback as jax_traceback  # noqa: 
 from blasr_tpu_torch.kernels import banded as tb  # noqa: E402
 from test_torch_cuda import qv_words  # noqa: E402
 from torch_edge_cases import (BANDED_QV_SEED, DEFAULT_SUBMAT,  # noqa: E402
-                              K1_MODES, WIDE_WIDTHS, k1_mode_kwargs,
+                              K1_MODES, LANE_WIDTHS, WIDE_WIDTHS,
+                              cut_rows, k1_mode_kwargs, lane_shifts,
                               wide_case)
+from torch_shared import TORCH_THREADS  # noqa: E402
 
-torch.set_num_threads(2)
+torch.set_num_threads(TORCH_THREADS)
 
 # (mode, w_b) of the DP cases; a mode is "distance", "qv" or a K1_MODES key
 # ("distance", 128) holds the wild-shifts offsets at K1's width too: the
@@ -120,3 +125,35 @@ def test_plain_traceback_matches_jax_at_width(w_b, frac):
     assert got.n_pairs[res.valid].min() > 0
     if frac == "T":
         assert not got.overflow.any()
+
+
+@pytest.mark.parametrize("w_b", LANE_WIDTHS)
+def test_plain_dp_and_walk_match_jax_on_lane_shifts(w_b):
+    """The plain DP (distance mode) and the walk (t_max = T) against JAX
+    on the lane_shifts items at ``w_b``, cut to 48 rows: steps back by 1
+    (the diagonal slice starts past the row), by w_b + 1 and past the
+    row's start (the start wraps), and by whole and part lanes of K1-W's
+    layout."""
+    arrs = cut_rows(lane_shifts(w_b), 48, w_b)
+    sub, gaps, _ = mode_args("distance", *arrs[0].shape)
+    ref = jax_banded_align(*(jnp.asarray(a) for a in arrs),
+                           jnp.asarray(sub), *gaps, w_b=w_b)
+    out = tb.banded_align(*(torch.from_numpy(a) for a in arrs),
+                          torch.from_numpy(sub), *gaps, w_b=w_b)
+    for name in FIELDS:
+        np.testing.assert_array_equal(np.asarray(getattr(ref, name)),
+                                      getattr(out, name).numpy(),
+                                      err_msg=name)
+    assert out.valid[0]
+    L, W = arrs[0].shape[1], arrs[1].shape[1]
+    jt = jax_traceback(JaxBandedResult(*(jnp.asarray(x.numpy())
+                                         for x in out)),
+                       *(jnp.asarray(x) for x in arrs[2:]), t_max=L + W,
+                       w_b=w_b)
+    got = tb.banded_traceback(out, *(torch.from_numpy(x) for x in arrs[2:]),
+                              t_max=L + W, w_b=w_b)
+    for name in tb.TracebackResult._fields:
+        np.testing.assert_array_equal(np.asarray(getattr(jt, name)),
+                                      getattr(got, name).numpy(),
+                                      err_msg=name)
+    assert int(got.n_pairs[0]) > 0 and not got.overflow.any()

@@ -27,6 +27,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_shared import TORCH_THREADS  # noqa: E402
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # (port module, original module, names copied from it); "module" compares
@@ -270,7 +272,7 @@ def test_port_runs_without_jax(tmp_path):
         sys.path.insert(0, {ROOT!r})
         import numpy as np
         import torch
-        torch.set_num_threads(2)
+        torch.set_num_threads({TORCH_THREADS})
         import blasr_tpu_torch
         names = [m.name for m in pkgutil.walk_packages(
             blasr_tpu_torch.__path__, "blasr_tpu_torch.")]

@@ -28,8 +28,9 @@ from blasr_tpu_torch.kernels import cuda_ops  # noqa: E402
 from blasr_tpu_torch.kernels import sdp as tsdp  # noqa: E402
 from torch_edge_cases import (BALLOT_DLO, CHAIN_CASES,  # noqa: E402
                               SDP_CASES, SDP_D, chain_case, sdp_case)
+from torch_shared import TORCH_THREADS  # noqa: E402
 
-torch.set_num_threads(2)
+torch.set_num_threads(TORCH_THREADS)
 
 
 def jax_anchors(c):

@@ -46,7 +46,9 @@ from torch_edge_cases import (ANCHOR_CASES, BAND_CASES,  # noqa: E402
                               BANDED_CASES, BANDED_QV_SEED, CHAIN_CASES,
                               K1_MODE_CASES, K1_MODES, K_SDP,
                               MEMBER_CASES, MEMBER_PATH_CASES, SDP_CASES,
-                              TRACEBACK_CASES, WIDE_WIDTHS, anchor_case,
+                              GROUP_WIDTHS, LANE_WIDTHS, ODD_ROWS,
+                              RING_WIDTHS, TRACEBACK_CASES, WIDE_WIDTHS,
+                              anchor_case,
                               anchor_world, band_case, banded_case,
                               chain_case, chain_rows, k1_mode_kwargs,
                               long_sdp_case, member_case, sdp_case,
@@ -1045,11 +1047,11 @@ def test_merge_on_card_equals_cpu(cuda):
 WIDE_MODES = ("distance", "qv", "hp", "gen", "hp-gen", "qv-gen")
 
 
-def _wide_mode(cuda, w_b, mode):
-    """(K1-W in ``mode`` on tests/torch_edge_cases.py::wide_case(w_b), the
-    plain DP, the inputs), after asserting one launch of the mode's own
-    count and none of any other DP's."""
-    arrs = wide_case(w_b)
+def _wide_mode(cuda, w_b, mode, **case):
+    """(K1-W in ``mode`` on tests/torch_edge_cases.py::wide_case(w_b,
+    **case), the plain DP, the inputs), after asserting one launch of the
+    mode's own count and none of any other DP's."""
+    arrs = wide_case(w_b, **case)
     N, L = arrs[0].shape
     args = [torch.from_numpy(a).to(cuda) for a in arrs]
     if mode in ("distance", "qv"):
@@ -1123,11 +1125,14 @@ def test_wide_traceback_kernel_matches_plain(cuda, w_b, frac):
         assert not k2.overflow.any()
 
 
-@pytest.mark.parametrize("w_b", [1100, 4000])
+@pytest.mark.parametrize("w_b", [1100, 4000] + list(RING_WIDTHS))
 def test_wide_dp_kernel_large_widths(cuda, w_b):
     """K1-W above 1024 band cells (two and four cells a thread), with its
-    workspace in shared memory (1100) and in a global scratch (4000), in
-    distance and QV mode; K2-W on its words."""
+    workspace in shared memory (1100) and in a global scratch (4000 and
+    K2-W's ring edge, 3615 and 3616), in distance and QV mode; K2-W on its
+    words: a ring of three 8-row tiles (1100), of two at its largest width
+    (3615), and one cell past it (3616) and at 4000 the walk from global
+    memory."""
     N, L = 6, 256
     W = L + 3 * w_b
     args = [t.to(cuda) for t in _case(np.random.default_rng(w_b), N, L, W,
@@ -1143,6 +1148,83 @@ def test_wide_dp_kernel_large_widths(cuda, w_b):
         for f, a, b in zip(k1._fields, k1, p1):
             assert a.dtype == b.dtype and torch.equal(a, b), (f, kw.keys())
         _same_wide_walk(k1, args[2:], L + W, w_b)
+
+
+@pytest.mark.parametrize("mode", WIDE_MODES)
+@pytest.mark.parametrize("w_b", LANE_WIDTHS + GROUP_WIDTHS)
+def test_wide_dp_kernel_lane_widths(cuda, w_b, mode):
+    """K1-W on each side of its lane counts (31 | 32 | 33 and 255 | 256 |
+    257: the one-warp design at 1, 1, 2, 8 and 8 cells a lane, then the
+    first design) and at 512 and 513, in each of its six modes, on
+    wide_case's inputs with the lane_shifts items (shifts by one lane and
+    a cell, by several lanes, back by 1, 2, 5 and w_b + 1, by w_b and w_b +
+    1, and back past the row's start), every output exactly."""
+    k1, p1, args = _wide_mode(cuda, w_b, mode, shifts=True)
+    assert k1.tbbits.shape == (args[0].shape[0], args[0].shape[1], w_b)
+    for f, a, b in zip(k1._fields, k1, p1):
+        assert a.dtype == b.dtype and torch.equal(a, b), f
+
+
+@pytest.mark.parametrize("w_b", LANE_WIDTHS + GROUP_WIDTHS)
+def test_wide_traceback_kernel_lane_widths(cuda, w_b):
+    """K2-W over K1-W's cell words of all six modes at the lane and group
+    widths (K2-W's 16-row ring up to 140 cells, its 8-row ring above), in
+    one batch, at t_max = 3T/8 and T."""
+    res, args = [], None
+    for mode in WIDE_MODES:
+        k1, _, args = _wide_mode(cuda, w_b, mode, shifts=True)
+        res.append(k1)
+    res = tb.BandedResult(*(torch.cat(x) for x in zip(*res)))
+    rest = [torch.cat([a] * len(WIDE_MODES)) for a in args[2:]]
+    L, W = args[0].shape[1], args[1].shape[1]
+    for t_max in ((3 * (L + W)) // 8, L + W):
+        _same_wide_walk(res, rest, t_max, w_b)
+
+
+@pytest.mark.parametrize("w_b", [31, 33, 47, 255, 257])
+def test_wide_kernels_odd_rows(cuda, w_b):
+    """K1-W and K2-W at an odd width on ODD_ROWS = 201 rows: the last
+    16-row tile is partial and most tiles start off a 16-byte boundary
+    ((n * L + r0) * w_b * 4), so K1-W's staging slots are skewed and the
+    words around each bulk store's aligned interior leave by plain
+    stores, and K2-W copies the words around each tile's aligned interior
+    itself; distance and QV mode, every output exactly."""
+    for mode in ("distance", "qv"):
+        k1, p1, args = _wide_mode(cuda, w_b, mode, shifts=True,
+                                  rows=ODD_ROWS)
+        assert k1.tbbits.shape[1] == ODD_ROWS
+        for f, a, b in zip(k1._fields, k1, p1):
+            assert a.dtype == b.dtype and torch.equal(a, b), (f, mode)
+        L, W = args[0].shape[1], args[1].shape[1]
+        _same_wide_walk(k1, args[2:], L + W, w_b)
+
+
+def test_wide_traceback_kernel_unaligned_words(cuda):
+    """K2-W at band 64 on cell words whose storage starts one word past a
+    16-byte boundary (a view into a larger buffer): every tile's copy has
+    edge words, which the walking lane copies itself."""
+    k1, _, args = _wide_mode(cuda, 64, "distance")
+    buf = torch.empty(k1.tbbits.numel() + 1, dtype=torch.int32,
+                      device=k1.tbbits.device)
+    view = buf[1:].view(k1.tbbits.shape)
+    view.copy_(k1.tbbits)
+    assert view.data_ptr() % 16 == 4
+    res = k1._replace(tbbits=view)
+    L, W = args[0].shape[1], args[1].shape[1]
+    _same_wide_walk(res, args[2:], L + W, 64)
+
+
+def test_wide_traceback_ring_plans(cuda):
+    """K2-W's ring by width (csrc/banded_traceback_wide.cu::ring_plan, as
+    rows << 8 | slots): five 16-row tiles at 48 and 64, five 8-row tiles at
+    256, three at 1100, two at the largest ring width, none (the walk from
+    global memory) one cell past it."""
+    lib = cuda_ops._load(torch.device(cuda))
+    plan = {w: lib.blasr_banded_traceback_wide_plan(w)
+            for w in (48, 64, 256, 1100) + RING_WIDTHS}
+    assert plan == {48: 16 << 8 | 5, 64: 16 << 8 | 5, 256: 8 << 8 | 5,
+                    1100: 8 << 8 | 3, RING_WIDTHS[0]: 8 << 8 | 2,
+                    RING_WIDTHS[1]: 0}
 
 
 def test_wide_wrappers_check_their_inputs(cuda):

@@ -33,6 +33,9 @@ from blasr_tpu_torch.pipeline.map_read import (  # noqa: E402
     DeviceIndex, PackedBatch, map_batch, unpack_batch)
 from test_dist import setup_world  # noqa: E402
 from torch_dist_rank import finish_ranks, start_ranks  # noqa: E402
+from torch_shared import TORCH_THREADS, shared  # noqa: E402
+
+torch.set_num_threads(TORCH_THREADS)
 
 B, L = 16, 256
 FIELDS = ("score", "valid", "q_start", "q_end", "t_start", "t_end",
@@ -105,15 +108,25 @@ def sdp_static(static):
     return dict(static, k_sdp=11)
 
 
+# how long each spawned rank may still run once the fixture's JAX runs are
+# done (a hung rank fails the world here, not at the suite's clock)
+RANKS_TIMEOUT = 300
+
+
 @pytest.fixture(scope="module")
 def dist_runs(tmp_path_factory):
+    """The world's runs (``build_dist_runs``), built once per test run
+    (tests/torch_shared.py)."""
+    return shared(tmp_path_factory, __file__, "dist_runs", build_dist_runs)
+
+
+def build_dist_runs(tmp):
     """The world's runs: the port's on two gloo ranks (ref-sharded on a
     (1, 2) mesh, data-parallel on (2, 1)) and on four (ref-sharded on
     (2, 2), data-parallel on (4, 1)), all ranks together, and meanwhile
     JAX's ref-sharded runs on make_mesh(1, 2) and make_mesh(2, 2), JAX's
     map_batch_data_parallel on make_mesh(2, 1) with the SDP pass on, and
     the port's shard_index(gi, 2, fast_path=True)."""
-    tmp = tmp_path_factory.mktemp("dist")
     w = world()
     gi, reads, lens, submat, gaps, static, _ = w
     inp = os.path.join(tmp, "world.npz")
@@ -142,7 +155,7 @@ def dist_runs(tmp_path_factory):
     finally:
         port = {}
         for s in started:
-            port.update(finish_ranks(s))
+            port.update(finish_ranks(s, timeout=RANKS_TIMEOUT))
     return w, port, jax_out, shards, jax22, jax_dp
 
 

@@ -8,15 +8,18 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from test_golden import GOLDEN_DIR, make_small  # noqa: E402
+from test_golden import GOLDEN_DIR  # noqa: E402
+from test_torch_golden_qv import golden_world  # noqa: E402
+from torch_shared import TORCH_THREADS  # noqa: E402
 
-torch.set_num_threads(2)
+torch.set_num_threads(TORCH_THREADS)
 
 
 @pytest.fixture(scope="module")
 def small(tmp_path_factory):
-    d = str(tmp_path_factory.mktemp("torch_golden"))
-    reads, genome, _ = make_small(d)
+    """The small world's directory, reads and genome (built once per test
+    run, ``golden_world``)."""
+    d, (reads, genome, _) = golden_world(tmp_path_factory, "small")
     return d, reads, genome
 
 

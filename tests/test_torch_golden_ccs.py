@@ -10,15 +10,11 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from test_torch_golden_qv import port_reproduces_golden_case  # noqa: E402
+from torch_shared import TORCH_THREADS  # noqa: E402
 
-torch.set_num_threads(2)
-
-
-@pytest.fixture(scope="module")
-def worlds(tmp_path_factory):
-    return str(tmp_path_factory.mktemp("torch_golden_ccs")), {}
+torch.set_num_threads(TORCH_THREADS)
 
 
 @pytest.mark.parametrize("name", ["m4.ccs", "m4.ccsall.b1", "m4.ccsdenovo"])
-def test_port_cli_reproduces_ccs_golden(worlds, name):
-    port_reproduces_golden_case(worlds, name)
+def test_port_cli_reproduces_ccs_golden(tmp_path_factory, name):
+    port_reproduces_golden_case(tmp_path_factory, name)

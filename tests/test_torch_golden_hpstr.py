@@ -6,14 +6,15 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from test_golden import make_hpstr  # noqa: E402
+from test_torch_golden_qv import golden_world  # noqa: E402
 from test_torch_golden_qv import port_output_equals_golden  # noqa: E402
+from torch_shared import TORCH_THREADS  # noqa: E402
 
-torch.set_num_threads(2)
+torch.set_num_threads(TORCH_THREADS)
 
 
-def test_port_cli_reproduces_hpstr_qv_golden(tmp_path):
-    d = str(tmp_path)
-    port_output_equals_golden(d, make_hpstr(d), "sam.hpstr.qv",
+def test_port_cli_reproduces_hpstr_qv_golden(tmp_path_factory):
+    port_output_equals_golden(*golden_world(tmp_path_factory, "hpstr"),
+                              "sam.hpstr.qv",
                               ["--sam", "--clipping", "soft",
                                "--useQuality"])

@@ -3,8 +3,8 @@ versions of every kernel) reproduces the JAX package's ``--useQuality``
 goldens byte for byte: the FASTQ world (plain per-base qualities) and the
 bax.h5 world with full IDS tracks, the latter with and without
 ``--useQuality``.  The hp-biased STR world is in
-``test_torch_golden_hpstr.py``, a file of its own so that ``--dist
-loadfile`` spreads the two over workers."""
+``test_torch_golden_hpstr.py``.  Each golden world's files are built once
+per test run (``golden_world``), whichever files and workers use them."""
 
 import os
 
@@ -15,8 +15,9 @@ torch = pytest.importorskip("torch")
 from test_golden import CASES as GOLDEN_CASES  # noqa: E402
 from test_golden import GOLDEN_DIR  # noqa: E402
 from test_golden import WORLDS as GOLDEN_WORLDS  # noqa: E402
+from torch_shared import TORCH_THREADS, shared  # noqa: E402
 
-torch.set_num_threads(2)
+torch.set_num_threads(TORCH_THREADS)
 
 
 def port_output_equals_golden(d, world, name, flags):
@@ -45,20 +46,21 @@ def port_output_equals_golden(d, world, name, flags):
 CASES = {name: (world, flags) for name, world, flags in GOLDEN_CASES}
 
 
-def port_reproduces_golden_case(worlds, name):
+def golden_world(tmp_path_factory, world):
+    """(the world's directory, tests/test_golden.py's ``WORLDS[world]`` of
+    it: reads, genome, extra arguments), built once per test run into a
+    directory of its own (tests/torch_shared.py); each case writes its
+    outputs there under names of its own."""
+    return shared(tmp_path_factory, "test_golden.py", world,
+                  lambda d: (str(d), GOLDEN_WORLDS[world](str(d))))
+
+
+def port_reproduces_golden_case(tmp_path_factory, name):
     """``port_output_equals_golden`` for tests/test_golden.py's case
-    ``name``; ``worlds`` is a module fixture's (directory, world cache)."""
-    d, cache = worlds
+    ``name``, on its world (``golden_world``)."""
     world, flags = CASES[name]
-    if world not in cache:
-        cache[world] = GOLDEN_WORLDS[world](d)
-    port_output_equals_golden(d, cache[world], name, flags)
-
-
-@pytest.fixture(scope="module")
-def worlds(tmp_path_factory):
-    d = str(tmp_path_factory.mktemp("torch_golden_qv"))
-    return d, {}
+    port_output_equals_golden(*golden_world(tmp_path_factory, world), name,
+                              flags)
 
 
 @pytest.mark.parametrize("name,world,flags", [
@@ -67,8 +69,6 @@ def worlds(tmp_path_factory):
     ("sam.qv", "qvsteer", ["--sam", "--clipping", "soft", "--useQuality"]),
     ("sam.qv.noqv", "qvsteer", ["--sam", "--clipping", "soft"]),
 ])
-def test_port_cli_reproduces_qv_golden(worlds, name, world, flags):
-    d, cache = worlds
-    if world not in cache:
-        cache[world] = GOLDEN_WORLDS[world](d)
-    port_output_equals_golden(d, cache[world], name, flags)
+def test_port_cli_reproduces_qv_golden(tmp_path_factory, name, world, flags):
+    port_output_equals_golden(*golden_world(tmp_path_factory, world), name,
+                              flags)

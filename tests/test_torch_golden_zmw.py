@@ -15,12 +15,13 @@ from blasr_tpu.io.fasta import FastaRecord  # noqa: E402
 from blasr_tpu.pipeline.zmw import _pad_mini_index  # noqa: E402
 from blasr_tpu_torch.pipeline import zmw as tzmw  # noqa: E402
 from test_torch_golden_qv import port_reproduces_golden_case  # noqa: E402
+from torch_shared import TORCH_THREADS  # noqa: E402
 
-torch.set_num_threads(2)
+torch.set_num_threads(TORCH_THREADS)
 
 
-def test_port_cli_reproduces_concordant_golden(tmp_path):
-    port_reproduces_golden_case((str(tmp_path), {}), "m4.concordant")
+def test_port_cli_reproduces_concordant_golden(tmp_path_factory):
+    port_reproduces_golden_case(tmp_path_factory, "m4.concordant")
 
 
 def test_mini_index_tiers_match_jax():

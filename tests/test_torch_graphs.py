@@ -38,8 +38,9 @@ from blasr_tpu_torch.kernels import cuda_ops  # noqa: E402
 from blasr_tpu_torch.pipeline import graphs  # noqa: E402
 from blasr_tpu_torch.pipeline import map_read as tmr  # noqa: E402
 from test_torch_stages import small_world  # noqa: E402
+from torch_shared import TORCH_THREADS  # noqa: E402
 
-torch.set_num_threads(2)
+torch.set_num_threads(TORCH_THREADS)
 
 L = 512
 

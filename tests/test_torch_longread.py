@@ -4,8 +4,7 @@ the JAX package's Mapper: tests/test_longread.py's 5.5 kb read at 4%
 error on both strands, with ``ShapeConfig(buckets=(1024, 2048),
 batch_size=8)``.  Every alignment's strand, contig, target and query
 interval, CIGAR and score must be identical.  The ~20 kb CLR read is in
-``test_torch_longread_clr.py``, a file of its own so that ``--dist
-loadfile`` puts the two on two workers."""
+``test_torch_longread_clr.py``."""
 
 import numpy as np
 import pytest
@@ -18,8 +17,9 @@ from blasr_tpu.params import MappingParams, ShapeConfig  # noqa: E402
 from blasr_tpu.pipeline import map_read as jmr  # noqa: E402
 from blasr_tpu.sim import random_genome  # noqa: E402
 from blasr_tpu_torch.pipeline import map_read as tmr  # noqa: E402
+from torch_shared import TORCH_THREADS  # noqa: E402
 
-torch.set_num_threads(2)
+torch.set_num_threads(TORCH_THREADS)
 
 CFG = ShapeConfig(buckets=(1024, 2048), batch_size=8)
 

@@ -15,6 +15,9 @@ from blasr_tpu.pipeline import map_read as jmr  # noqa: E402
 from blasr_tpu.sim import random_genome, simulate_reads  # noqa: E402
 from blasr_tpu_torch.pipeline import map_read as tmr  # noqa: E402
 from test_torch_longread import alignment_tuples  # noqa: E402
+from torch_shared import TORCH_THREADS  # noqa: E402
+
+torch.set_num_threads(TORCH_THREADS)
 
 
 @pytest.mark.slow

@@ -12,6 +12,9 @@ from blasr_tpu.index.genome import build_genome_index  # noqa: E402
 from blasr_tpu.io.fasta import FastaRecord  # noqa: E402
 from blasr_tpu.sim import mutate, random_genome  # noqa: E402
 from test_torch_longread import port_equals_jax  # noqa: E402
+from torch_shared import TORCH_THREADS  # noqa: E402
+
+torch.set_num_threads(TORCH_THREADS)
 
 
 def test_20kb_clr_read_matches_jax():

@@ -26,8 +26,9 @@ from blasr_tpu_torch.kernels.pallas_banded import SLOPE_ERROR  # noqa: E402
 from blasr_tpu_torch.pipeline import map_read as tmr  # noqa: E402
 from test_torch_mapper_modes import fields  # noqa: E402
 from test_torch_stages import small_world  # noqa: E402
+from torch_shared import TORCH_THREADS  # noqa: E402
 
-torch.set_num_threads(2)
+torch.set_num_threads(TORCH_THREADS)
 
 CFG = ShapeConfig(buckets=(1024,), batch_size=1)
 N_READS = 10

@@ -16,8 +16,9 @@ from blasr_tpu.params import MappingParams  # noqa: E402
 from blasr_tpu.pipeline import map_read as jmr  # noqa: E402
 from blasr_tpu_torch.pipeline import map_read as tmr  # noqa: E402
 from test_torch_stages import jax_index_arrays, small_world  # noqa: E402
+from torch_shared import TORCH_THREADS  # noqa: E402
 
-torch.set_num_threads(2)
+torch.set_num_threads(TORCH_THREADS)
 
 
 def test_map_batch_flat_matches_jax():

@@ -13,8 +13,9 @@ torch = pytest.importorskip("torch")
 from blasr_tpu.params import MappingParams  # noqa: E402
 from test_golden import make_hpstr  # noqa: E402
 from test_torch_mapper_modes import golden_world, same_as_jax  # noqa: E402
+from torch_shared import TORCH_THREADS  # noqa: E402
 
-torch.set_num_threads(2)
+torch.set_num_threads(TORCH_THREADS)
 
 
 def test_affine_use_quality_matches_jax(tmp_path):

@@ -14,8 +14,9 @@ from blasr_tpu.io.fasta import FastaRecord  # noqa: E402
 from blasr_tpu.params import MappingParams, ShapeConfig  # noqa: E402
 from blasr_tpu.sim import simulate_reads  # noqa: E402
 from test_torch_mapper_modes import same_as_jax  # noqa: E402
+from torch_shared import TORCH_THREADS  # noqa: E402
 
-torch.set_num_threads(2)
+torch.set_num_threads(TORCH_THREADS)
 
 
 def test_occ_block_sample_matches_jax():

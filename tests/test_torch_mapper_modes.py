@@ -19,8 +19,9 @@ from blasr_tpu.params import MappingParams, ShapeConfig  # noqa: E402
 from blasr_tpu.pipeline import map_read as jmr  # noqa: E402
 from blasr_tpu_torch.pipeline import map_read as tmr  # noqa: E402
 from test_golden import make_hpstr, make_small  # noqa: E402
+from torch_shared import TORCH_THREADS  # noqa: E402
 
-torch.set_num_threads(2)
+torch.set_num_threads(TORCH_THREADS)
 
 # tests/test_cli_features.py::test_score_matrix_flag_forces_xla_kernel's
 # matrix: -5 on the ACGT diagonal, 6 or 7 off it, N row and column 6 / 7

@@ -17,8 +17,9 @@ from blasr_tpu.pipeline import map_read as jmr  # noqa: E402
 from blasr_tpu.sim import random_genome, simulate_reads  # noqa: E402
 from blasr_tpu_torch.pipeline import map_read as tmr  # noqa: E402
 from test_torch_mapper_modes import CFG, fields, same_as_jax  # noqa: E402
+from torch_shared import TORCH_THREADS  # noqa: E402
 
-torch.set_num_threads(2)
+torch.set_num_threads(TORCH_THREADS)
 
 
 def test_rescue_mapper_matches_jax():

@@ -19,8 +19,9 @@ from blasr_tpu.pipeline import map_read as jmr  # noqa: E402
 from blasr_tpu_torch.pipeline import map_read as tmr  # noqa: E402
 from test_golden import make_small  # noqa: E402
 from test_torch_mapper_modes import golden_world  # noqa: E402
+from torch_shared import TORCH_THREADS  # noqa: E402
 
-torch.set_num_threads(2)
+torch.set_num_threads(TORCH_THREADS)
 
 CFG = ShapeConfig(buckets=(1024,), batch_size=8, band_width=64)
 

@@ -23,8 +23,9 @@ from blasr_tpu.pipeline import map_read as jmr  # noqa: E402
 from blasr_tpu.sim import mutate, random_genome, simulate_reads  # noqa: E402
 from blasr_tpu_torch.cli.blasr import run as port_run  # noqa: E402
 from blasr_tpu_torch.pipeline import map_read as tmr  # noqa: E402
+from torch_shared import TORCH_THREADS  # noqa: E402
 
-torch.set_num_threads(2)
+torch.set_num_threads(TORCH_THREADS)
 
 
 def sam_body(path):

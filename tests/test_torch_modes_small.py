@@ -17,18 +17,24 @@ from blasr_tpu_torch.cli.blasr import run as port_run  # noqa: E402
 from blasr_tpu_torch.io.bam import read_bam  # noqa: E402
 from blasr_tpu_torch.io.fasta import decode  # noqa: E402
 from test_golden import GOLDEN_DIR, make_small  # noqa: E402
+from torch_shared import TORCH_THREADS, shared  # noqa: E402
 
-torch.set_num_threads(2)
+torch.set_num_threads(TORCH_THREADS)
 
 DUMPS = ("anchors.txt", "clusters.txt")
 
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
+    """``build_runs``' directories, built once per test run
+    (tests/torch_shared.py)."""
+    return shared(tmp_path_factory, __file__, "runs", build_runs)
+
+
+def build_runs(root):
     """{"jax": dir, "port": dir}: each CLI's outputs (out.bam, the two
     dump files and the per-read .anchors files of --printDotPlots, which
     the CLI writes to its working directory)."""
-    root = tmp_path_factory.mktemp("torch_modes_small")
     reads, genome, _ = make_small(str(root))
     out = {}
     cwd = os.getcwd()

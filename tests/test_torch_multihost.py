@@ -9,12 +9,15 @@ import os
 
 import pytest
 
-pytest.importorskip("torch")
+torch = pytest.importorskip("torch")
 
 from blasr_tpu.dist import multihost as jhost  # noqa: E402
 from blasr_tpu_torch.dist import multihost as thost  # noqa: E402
 from blasr_tpu_torch.io.fasta import write_fasta  # noqa: E402
 from blasr_tpu_torch.sim import random_genome, simulate_reads  # noqa: E402
+from torch_shared import TORCH_THREADS, shared  # noqa: E402
+
+torch.set_num_threads(TORCH_THREADS)
 
 HOST_VARS = ("BLASR_TPU_NUM_HOSTS", "BLASR_TPU_HOST_ID", "WORLD_SIZE",
              "RANK", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
@@ -28,11 +31,15 @@ def no_host_vars(monkeypatch):
 
 @pytest.fixture(scope="module")
 def world(tmp_path_factory):
+    """``build_world``, once per test run (tests/torch_shared.py)."""
+    return shared(tmp_path_factory, __file__, "world", build_world)
+
+
+def build_world(d):
     """tests/test_multihost.py's world (50 kb genome, 10 reads of 200-500
     bp), the port's single-host m4 of it, and the same run on two hosts
     through run_sharded: host 1 first, then host 0, which merges."""
     from blasr_tpu_torch.cli.blasr import run
-    d = tmp_path_factory.mktemp("multihost")
     contigs = random_genome(50_000, seed=91)
     sims = simulate_reads(contigs, 10, read_len=(200, 500), accuracy=0.9,
                           seed=92)

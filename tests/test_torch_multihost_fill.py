@@ -33,8 +33,9 @@ from blasr_tpu_torch.dist import multihost as thost  # noqa: E402
 from blasr_tpu_torch.io.fasta import FastaRecord, write_fasta  # noqa: E402
 from blasr_tpu_torch.sim import mutate, random_genome  # noqa: E402
 from test_torch_multihost import HOST_VARS, on_hosts  # noqa: E402
+from torch_shared import TORCH_THREADS  # noqa: E402
 
-torch.set_num_threads(2)
+torch.set_num_threads(TORCH_THREADS)
 
 
 @pytest.fixture(autouse=True)

@@ -15,8 +15,9 @@ from blasr_tpu.params import MappingParams, ShapeConfig  # noqa: E402
 from blasr_tpu.sim import random_genome, simulate_reads  # noqa: E402
 from test_torch_mapper_modes import fields  # noqa: E402
 from torch_options import map_both, recorded  # noqa: E402
+from torch_shared import TORCH_THREADS  # noqa: E402
 
-torch.set_num_threads(2)
+torch.set_num_threads(TORCH_THREADS)
 
 CFG = ShapeConfig(buckets=(1024,), batch_size=8, max_anchors=256)
 

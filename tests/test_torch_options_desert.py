@@ -16,8 +16,9 @@ from blasr_tpu.io.fasta import FastaRecord  # noqa: E402
 from blasr_tpu.params import MappingParams, ShapeConfig  # noqa: E402
 from blasr_tpu.sim import random_genome  # noqa: E402
 from torch_options import map_both  # noqa: E402
+from torch_shared import TORCH_THREADS  # noqa: E402
 
-torch.set_num_threads(2)
+torch.set_num_threads(TORCH_THREADS)
 
 
 @pytest.fixture(scope="module")

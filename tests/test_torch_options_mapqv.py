@@ -13,8 +13,9 @@ torch = pytest.importorskip("torch")
 from blasr_tpu.io.fasta import FastaRecord, write_fasta  # noqa: E402
 from blasr_tpu.sim import random_genome  # noqa: E402
 from torch_options import cli_both  # noqa: E402
+from torch_shared import TORCH_THREADS  # noqa: E402
 
-torch.set_num_threads(2)
+torch.set_num_threads(TORCH_THREADS)
 
 
 @pytest.fixture(scope="module")

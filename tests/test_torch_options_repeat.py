@@ -24,8 +24,9 @@ from blasr_tpu.io.fasta import FastaRecord  # noqa: E402
 from blasr_tpu.params import MappingParams, ShapeConfig  # noqa: E402
 from blasr_tpu.sim import random_genome  # noqa: E402
 from torch_options import changed, map_both  # noqa: E402
+from torch_shared import TORCH_THREADS, shared  # noqa: E402
 
-torch.set_num_threads(2)
+torch.set_num_threads(TORCH_THREADS)
 
 CFG = ShapeConfig(buckets=(2048,), batch_size=1, occ_per_pos=1)
 # test_min_expand_starts_loose's hit policy: every placement reported
@@ -33,7 +34,12 @@ POLICY = dict(hit_policy="all", n_best=10)
 
 
 @pytest.fixture(scope="module")
-def world():
+def world(tmp_path_factory):
+    """``build_world``, once per test run (tests/torch_shared.py)."""
+    return shared(tmp_path_factory, __file__, "world", build_world)
+
+
+def build_world(_):
     """(index, the repeat read, the default run's port alignments and
     call arguments), as tests/test_flags.py::repeat_genome_world and
     test_min_expand_starts_loose build them."""

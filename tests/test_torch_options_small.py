@@ -24,8 +24,9 @@ from blasr_tpu.params import MappingParams, ShapeConfig  # noqa: E402
 from test_golden import make_small  # noqa: E402
 from test_torch_mapper_modes import fields, golden_world  # noqa: E402
 from torch_options import changed, map_both  # noqa: E402
+from torch_shared import TORCH_THREADS, shared  # noqa: E402
 
-torch.set_num_threads(2)
+torch.set_num_threads(TORCH_THREADS)
 
 CFG = ShapeConfig(buckets=(1024,), batch_size=5)
 
@@ -46,10 +47,14 @@ OPTIONS = {
 
 @pytest.fixture(scope="module")
 def world(tmp_path_factory):
+    """``build_world``, once per test run (tests/torch_shared.py)."""
+    return shared(tmp_path_factory, __file__, "world", build_world)
+
+
+def build_world(d):
     """(index, the world's first five reads, the default run's port
     alignments and call arguments)."""
-    gi, recs = golden_world(str(tmp_path_factory.mktemp("opt_small")),
-                            make_small)
+    gi, recs = golden_world(str(d), make_small)
     recs = recs[:5]
     base, base_args, _ = map_both(gi, MappingParams(), recs, CFG)
     assert all(base)

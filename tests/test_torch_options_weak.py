@@ -17,8 +17,9 @@ torch = pytest.importorskip("torch")
 from blasr_tpu.io.fasta import FastaRecord  # noqa: E402
 from blasr_tpu.params import MappingParams, ShapeConfig  # noqa: E402
 from torch_options import map_both  # noqa: E402
+from torch_shared import TORCH_THREADS  # noqa: E402
 
-torch.set_num_threads(2)
+torch.set_num_threads(TORCH_THREADS)
 
 CFG = ShapeConfig(buckets=(1024,), batch_size=1, occ_per_pos=1,
                   max_anchors=64)

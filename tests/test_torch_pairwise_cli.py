@@ -19,8 +19,9 @@ from blasr_tpu.io.fasta import FastaRecord, write_fasta  # noqa: E402
 from blasr_tpu_torch.cli import sdp_matcher as tsdp_cli  # noqa: E402
 from blasr_tpu_torch.cli import sw_matcher as tsw_cli  # noqa: E402
 from test_sdp_sw import mutate  # noqa: E402
+from torch_shared import TORCH_THREADS  # noqa: E402
 
-torch.set_num_threads(2)
+torch.set_num_threads(TORCH_THREADS)
 
 SDP_FLAGS = ["-printSimilarity", "-local", "-noRefine", "-showalign",
              "-fixedtarget", "-printsw"]

@@ -36,8 +36,9 @@ from blasr_tpu_torch.kernels import sdp as tsdp  # noqa: E402
 from test_sdp_sw import mutate  # noqa: E402
 from torch_edge_cases import (MEMBER_CASES, MEMBER_PATH_CASES,  # noqa: E402
                               member_case)
+from torch_shared import TORCH_THREADS  # noqa: E402
 
-torch.set_num_threads(2)
+torch.set_num_threads(TORCH_THREADS)
 
 
 def sdp_world(seed=5, N=8, Lq=256, Lt=512):

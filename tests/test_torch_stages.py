@@ -26,8 +26,9 @@ from blasr_tpu_torch.kernels import chain as tchain  # noqa: E402
 from blasr_tpu_torch.kernels import sdp as tsdp  # noqa: E402
 from blasr_tpu_torch.kernels import xla_math  # noqa: E402
 from blasr_tpu_torch.pipeline import map_read as tmr  # noqa: E402
+from torch_shared import TORCH_THREADS  # noqa: E402
 
-torch.set_num_threads(2)
+torch.set_num_threads(TORCH_THREADS)
 
 INDEX_FIELDS = ("genome", "keys_sorted", "pos_sorted", "contig_starts",
                 "contig_ends", "bucket_starts", "bucket_pairs", "gwords",

@@ -27,8 +27,9 @@ torch = pytest.importorskip("torch")
 from blasr_tpu.io.fasta import write_fasta  # noqa: E402
 from blasr_tpu.sim import random_genome, simulate_reads  # noqa: E402
 from test_golden import GOLDEN_DIR, make_small  # noqa: E402
+from torch_shared import TORCH_THREADS  # noqa: E402
 
-torch.set_num_threads(2)
+torch.set_num_threads(TORCH_THREADS)
 
 PACKAGES = ("blasr_tpu", "blasr_tpu_torch")
 

@@ -4,12 +4,15 @@ cmph5_store_quality_by_context, on ``io/cmph5.py``) against the JAX
 package's on the CPU.
 
 tests/test_hdf.py's bax world (three ZMWs of two subreads each) is built
-once for the file, with the SAM of its subreads mapped once by the JAX CLI
+once per test run, with the SAM of its subreads mapped once by the JAX CLI
 (test_hdf.py:186's command); tests/test_hdf.py:254's one-ZMW movie with
 adapter and low-quality scraps beside it.  Each tool of both packages runs
 on the same input files: FASTA/FASTQ and text outputs and the BAM files
 byte for byte, the bax.h5 and cmp.h5 outputs dataset by dataset and
 attribute by attribute (an HDF5 file's bytes carry its write times)."""
+
+import shutil
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -19,6 +22,7 @@ torch = pytest.importorskip("torch")
 
 from blasr_tpu.io.hdf import REGION_TYPES, ZmwRead, write_bax  # noqa: E402
 from test_hdf import bax_world  # noqa: E402,F401  (the module fixture)
+from torch_shared import shared  # noqa: E402
 
 PACKAGES = ("blasr_tpu", "blasr_tpu_torch")
 
@@ -60,14 +64,26 @@ def same_bytes(a, b):
 
 @pytest.fixture(scope="module")
 def world(bax_world, tmp_path_factory):
-    """bax_world, the JAX CLI's SAM of it, and the scraps movie."""
+    """``build_world`` on this worker's bax_world, built once per test run
+    (tests/torch_shared.py; bax_world is the same files on every
+    worker)."""
+    return shared(tmp_path_factory, __file__, "world",
+                  lambda d: build_world(d, bax_world))
+
+
+def build_world(d, bax_world):
+    """bax_world's movie and genome copied into ``d``, the JAX CLI's SAM
+    of it, and the scraps movie."""
     from blasr_tpu.cli.blasr import run as blasr_run
-    d, path, contigs, zmws = bax_world
+    src, path, _, _ = bax_world
+    shutil.copy(src / "genome.fa", d / "genome.fa")
+    path = Path(shutil.copy(path, d / path.name))
     sam = d / "out.sam"
     assert blasr_run([str(path), str(d / "genome.fa"), "--sam",
                       "--clipping", "soft", "--minReadLength", "50",
                       "--out", str(sam)]) == 0
-    e = tmp_path_factory.mktemp("scraps")
+    e = d / "scraps"
+    e.mkdir()
     ins, ada, hq = (REGION_TYPES.index(x)
                     for x in ("Insert", "Adapter", "HQRegion"))
     rng = np.random.default_rng(81)

@@ -27,6 +27,8 @@ import sys
 
 import numpy as np
 
+from torch_shared import TORCH_THREADS
+
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -43,7 +45,7 @@ def start_ranks(tmp, cases, world=2, device="cpu"):
     path = os.path.join(tmp, "job.json")
     with open(path, "w") as f:
         json.dump(job, f)
-    env = dict(os.environ, OMP_NUM_THREADS="2")
+    env = dict(os.environ, OMP_NUM_THREADS=str(TORCH_THREADS))
     return [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), path, str(r)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
@@ -78,7 +80,7 @@ def main(job_path: str, rank: int) -> int:
     from blasr_tpu_torch.pipeline.map_read import DeviceIndex
     from blasr_tpu_torch.sim import random_genome
 
-    torch.set_num_threads(2)
+    torch.set_num_threads(TORCH_THREADS)
     with open(job_path) as f:
         job = json.load(f)
     dist.init_process_group("gloo", init_method=f"tcp://localhost:"

@@ -363,12 +363,25 @@ def banded_case(name, w_b=128):
 # (csrc/banded_dp_wide.cu, csrc/banded_traceback_wide.cu): 48 (not a
 # multiple of 32), 64 and 256
 WIDE_WIDTHS = (48, 64, 256)
+# K1-W's layouts: CPL = ceil(w_b / 32) band cells a lane of one warp up to
+# 256 cells, the first design above; so the widths on each side of a lane
+# count's edge (31 | 32 | 33 and 255 | 256 | 257) and at twice 256 (512,
+# 513), where a design of several warps would change its warp count
+LANE_WIDTHS = (31, 32, 33, 255, 256, 257)
+GROUP_WIDTHS = (512, 513)
+# K2-W's ring (csrc/banded_traceback_wide.cu::ring_plan): its largest
+# width, two 8-row tiles in the SM's whole shared memory, then the first
+# width that walks from global memory
+RING_WIDTHS = (3615, 3616)
+# odd rows for the staging trap: a partial last tile, and at an odd width
+# tile starts that are not 16-byte aligned
+ODD_ROWS = 201
 # the inputs of :func:`wide_case`, in order (all at L = 256, W = 512)
 WIDE_PARTS = ("tile-edges", "negative-offsets", "slope2-across-tile",
               "hp-runs", "wild-shifts")
 
 
-def wide_case(w_b):
+def wide_case(w_b, shifts=False, rows=None):
     """Banded-DP inputs at band width ``w_b`` (22 items, L = 256, W =
     512): :func:`banded_case`'s ``tile-edges``, ``negative-offsets``,
     ``slope2-across-tile`` and ``hp-runs`` at that width, then
@@ -376,7 +389,8 @@ def wide_case(w_b):
     slope limit refuses and K1-W takes: a step back by 3 then a jump by 5
     (item 0), a jump past the band, w_b + 5 (item 1), a random walk of
     steps -2..4 (item 2) and two steps back on consecutive rows (item
-    3)."""
+    3).  ``shifts`` appends :func:`lane_shifts` (4 items more); ``rows``
+    cuts every item to its first ``rows`` rows (:func:`cut_rows`)."""
     parts = [banded_case(name, w_b) for name in WIDE_PARTS[:-1]]
     wild = [np.array(a) for a in banded_case("tile-edges", w_b)]
     offs = wild[2].astype(np.int64)
@@ -389,8 +403,51 @@ def wide_case(w_b):
     offs[3, 41:] -= 2
     wild[2] = offs.astype(np.int32)
     parts.append(tuple(wild))
-    return tuple(np.concatenate([p[k] for p in parts])
-                 for k in range(len(parts[0])))
+    if shifts:
+        parts.append(lane_shifts(w_b))
+    out = tuple(np.concatenate([p[k] for p in parts])
+                for k in range(len(parts[0])))
+    return out if rows is None else cut_rows(out, rows, w_b)
+
+
+def lane_shifts(w_b):
+    """The ``tile-edges`` inputs (4 items) on band shifts that move K1-W's
+    warp layout (CPL = ceil(w_b / 32) cells a lane) by whole and part
+    lanes: a step of CPL + 1 cells (one lane and a cell), then 3 * CPL +
+    2, then -(CPL + 1) (item 0); steps back by 1 (the diagonal slice
+    starts past the row), 2, 5 and w_b + 1 (item 1); steps of exactly w_b
+    and w_b + 1, and back by 2 * w_b + 1 (the start wraps back onto the
+    row) and 2 * w_b + 5 (item 2); a random walk of steps -40..40 (item
+    3)."""
+    cpl = -(-w_b // 32)
+    a = [np.array(x) for x in banded_case("tile-edges", w_b)]
+    offs = a[2].astype(np.int64)
+    for r, d in ((30, cpl + 1), (50, 3 * cpl + 2), (70, -(cpl + 1))):
+        offs[0, r:] += d
+    for r, d in ((20, -1), (24, -2), (30, -5), (36, -(w_b + 1))):
+        offs[1, r:] += d
+    for r, d in ((20, w_b), (26, w_b + 1), (33, -(2 * w_b + 1)),
+                 (40, -(2 * w_b + 5))):
+        offs[2, r:] += d
+    steps = np.random.default_rng(w_b + 1).integers(-40, 41, offs.shape[1])
+    offs[3] = offs[3, 0] + np.cumsum(steps)
+    a[2] = offs.astype(np.int32)
+    return tuple(a)
+
+
+def cut_rows(arrs, rows, w_b):
+    """Banded-DP inputs cut to their first ``rows`` rows: qa and qb
+    clipped into them, and tb moved to the band's middle column at the
+    last row qb - 1 (so that the item ends inside its band)."""
+    reads, windows, offs, qa, qb, ta, tb = (np.array(a) for a in arrs)
+    reads, offs = reads[:, :rows], offs[:, :rows]
+    qa = np.minimum(qa, rows - 1)
+    qb = np.minimum(qb, rows)
+    last = offs[np.arange(len(qb)), qb - 1].astype(np.int64) + w_b // 2
+    tb = np.clip(last, ta + 1, windows.shape[1])
+    i32 = np.int32
+    return (reads, windows, offs, qa.astype(i32), qb.astype(i32),
+            ta.astype(i32), tb.astype(i32))
 
 
 def _hp_rows(name, L, qa):
