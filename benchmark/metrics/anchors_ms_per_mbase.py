@@ -1,0 +1,16 @@
+"""Device time of map_batch's ``anchors`` stage, the anchor search (K5) and
+the reads' reverse complements, per million read bases mapped: the
+program's ``StageTimer`` (event nodes inside each CUDA graph, so device
+time only) summed over the StageTimer half of the window."""
+
+UNIT = "ms/Mbase"
+LAYER = "anchors (K5, kernels/anchor.py)"
+MOVES = "device_s_per_gbase"
+STAGE = "anchors"
+
+
+def read(ctx):
+    st = ctx.get("staged")
+    if not st or not st["bases"] or not st["stages_ms"].get(STAGE):
+        return None
+    return st["stages_ms"][STAGE] / (st["bases"] / 1e6)
