@@ -1,0 +1,17 @@
+"""Device time of map_batch's ``guide_sdp``'s second part, the gathers of
+the genome windows [N_dp, W], the read rows [N_dp, L] and the anchor
+hits [N_dp, L, O], per million read bases mapped: the program's
+``StageTimer`` part ``guide_sdp.gather`` (event nodes inside each CUDA
+graph, so device time only) summed over the StageTimer half of the
+window."""
+
+from benchmark.program_spans import part_ms_per_mbase
+
+UNIT = "ms/Mbase"
+LAYER = "guide/SDP (K6, K4, kernels/sdp.py, plain torch)"
+MOVES = "device_s_per_gbase"
+STAGE = "guide_sdp.gather"
+
+
+def read(ctx):
+    return part_ms_per_mbase(ctx, STAGE)

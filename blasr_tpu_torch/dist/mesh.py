@@ -182,7 +182,8 @@ class WholeBatch(OneBatch):
         """The whole batch's :class:`PackedBatch` from this rank's block
         ``pb`` (its strand rows, its traceback rows, which :meth:`first`
         numbered last) and the other blocks', on every rank; ``flat``
-        ends in the OR of the blocks' fault words."""
+        ends in the sum of the blocks' DP rows used and the OR of their
+        fault words."""
         n, b = self.n, self.b
 
         def rows(x):                  # [n, 2b, ...] -> [fwd x B, rc x B]
@@ -202,9 +203,12 @@ class WholeBatch(OneBatch):
         has = g_slots >= 0
         ops = g_ops.new_zeros((int(has.sum()),) + pb.ops.shape[1:])
         ops[g_slots[has]] = g_ops[has]
-        fault = (_all_gather(pb.flat[-1:], self.group, n) != 0).any()
+        tail = _all_gather(pb.flat[-2:], self.group, n)
+        used = tail[:, 0].sum(dtype=pb.flat.dtype)
+        fault = (tail[:, 1] != 0).any()
         flat = torch.cat([ints.reshape(-1), clusters.reshape(-1),
-                          ops.reshape(-1), fault.to(pb.flat.dtype)[None]])
+                          ops.reshape(-1), used[None],
+                          fault.to(pb.flat.dtype)[None]])
         return PackedBatch(ints=ints, ops=ops, clusters=clusters, flat=flat)
 
 
@@ -224,7 +228,9 @@ def map_batch_data_parallel(mesh: Mesh, index: DeviceIndex, reads,
     choices = WholeBatch(mesh, B // mesh.shape["data"], static["C"])
     pb = map_batch(index, _block(mesh, reads), _block(mesh, read_len), m,
                    g, choices=choices, **static)
-    return choices.assemble(pb)
+    # every rank's DP rows, stored at the bucket's length
+    return choices.assemble(pb)._replace(
+        dp_rows=sum(choices.counts) * static["L"])
 
 
 def shard_index(gi: GenomeIndex, n_shards: int, overlap: int = 65536,
@@ -364,16 +370,18 @@ def shard_device_index(gi: GenomeIndex, shards, s: int,
 
 
 def merge_ref_shards(ints: torch.Tensor, ops: torch.Tensor,
-                     clusters: torch.Tensor,
-                     faults: torch.Tensor) -> PackedBatch:
+                     clusters: torch.Tensor, faults: torch.Tensor,
+                     rows_used: torch.Tensor) -> PackedBatch:
     """The ref axis's merge of the R shards' outputs stacked on a leading
     axis (ints [R, 2B, C, N_COLS], ops [R, n_dp, P/2], clusters
-    [R, 2B, C_stat, 2], faults [R], each shard's last word of ``flat``):
+    [R, 2B, C_stat, 2], faults [R], each shard's last word of ``flat``,
+    and rows_used [R], the word before it):
     dp slots translated into rows of the concatenated ops, anchor and
     clip counts summed, the top C candidates per row by score (stable,
     invalid rows last), the heaviest gate-passing clusters of the union,
-    and the OR of the faults as the last word of ``flat``, so that a K1
-    fault in any shard raises in ``unpack_batch``."""
+    the sum of the DP rows used and the OR of the faults as the last two
+    words of ``flat``, so that a K1 fault in any shard raises in
+    ``unpack_batch``."""
     R, n2, C, _ = ints.shape
     n_dp, t_len = ops.shape[1:]
     dev = ints.device
@@ -400,8 +408,9 @@ def merge_ref_shards(ints: torch.Tensor, ops: torch.Tensor,
     top_cl = mcl.gather(1, corder[..., None].expand(-1, -1, 2))
     ops = ops.reshape(R * n_dp, t_len)
     fault = (faults != 0).any().to(i32)
+    used = rows_used.sum(dtype=i32)
     flat = torch.cat([top.reshape(-1), top_cl.reshape(-1), ops.reshape(-1),
-                      fault.reshape(1)])
+                      used.reshape(1), fault.reshape(1)])
     return PackedBatch(ints=top, ops=ops, clusters=top_cl, flat=flat)
 
 
@@ -444,8 +453,11 @@ def map_batch_ref_sharded(
     res = map_batch(idx, _block(mesh, reads), _block(mesh, read_len), m, g,
                     **static)
     stacked = [_all_gather(x, mesh.ref_group, n_ref)
-               for x in (res.ints, res.ops, res.clusters, res.flat[-1:])]
-    return merge_ref_shards(*stacked), offs, int(res.ops.shape[0])
+               for x in (res.ints, res.ops, res.clusters, res.flat[-1:],
+                         res.flat[-2:-1])]
+    merged = merge_ref_shards(*stacked)._replace(
+        dp_rows=res.dp_rows * n_ref)
+    return merged, offs, int(res.ops.shape[0])
 
 
 def globalize_sharded(result, offs: np.ndarray, n_dp: int):

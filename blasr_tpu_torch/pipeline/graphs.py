@@ -37,9 +37,13 @@ from blasr_tpu_torch.kernels import cuda_ops
 # the eager warm-up before a capture is one pass ("dense_reruns" at
 # tb_cap > 0), so every kernel's launches are a whole multiple of them;
 # "captures" counts the graphs captured, "replays" the passes that were
-# replays (on CUDA outside eager_dispatch, every pass but the warm-ups)
-DISPATCHES = {"batches": 0, "dense_reruns": 0, "captures": 0, "replays": 0}
-# one entry per capture: its L, batch, tb_cap, ms and the pool bytes it took
+# replays (on CUDA outside eager_dispatch, every pass but the warm-ups);
+# "waited" the results the host collected before their copy had ended
+# (map_read.unpack_batch)
+DISPATCHES = {"batches": 0, "dense_reruns": 0, "captures": 0, "replays": 0,
+              "waited": 0}
+# one entry per capture: its L, batch, tb_cap, ms, the ms of the kernel
+# load and eager pass before it (warmup_ms) and the pool bytes it took
 CAPTURES: List[dict] = []
 
 _eager = False
@@ -115,7 +119,7 @@ class _CaptureMarks:
     def __init__(self):
         self.marks: List[tuple] = []
 
-    def record(self, name: str) -> None:
+    def record(self, name) -> None:
         ev = torch.cuda.Event(enable_timing=True, external=True)
         ev.record()
         self.marks.append((name, ev))
@@ -182,10 +186,11 @@ def capture(index, reads, lens, pos, kw, qv=None,
     """Capture ``map_batch`` on static copies of the given inputs, after one
     eager pass on them (every kernel and library routine loaded before the
     capture; it counts as a pass).  The graph's allocations come from the
-    index's pool.  Records the capture's ms and the bytes the pool grew
-    by in :data:`CAPTURES`."""
+    index's pool.  Records the capture's ms, the warm-up's and the bytes
+    the pool grew by in :data:`CAPTURES`."""
     from blasr_tpu_torch.pipeline.map_read import StageTimer
     dev = reads.device
+    t_warm = time.perf_counter()
     cuda_ops._load(dev)
     s_reads, s_lens = reads.clone(), lens.clone()
     s_qv = s_rescore = None
@@ -197,6 +202,7 @@ def capture(index, reads, lens, pos, kw, qv=None,
     if cache.pool is None:
         cache.pool = torch.cuda.graph_pool_handle()
     torch.cuda.synchronize(dev)
+    warmup_ms = 1e3 * (time.perf_counter() - t_warm)
     torch.cuda.empty_cache()
     reserved = torch.cuda.memory_reserved(dev)
     before = dict(cuda_ops.LAUNCHES)
@@ -224,7 +230,8 @@ def capture(index, reads, lens, pos, kw, qv=None,
     CAPTURES.append(dict(
         L=kw["L"], batch=int(reads.shape[0]), tb_cap=kw.get("tb_cap", 0),
         use_qv=bool(kw.get("use_qv")), use_hp=bool(kw.get("use_hp")),
-        ms=ms, pool_bytes=torch.cuda.memory_reserved(dev) - reserved))
+        ms=ms, warmup_ms=warmup_ms,
+        pool_bytes=torch.cuda.memory_reserved(dev) - reserved))
     keep = tuple(v for v in index
                  if isinstance(v, torch.Tensor) and v is not index.genome)
     return BatchGraph(graph, s_reads, s_lens, out, launches, s_qv, s_rescore,

@@ -15,7 +15,7 @@ from __future__ import annotations
 import dataclasses
 import os
 from dataclasses import dataclass
-from typing import Dict, List, NamedTuple, Optional, Sequence
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -31,6 +31,7 @@ from blasr_tpu_torch.kernels.pallas_banded import (SLOPE_ERROR,
                                                    banded_align_cuda,
                                                    slope_fault)
 from blasr_tpu_torch.pipeline import graphs
+from blasr_tpu_torch.pipeline.metrics import count, records_spans, span
 
 BIG32 = 0x3FFFFFFF
 MASK32 = 0xFFFFFFFF
@@ -191,21 +192,26 @@ N_COLS = 17
 
 class PackedBatch(NamedTuple):
     """Device-side result of map_batch (layout of the JAX PackedBatch, and
-    one more word at the end of ``flat``: K1's slope fault, nonzero when
-    some active row advanced the band by other than 0, 1 or 2).
-    :func:`start_fetch` adds the host copy of ``flat`` and the event that
-    marks its end.  A batch from a graph replay (``pipeline/graphs.py``)
-    holds the graph's own device tensors: ``ints``, ``ops``, ``clusters``
-    and ``flat`` are valid until the next replay on the same index (its
-    graphs share one pool), so a caller reads them through ``host``
-    (:func:`unpack_batch` reads only ``host`` and the shapes)."""
+    two more words at the end of ``flat``: the DP rows the batch needed,
+    the sum of qb - qa over its valid DP items, then K1's slope fault,
+    nonzero when some active row advanced the band by other than 0, 1 or
+    2).  ``dp_rows`` is the rows K1 stores, n_dp x L, from the call's
+    static shape.  :func:`start_fetch` adds the host copy of ``flat`` and
+    the event that marks its end.  A batch from a graph replay
+    (``pipeline/graphs.py``) holds the graph's own device tensors:
+    ``ints``, ``ops``, ``clusters`` and ``flat`` are valid until the next
+    replay on the same index (its graphs share one pool), so a caller
+    reads them through ``host`` (:func:`unpack_batch` reads only ``host``
+    and the shapes)."""
 
     ints: torch.Tensor      # int32 [2B, C, N_COLS] columns per COL_*
     ops: torch.Tensor       # int32 [N_tb, P/2] RL traceback pairs
     clusters: torch.Tensor  # int32 [2B, C_stat, 2] (chain weight, gate ok)
-    flat: Optional[torch.Tensor] = None  # int32 [*]: ints+clusters+ops+fault
+    # int32 [*]: ints, clusters, ops, the DP rows used, the fault
+    flat: Optional[torch.Tensor] = None
     host: Optional[torch.Tensor] = None  # host copy of flat (start_fetch)
     ready: Optional["torch.cuda.Event"] = None  # recorded after that copy
+    dp_rows: int = 0                     # n_dp x L, the rows K1 stores
 
 
 class BatchResult(NamedTuple):
@@ -252,19 +258,33 @@ def start_fetch(pb: PackedBatch) -> PackedBatch:
 def unpack_batch(pb: PackedBatch) -> BatchResult:
     """Wait for the host copy of ``flat`` (:func:`start_fetch`, started
     here if the caller did not) and expand the column block.  Raises
-    ValueError if the batch's DP ran on offsets K1 does not take."""
+    ValueError if the batch's DP ran on offsets K1 does not take.  The
+    wait is span ``collect.wait`` (``graphs.DISPATCHES["waited"]`` counts
+    the copies not done when it began), the rest ``collect.unpack``; the
+    DP rows stored and needed go to the counters ``dp_rows_stored`` and
+    ``dp_rows_used``."""
     if pb.host is None:
         pb = start_fetch(pb)
     if pb.ready is not None:
-        pb.ready.synchronize()
+        with span("collect.wait"):
+            if not pb.ready.query():
+                graphs.DISPATCHES["waited"] += 1
+                pb.ready.synchronize()
+    with span("collect.unpack"):
+        return _unpack(pb)
+
+
+def _unpack(pb: PackedBatch) -> BatchResult:
     buf = pb.host.numpy()
     if buf[-1]:
         raise ValueError(SLOPE_ERROR)
+    count("dp_rows_stored", pb.dp_rows)
+    count("dp_rows_used", buf[-2])
     n_i = int(np.prod(pb.ints.shape))
     n_c = int(np.prod(pb.clusters.shape))
     ints = buf[:n_i].reshape(tuple(pb.ints.shape))
     clusters = buf[n_i:n_i + n_c].reshape(tuple(pb.clusters.shape))
-    ops = buf[n_i + n_c:-1].reshape(tuple(pb.ops.shape))
+    ops = buf[n_i + n_c:-2].reshape(tuple(pb.ops.shape))
     c = [ints[..., i] for i in range(ints.shape[-1])]
     return BatchResult(
         score=c[10].astype(np.float32), valid=c[0] > 0,
@@ -403,8 +423,10 @@ class StageTimer:
     While a timer is installed (``with StageTimer() as st: ...``),
     map_batch records an event at each stage boundary on the current
     stream; :meth:`totals` synchronizes once and sums the milliseconds
-    between consecutive marks per stage name.  Without a timer the marks
-    cost one ``None`` check.  A graph replay (``pipeline/graphs.py``)
+    per stage name (:meth:`spans`).  Marks ``<stage>.<part>`` split a
+    stage into parts that partition it: the stage's own mark ends its
+    last part too (one event under both names).  Without a timer the
+    marks cost one ``None`` check.  A graph replay (``pipeline/graphs.py``)
     has its marks from the capture, as event nodes of the graph: it waits
     for them and adds its spans (:meth:`add`), so a timed pass of graphs
     waits once per dispatch and measures device time only."""
@@ -424,7 +446,7 @@ class StageTimer:
     def __exit__(self, *exc):
         StageTimer.active = None
 
-    def record(self, name: str) -> None:
+    def record(self, name: "MarkName") -> None:
         ev = torch.cuda.Event(enable_timing=True)
         ev.record()
         self.marks.append((name, ev))
@@ -435,14 +457,21 @@ class StageTimer:
 
     @staticmethod
     def spans(marks) -> Dict[str, float]:
-        """Milliseconds between consecutive (name, event) marks, by the
-        later mark's name (a "start" mark opens a pass)."""
+        """Milliseconds of each (name or names, event) mark, by name: a
+        part (a dotted name) from the mark before it, a stage from the
+        stage mark before it, so a stage keeps its interval whether it has
+        parts or not (a "start" mark opens a pass)."""
         out: Dict[str, float] = {}
-        prev = None
-        for name, ev in marks:
-            if name != "start" and prev is not None:
-                out[name] = out.get(name, 0.0) + prev.elapsed_time(ev)
+        prev = prev_stage = None
+        for names, ev in marks:
+            names = (names,) if isinstance(names, str) else names
+            for name in names:
+                since = prev if "." in name else prev_stage
+                if name != "start" and since is not None:
+                    out[name] = out.get(name, 0.0) + since.elapsed_time(ev)
             prev = ev
+            if any("." not in name for name in names):
+                prev_stage = ev
         return out
 
     def totals(self) -> Dict[str, float]:
@@ -454,7 +483,12 @@ class StageTimer:
         return out
 
 
-def _mark(name: str, dev: torch.device) -> None:
+# a mark's name: a stage's, a part's, or (last part, stage) for the mark
+# that ends both
+MarkName = Union[str, Tuple[str, str]]
+
+
+def _mark(name: MarkName, dev: torch.device) -> None:
     t = StageTimer.active
     if t is not None and dev.type == "cuda":
         t.record(name)
@@ -639,6 +673,7 @@ def map_batch(index: DeviceIndex, reads, read_len, submat, gap_costs,
     ws = torch.clamp(ts - w_b, min=c_lo - 1,
                      max=torch.maximum(c_hi - W, c_lo - 1))
     ws = torch.clamp(ws, min=0)
+    _mark("guide_sdp.compact", dev)
 
     gpad = index.genome_pad
     if gpad is None or gpad.shape[0] < G + W:
@@ -661,6 +696,7 @@ def map_batch(index: DeviceIndex, reads, read_len, submat, gap_costs,
     q3 = torch.arange(L, dtype=i64, device=dev)[None, :, None]
     ht = anchors.hits_t[read_row]                            # [N_dp, L, O]
     hv = anchors.hits_valid[read_row]
+    _mark("guide_sdp.gather", dev)
     frag_diag = ht - ws[:, None, None] - q3
     ratio = ((pick(cands.t_end) - ts0).to(f32)
              / torch.clamp(rlen_sel, min=1).to(f32))
@@ -675,6 +711,7 @@ def map_batch(index: DeviceIndex, reads, read_len, submat, gap_costs,
     offs = _band_offsets(mqs, mts, ws, L, W, w_b,
                          frag_diag, frag_ok, between_only)
     if k_sdp > 0:
+        _mark("guide_sdp.fragments", dev)
         # short-tuple window pass: the top-2 chain-ranked candidates per
         # strand-row plus lower-ranked ones whose guide has an anchor
         # desert wider than the band
@@ -702,7 +739,8 @@ def map_batch(index: DeviceIndex, reads, read_len, submat, gap_costs,
         offs = offs.clone()
         offs[srows] = offs_sub
 
-    _mark("guide_sdp", dev)
+    _mark(("guide_sdp.sdp" if k_sdp > 0 else "guide_sdp.fragments",
+           "guide_sdp"), dev)
     dp_args = (reads_sel.contiguous(), windows.contiguous(),
                offs.to(i32).contiguous(), qa.to(i32), qb.to(i32),
                ta.to(i32), tb.to(i32))
@@ -747,15 +785,17 @@ def map_batch(index: DeviceIndex, reads, read_len, submat, gap_costs,
     tb_rank = (same_read & better).sum(dim=1)
     keep_tb = valid_sel & (tb_rank < C)
     tb_rows, tb_slots = choices.first(torch.where(keep_tb, 0, 1), n_tb)
+    _mark("traceback.rank", dev)
 
     res_sub = type(res)(score=res.score[tb_rows], tbbits=res.tbbits[tb_rows],
                         final_state=res.final_state[tb_rows],
                         valid=res.valid[tb_rows])
+    # offs, qa, qb, ta, tb of the traced rows
+    tb_args = [a[tb_rows] for a in dp_args[2:7]]
+    _mark("traceback.gather", dev)
     t_rl = tb_cap if tb_cap > 0 else max(128, (3 * T) // 8)
-    tbk = banded_traceback(res_sub, dp_args[2][tb_rows], dp_args[3][tb_rows],
-                           dp_args[4][tb_rows], dp_args[5][tb_rows],
-                           dp_args[6][tb_rows], t_max=t_rl, w_b=w_b)
-    _mark("traceback", dev)
+    tbk = banded_traceback(res_sub, *tb_args, t_max=t_rl, w_b=w_b)
+    _mark(("traceback.k2", "traceback"), dev)
 
     def back(v):
         out = torch.zeros((n_rows,), dtype=v.dtype, device=dev)
@@ -805,11 +845,14 @@ def map_batch(index: DeviceIndex, reads, read_len, submat, gap_costs,
         anchors.n_clipped[:, None].expand(n2, C).to(i32),
     ], dim=-1)
     packed = tbk.pairs
+    # the query rows the valid DP items need, of the n_dp x L K1 stores
+    rows_used = torch.where(sel_valid, qb - qa, 0).sum().to(i32)
     flat = torch.cat([ints.reshape(-1), cluster_stats.reshape(-1),
-                      packed.reshape(-1), fault.to(i32).reshape(1)])
+                      packed.reshape(-1), rows_used.reshape(1),
+                      fault.to(i32).reshape(1)])
     _mark("pack", dev)
     return PackedBatch(ints=ints, ops=packed, clusters=cluster_stats,
-                       flat=flat)
+                       flat=flat, dp_rows=n_rows * L)
 
 
 # ---------------------------------------------------------------------------
@@ -1301,18 +1344,19 @@ class Mapper:
         # with the queued batches' compute).  Both ends bounded: host and
         # device memory stay O(LOOKAHEAD), not O(reads).
         def stage(base):
-            group = recs[base:base + batch]
-            arr = np.full((batch, L), 4, dtype=np.int8)
-            lens = np.zeros(batch, dtype=np.int32)
-            for i, r in enumerate(group):
-                n = min(len(r.seq), L)
-                arr[i, :n] = r.seq[:n]
-                lens[i] = n
-            qv = None
-            if self.use_qv:
-                qv = tuple(upload(q)
-                           for q in self.pack_qv_rows(group, batch, L))
-            return group, lens, upload(arr), upload(lens), qv
+            with self.metrics.clock("map.stage"):
+                group = recs[base:base + batch]
+                arr = np.full((batch, L), 4, dtype=np.int8)
+                lens = np.zeros(batch, dtype=np.int32)
+                for i, r in enumerate(group):
+                    n = min(len(r.seq), L)
+                    arr[i, :n] = r.seq[:n]
+                    lens[i] = n
+                qv = None
+                if self.use_qv:
+                    qv = tuple(upload(q)
+                               for q in self.pack_qv_rows(group, batch, L))
+                return group, lens, upload(arr), upload(lens), qv
 
         def collect(group, lens, arr_d, lens_d, qv, res):
             with self.metrics.clock("collectAlignments"):
@@ -1360,93 +1404,96 @@ class Mapper:
         per-read pruning on cheap fields, then ONE native call assembling
         every surviving CIGAR (run-for-run identical to the per-candidate
         path; tests/test_pipeline.py pins the decoder)."""
-        p = self.params
-        seqdb = self.gi.seqdb
-        C = res.score.shape[1]
-        valid = res.valid & (res.dp_slot >= 0)
-        if p.forward_only:
-            valid[B:] = False
-        # contig lookup + boundary-crossing drop: one searchsorted for the
-        # whole batch instead of one per candidate
-        starts = seqdb.starts
-        ci = np.clip(np.searchsorted(starts, res.t_start, side="right") - 1,
-                     0, seqdb.n_contigs - 1)
-        lo = starts[ci]
-        valid &= res.t_end <= lo + seqdb.lengths[ci]
-        # bulk scalar conversion: list indexing in the loops below is ~10x
-        # cheaper than per-element numpy scalar reads
-        valid_l = valid.tolist()
-        qa_l, qb_l = res.q_start.tolist(), res.q_end.tolist()
-        te_l, lo_l = res.t_end.tolist(), lo.tolist()
-        ts_l = res.t_start.tolist()
-        sc_l, ch_l = res.score.tolist(), res.chain_score.tolist()
-        nm_l, nx_l = res.n_match.tolist(), res.n_mismatch.tolist()
-        ni_l, nd_l = res.n_ins.tolist(), res.n_del.tolist()
-        ci_l, slot_l = ci.tolist(), res.dp_slot.tolist()
-        # an empty traceback (no blocks) starts with op 0 in halfword 0
-        has_runs = ((res.ops[:, 0] & 3) != 0).tolist()
-        names, tlens = seqdb.names, seqdb.lengths
-        from blasr_tpu_torch.pipeline.select import (
-            num_significant_clusters, prune_alignments)
-        out: List[List[Alignment]] = []
-        deferred: List[tuple] = []  # (alignment, traceback slot)
-        for i, rec in enumerate(group):
-            rlen = int(lens[i])
-            self._anchor_totals[id(rec)] = (
-                int(res.n_anchors[i]) + int(res.n_anchors[i + B]),
-                int(res.n_clipped[i]) + int(res.n_clipped[i + B]))
-            alns: List[Alignment] = []
-            slot_of: Dict[int, int] = {}
-            for strand in (0, 1):
-                row = i + strand * B
-                vrow, qar, qbr = valid_l[row], qa_l[row], qb_l[row]
-                for c in range(C):
-                    if not vrow[c]:
-                        continue
-                    qa, qb = qar[c], qbr[c]
-                    cidx = ci_l[row][c]
-                    clo = lo_l[row][c]
-                    slot = slot_l[row][c]
-                    if strand == 0:
-                        qs, qe = qa, qb
-                    else:
-                        qs, qe = rlen - qb, rlen - qa
-                    a = Alignment(
-                        qname=rec.name if rec.name else f"read/{i}",
-                        qlen=rlen, qstart=qs, qend=qe, strand=strand,
-                        tindex=cidx, tname=names[cidx],
-                        tlen=int(tlens[cidx]),
-                        tstart=ts_l[row][c] - clo, tend=te_l[row][c] - clo,
-                        score=float(sc_l[row][c]),
-                        n_match=nm_l[row][c], n_mismatch=nx_l[row][c],
-                        n_ins=ni_l[row][c], n_del=nd_l[row][c],
-                        cigar=_CIGAR_PENDING if has_runs[slot] else [],
-                        read=rec.seq, qual=rec.qual,
-                        tracks=getattr(rec, "tracks", None),
-                        cluster_weight=float(ch_l[row][c]),
-                        band_width=self.cfg.band_width,
-                    )
-                    alns.append(a)
-                    slot_of[id(a)] = slot
-            # alignment-level pruning (RemoveLowQualitySDPAlignments /
-            # RemoveLowQualityAlignments / RemoveOverlappingAlignments,
-            # BlasrUtilsImpl.hpp:447-605); needs no CIGAR beyond the
-            # has-blocks bit, so assembly is deferred to the survivors
-            alns = prune_alignments(alns, p, read_len=rlen)
-            deferred.extend((a, slot_of[id(a)]) for a in alns)
-            # anchor-distribution significance gate ->
-            # numSignificantClusters (BlasrAlignImpl.hpp:391-488); the
-            # cluster list is the gate-passing examined-cluster chain
-            # weights of both strands
-            cl = np.concatenate([
-                res.cluster_bases[i][res.cluster_valid[i]],
-                res.cluster_bases[i + B][res.cluster_valid[i + B]]])
-            nsig = num_significant_clusters(alns, cl, p, k=self.gi.k)
-            for a in alns:
-                a.n_candidates = len(alns)
-                a.n_significant_clusters = nsig
-            out.append(alns)
-        self._materialize_cigars(res.ops, deferred)
+        with self.metrics.clock("collect.survey"):
+            p = self.params
+            seqdb = self.gi.seqdb
+            C = res.score.shape[1]
+            valid = res.valid & (res.dp_slot >= 0)
+            if p.forward_only:
+                valid[B:] = False
+            # contig lookup + boundary-crossing drop: one searchsorted for the
+            # whole batch instead of one per candidate
+            starts = seqdb.starts
+            ci = np.clip(
+                np.searchsorted(starts, res.t_start, side="right") - 1,
+                0, seqdb.n_contigs - 1)
+            lo = starts[ci]
+            valid &= res.t_end <= lo + seqdb.lengths[ci]
+            # bulk scalar conversion: list indexing in the loops below is ~10x
+            # cheaper than per-element numpy scalar reads
+            valid_l = valid.tolist()
+            qa_l, qb_l = res.q_start.tolist(), res.q_end.tolist()
+            te_l, lo_l = res.t_end.tolist(), lo.tolist()
+            ts_l = res.t_start.tolist()
+            sc_l, ch_l = res.score.tolist(), res.chain_score.tolist()
+            nm_l, nx_l = res.n_match.tolist(), res.n_mismatch.tolist()
+            ni_l, nd_l = res.n_ins.tolist(), res.n_del.tolist()
+            ci_l, slot_l = ci.tolist(), res.dp_slot.tolist()
+            # an empty traceback (no blocks) starts with op 0 in halfword 0
+            has_runs = ((res.ops[:, 0] & 3) != 0).tolist()
+            names, tlens = seqdb.names, seqdb.lengths
+            from blasr_tpu_torch.pipeline.select import (
+                num_significant_clusters, prune_alignments)
+            out: List[List[Alignment]] = []
+            deferred: List[tuple] = []  # (alignment, traceback slot)
+            for i, rec in enumerate(group):
+                rlen = int(lens[i])
+                self._anchor_totals[id(rec)] = (
+                    int(res.n_anchors[i]) + int(res.n_anchors[i + B]),
+                    int(res.n_clipped[i]) + int(res.n_clipped[i + B]))
+                alns: List[Alignment] = []
+                slot_of: Dict[int, int] = {}
+                for strand in (0, 1):
+                    row = i + strand * B
+                    vrow, qar, qbr = valid_l[row], qa_l[row], qb_l[row]
+                    for c in range(C):
+                        if not vrow[c]:
+                            continue
+                        qa, qb = qar[c], qbr[c]
+                        cidx = ci_l[row][c]
+                        clo = lo_l[row][c]
+                        slot = slot_l[row][c]
+                        if strand == 0:
+                            qs, qe = qa, qb
+                        else:
+                            qs, qe = rlen - qb, rlen - qa
+                        a = Alignment(
+                            qname=rec.name if rec.name else f"read/{i}",
+                            qlen=rlen, qstart=qs, qend=qe, strand=strand,
+                            tindex=cidx, tname=names[cidx],
+                            tlen=int(tlens[cidx]),
+                            tstart=ts_l[row][c] - clo, tend=te_l[row][c] - clo,
+                            score=float(sc_l[row][c]),
+                            n_match=nm_l[row][c], n_mismatch=nx_l[row][c],
+                            n_ins=ni_l[row][c], n_del=nd_l[row][c],
+                            cigar=_CIGAR_PENDING if has_runs[slot] else [],
+                            read=rec.seq, qual=rec.qual,
+                            tracks=getattr(rec, "tracks", None),
+                            cluster_weight=float(ch_l[row][c]),
+                            band_width=self.cfg.band_width,
+                        )
+                        alns.append(a)
+                        slot_of[id(a)] = slot
+                # alignment-level pruning (RemoveLowQualitySDPAlignments /
+                # RemoveLowQualityAlignments / RemoveOverlappingAlignments,
+                # BlasrUtilsImpl.hpp:447-605); needs no CIGAR beyond the
+                # has-blocks bit, so assembly is deferred to the survivors
+                alns = prune_alignments(alns, p, read_len=rlen)
+                deferred.extend((a, slot_of[id(a)]) for a in alns)
+                # anchor-distribution significance gate ->
+                # numSignificantClusters (BlasrAlignImpl.hpp:391-488); the
+                # cluster list is the gate-passing examined-cluster chain
+                # weights of both strands
+                cl = np.concatenate([
+                    res.cluster_bases[i][res.cluster_valid[i]],
+                    res.cluster_bases[i + B][res.cluster_valid[i + B]]])
+                nsig = num_significant_clusters(alns, cl, p, k=self.gi.k)
+                for a in alns:
+                    a.n_candidates = len(alns)
+                    a.n_significant_clusters = nsig
+                out.append(alns)
+        with self.metrics.clock("collect.cigars"):
+            self._materialize_cigars(res.ops, deferred)
         if p.verbosity >= 1:
             # interval prints (reference -V, BlasrAlignImpl.hpp:260-277);
             # -V >=3 routes them to a per-process pid.shard.log file
@@ -1564,6 +1611,7 @@ class Mapper:
         return type(self)(self.gi, self.params, cfg, metrics=self.metrics,
                       dev=self.dev)
 
+    @records_spans
     def map_reads(self, recs: Sequence[FastaRecord]) -> List[List[Alignment]]:
         """Map reads; returns per-read alignment lists in input order."""
         p = self.params

@@ -1,4 +1,5 @@
-# Copied from blasr_tpu/pipeline/select.py; only the imports differ.
+# Copied from blasr_tpu/pipeline/select.py; the imports differ, and
+# store_map_qvs times its rescore in a span (pipeline/metrics.py).
 """Alignment scoring aftermath: mapQV, filter criteria, hit policies.
 
 Re-derivations of the reference's ``StoreMapQVs``
@@ -21,6 +22,7 @@ import numpy as np
 from blasr_tpu_torch.params import (MAPQV_END_ALIGN_WIGGLE,
                                     MAX_PHRED_SCORE, MappingParams)
 from blasr_tpu_torch.pipeline.map_read import Alignment
+from blasr_tpu_torch.pipeline.metrics import span
 
 # score -> log-prob scale: Phred-like, ln(10)/10 per score unit
 _LAMBDA = math.log(10.0) / 10.0
@@ -130,7 +132,9 @@ def store_map_qvs(alns: List[Alignment], params: MappingParams,
             if params.scale_mapqv_by_num_significant_clusters:
                 scale_mapqv_by_cluster_size(alns[g[0]], params)
             continue
-        lls = np.array([_log10_likelihood(alns[i], params, gi) for i in g])
+        with span("emit.rescore", len(g), timeline=False):
+            lls = np.array([_log10_likelihood(alns[i], params, gi)
+                            for i in g])
         # the partition's full interval is its widest member's query span
         spans = [(alns[i].qstart, alns[i].qend) for i in g]
         full_s, full_e = max(spans, key=lambda s: s[1] - s[0])

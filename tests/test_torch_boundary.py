@@ -10,7 +10,9 @@
   index and FASTA tools)
   matches its original by
   ``ast.dump``, module names normalized; the differences the port needs
-  are listed below.
+  are listed below.  The copies that time their work in spans
+  (``pipeline/metrics.py``) match once each span block is replaced by
+  its body.
 * Every mapping flag of the JAX CLI is accepted and runs to its end on
   the port, ``--affineAlign`` (with and without ``--useQuality``)
   included; the Mapper takes every option of the JAX Mapper.
@@ -132,6 +134,22 @@ ALLOWED = {
     "run_sharded",
 }
 
+# copies that differ from their originals only by span blocks (``with
+# span(...)`` / ``with timeline(...)``, pipeline/metrics.py, or a clock of
+# a dotted span name, ``with self.metrics.clock("collect.survey")``)
+# around some of their statements:
+# test_spanned_copy_is_its_original_in_spans
+SPANNED = {
+    # cli/blasr.py: emit.map_qv, emit.select (per read), emit.write
+    "emit",
+    # pipeline/select.py: emit.rescore around the likelihood rescore
+    "store_map_qvs",
+    # pipeline/map_read.py: collect.survey, collect.cigars
+    "Mapper._collect_batch",
+    # pipeline/metrics.py: the clock's timeline range
+    "MappingMetrics",
+}
+
 # what the port's cli/blasr.py changes in the functions ALLOWED names: a
 # statement that mentions one of these (the JAX compile cache and profiler,
 # the torch device and profiler) and a call's ``device=`` / ``description=``
@@ -181,10 +199,90 @@ def test_copied_code_has_not_drifted(port, orig, names):
             for m, node in om.items():
                 assert m in pm, f"{m} missing from the port"
                 same = ast.dump(pm[m]) == ast.dump(node)
-                assert same or m in ALLOWED, f"{m} drifted from blasr_tpu"
+                assert same or m in ALLOWED or m in SPANNED, \
+                    f"{m} drifted from blasr_tpu"
             continue
-        assert ast.dump(a) == ast.dump(b) or name in ALLOWED, \
-            f"{name} drifted from blasr_tpu"
+        assert ast.dump(a) == ast.dump(b) or name in ALLOWED \
+            or name in SPANNED, f"{name} drifted from blasr_tpu"
+
+
+_SPAN_CALLS = ("span", "timeline")
+
+
+def _is_span_call(call):
+    """span(...), timeline(...), or ``<metrics>.clock("<a>.<b>")``: the
+    JAX package's clock names have no dot, the port's span names one."""
+    if not isinstance(call, ast.Call):
+        return False
+    f = call.func
+    if isinstance(f, ast.Name):
+        return f.id in _SPAN_CALLS
+    return (isinstance(f, ast.Attribute) and f.attr == "clock"
+            and len(call.args) == 1 and isinstance(call.args[0], ast.Constant)
+            and "." in str(call.args[0].value))
+
+
+def _is_span(stmt):
+    """A ``with`` whose every item is a span (:func:`_is_span_call`)."""
+    return isinstance(stmt, ast.With) and all(
+        _is_span_call(it.context_expr) and it.optional_vars is None
+        for it in stmt.items)
+
+
+def _unwrap_spans(node):
+    """``node`` (changed in place) with each span block, at any depth,
+    replaced by its statements."""
+    for sub in ast.walk(node):
+        for field in ("body", "orelse", "finalbody"):
+            stmts = getattr(sub, field, None)
+            if not isinstance(stmts, list):
+                continue
+            while any(_is_span(s) for s in stmts):
+                stmts = [t for s in stmts
+                         for t in (s.body if _is_span(s) else [s])]
+            setattr(sub, field, stmts)
+    return node
+
+
+def _spanned_pair(name):
+    """(the port's node, the original's) of a SPANNED name, from the
+    COPIES module that holds it."""
+    for port, orig, names in COPIES:
+        if names == "module":
+            continue
+        pp = os.path.join(ROOT, "blasr_tpu_torch", port)
+        op = os.path.join(ROOT, "blasr_tpu", orig)
+        p, o = _defs(pp), _defs(op)
+        if "." in name:
+            cls, _ = name.split(".", 1)
+            if cls in o and cls in p and (names is None or cls in names):
+                return _members(p[cls])[name], _members(o[cls])[name]
+        elif name in o and name in p and (names is None or name in names):
+            return p[name], o[name]
+    raise KeyError(name)
+
+
+@pytest.mark.parametrize("name", sorted(SPANNED))
+def test_spanned_copy_is_its_original_in_spans(name):
+    """Each SPANNED copy has a span block, and equals its JAX original
+    once every span block is replaced by its body (nothing dropped)."""
+    port, orig = _spanned_pair(name)
+    assert any(_is_span(s) for s in ast.walk(port)), name
+    assert ast.dump(port) != ast.dump(orig)
+    assert ast.dump(_unwrap_spans(port)) == ast.dump(orig), \
+        f"{name} drifted from blasr_tpu outside its spans"
+
+
+@pytest.mark.parametrize("name", sorted(SPANNED))
+def test_spanned_copy_change_inside_a_span_is_caught(name):
+    """A statement changed inside a span block (here its first, turned
+    into ``pass``) makes the copy differ from its original: the spans
+    hide nothing they hold."""
+    port, orig = _spanned_pair(name)
+    block = next(s for s in ast.walk(port) if _is_span(s))
+    assert not isinstance(block.body[0], ast.Pass)
+    block.body[0] = ast.Pass()
+    assert ast.dump(_unwrap_spans(port)) != ast.dump(orig)
 
 
 # modules of the JAX package with no counterpart in the port: hostcache.py

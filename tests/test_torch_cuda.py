@@ -911,6 +911,89 @@ def test_graph_pass_launches_equal_eager(graph_world):
     assert graph["replays"] == graph["batches"] + graph["dense_reruns"] > 0
 
 
+# the stages map_batch splits into parts (StageTimer's "<stage>.<part>")
+SPLIT_STAGES = ("guide_sdp", "traceback")
+
+
+def _parts_sum_to_stages(totals, passes):
+    """Each split stage equals the sum of its parts (the stage's mark ends
+    its last part: one event), up to the events' rounding."""
+    for stage in SPLIT_STAGES:
+        parts = [k for k in totals if k.startswith(stage + ".")]
+        assert len(parts) >= 3, (stage, sorted(totals))
+        got = sum(totals[k] for k in parts)
+        assert abs(got - totals[stage]) <= 1e-4 * totals[stage] \
+            + 0.002 * passes, (stage, got, totals[stage])
+
+
+def test_graph_replay_with_sub_marks_equals_eager(graph_world):
+    """Under StageTimer, eager dispatch and graph replays (every stage and
+    part mark an event node of the graph) give the same packed buffers
+    byte for byte, and in both each split stage is the sum of its
+    parts."""
+    from blasr_tpu_torch.pipeline import graphs
+    gi, ix, recs = graph_world
+    m = _graph_mapper(gi, ix, "distance")
+    L = 512
+    batches = _graph_batches(m, recs, L, 4)
+    with tmr.StageTimer() as st_eager:
+        want = _eager_flats(m, L, batches)
+    eager = st_eager.totals()
+    _dispatch(m, L, batches[0]).ready.synchronize()    # the capture
+    with tmr.StageTimer() as st:
+        got = [_dispatch(m, L, b) for b in batches]
+    replay = st.totals()
+    for j, (g, w) in enumerate(zip(got, want)):
+        g.ready.synchronize()
+        assert torch.equal(g.host, w), j
+    assert graphs.cache_for(ix).graphs
+    for totals in (eager, replay):
+        _parts_sum_to_stages(totals, len(batches))
+        assert "guide_sdp.sdp" in totals and totals["traceback.k2"] > 0
+
+
+def test_dp_rows_used_equals_a_host_recount(graph_world):
+    """The rows-used word of an eager pass's flat is the sum of qb - qa
+    over its valid DP items, recounted on the host from the unpacked
+    columns (a candidate without a DP row has qa = qb = 0 there); the
+    replay's word is the same, and stored is n_dp x L."""
+    gi, ix, recs = graph_world
+    m = _graph_mapper(gi, ix, "distance")
+    L = 512
+    batches = _graph_batches(m, recs, L, 3)
+    flats = _eager_flats(m, L, batches)
+    pos, kw = m._batch_call_args(L)
+    B = m.batch_size_for(L)
+    c_dp = kw["C_dp"] or kw["C"]
+    for b, flat in zip(batches, flats):
+        pb = tmr.start_fetch(tmr.map_batch(m.dev, b[0], b[1], *pos, **kw))
+        res = tmr.unpack_batch(pb)
+        recount = int(((res.q_end - res.q_start)
+                       * res.chain_valid).sum())
+        assert int(flat[-2]) == int(pb.host[-2]) == recount > 0
+        assert pb.dp_rows == 2 * B * c_dp * L
+        assert recount <= pb.dp_rows
+
+
+def test_waited_never_exceeds_the_passes(graph_world):
+    """graphs.DISPATCHES["waited"] counts collections whose copy was not
+    done: at most one a pass, through graphs, eagerly and under a
+    StageTimer (whose replays wait for their marks, so only the copies
+    queued behind the last replays can be waited for)."""
+    import contextlib
+    from blasr_tpu_torch.pipeline import graphs
+    gi, ix, recs = graph_world
+    m = _graph_mapper(gi, ix, "distance")
+    m.map_reads(recs)
+    for ctx in (contextlib.nullcontext, graphs.eager_dispatch,
+                tmr.StageTimer):
+        graphs.reset_counts()
+        with ctx():
+            m.map_reads(recs)
+        d = dict(graphs.DISPATCHES)
+        assert 0 <= d["waited"] <= d["batches"] + d["dense_reruns"], d
+
+
 def test_graph_pool_freed_with_its_index(graph_world):
     """An index's graphs and their pool go when the index goes: the
     memory the captures reserved is released."""
@@ -1024,7 +1107,8 @@ def test_shard_lut_forms_map_the_same_on_card(cuda):
 def test_merge_on_card_equals_cpu(cuda):
     """merge_ref_shards (plain torch: the JAX merge is XLA outside any
     Pallas kernel) gives one batch on CUDA tensors and on the CPU, on
-    random shard outputs with tied scores, invalid rows and a fault."""
+    random shard outputs with tied scores, invalid rows, a fault and the
+    shards' DP rows used."""
     from blasr_tpu_torch.dist.mesh import merge_ref_shards
     rng = np.random.default_rng(3)
     R, n2, C, n_dp, half, c_stat = 3, 8, 4, 16, 24, 16
@@ -1034,12 +1118,14 @@ def test_merge_on_card_equals_cpu(cuda):
     ops = rng.integers(0, 1 << 20, (R, n_dp, half)).astype(np.int32)
     cl = rng.integers(0, 3, (R, n2, c_stat, 2)).astype(np.int32)
     faults = np.asarray([0, 0, 1], np.int32)
+    used = rng.integers(0, 1 << 16, R).astype(np.int32)
     outs = [merge_ref_shards(*(torch.from_numpy(a).to(dev)
-                               for a in (ints, ops, cl, faults)))
+                               for a in (ints, ops, cl, faults, used)))
             for dev in ("cuda", "cpu")]
     for f in ("ints", "ops", "clusters", "flat"):
         assert torch.equal(getattr(outs[0], f).cpu(), getattr(outs[1], f))
     assert int(outs[1].flat[-1]) == 1
+    assert int(outs[1].flat[-2]) == int(used.sum())
 
 
 # ------------------------------------------------ band widths other than 128

@@ -274,6 +274,7 @@ def test_merge_equals_jax_on_captured_shard_outputs(dist_runs):
     (captured inside shard_map), equals JAX's merged batch."""
     jax_out = dist_runs[2]
     got = tmesh.merge_ref_shards(*captured_stack(jax_out),
+                                 torch.zeros(2, dtype=torch.int32),
                                  torch.zeros(2, dtype=torch.int32))
     for f in ("ints", "ops", "clusters"):
         np.testing.assert_array_equal(getattr(got, f).numpy(),
@@ -286,9 +287,12 @@ def test_merge_carries_any_shards_fault(dist_runs):
     unpack_batch raises on it."""
     jax_out = dist_runs[2]
     stack = captured_stack(jax_out)
-    ok = tmesh.merge_ref_shards(*stack, torch.tensor([0, 0], dtype=torch.int32))
+    used = torch.zeros(2, dtype=torch.int32)
+    ok = tmesh.merge_ref_shards(*stack, torch.tensor([0, 0], dtype=torch.int32),
+                                used)
     unpack_batch(ok)
-    bad = tmesh.merge_ref_shards(*stack, torch.tensor([0, 1], dtype=torch.int32))
+    bad = tmesh.merge_ref_shards(*stack, torch.tensor([0, 1], dtype=torch.int32),
+                                 used)
     assert torch.equal(bad.flat[:-1], ok.flat[:-1]) and bad.flat[-1] == 1
     with pytest.raises(ValueError):
         unpack_batch(bad)

@@ -59,6 +59,12 @@ def _traced(module, log):
     return map_batch, unpack_batch
 
 
+# counters the port's Mapper keeps beside the JAX Mapper's: unpack_batch's
+# span count (no collect.wait on the CPU, whose copies are done on return)
+# and K1's rows stored and needed
+PORT_COUNTERS = {"collect.unpack", "dp_rows_stored", "dp_rows_used"}
+
+
 @pytest.fixture(scope="module")
 def small():
     contigs, recs = small_world()
@@ -81,8 +87,14 @@ def test_lookahead_matches_jax(small, monkeypatch):
         runs[name] = (mapper.map_reads(recs), dict(mapper.metrics.counters))
     (want, want_n), (got, got_n) = runs["jax"], runs["port"]
     assert fields(got) == fields(want) and sum(map(len, got)) >= N_READS
+    # unpack_batch's span and K1's rows stored and needed are counters of
+    # the port's own (pipeline/metrics.py); the JAX Mapper's are equal
+    own = {k: got_n.pop(k) for k in list(got_n) if k not in want_n}
+    assert set(own) == PORT_COUNTERS
     assert got_n == want_n and got_n["numReads"] >= N_READS
     log = logs["port"]
+    assert own["collect.unpack"] == log.count("unpack")
+    assert 0 < own["dp_rows_used"] <= own["dp_rows_stored"]
     assert log == logs["jax"]
     # four dispatches in flight: the fifth is made before the first unpack
     assert log[:6] == [f"dispatch {i}" for i in range(5)] + ["unpack"]
