@@ -15,6 +15,14 @@
 // chunked loop stops only once every row is done, which changes no row's
 // output, so one thread walking its row to done (or P) reproduces it.
 //
+// Items: walk n (CTA n) walks DP row m = rows[n], or m = n where `rows`
+// is null.  It reads row m's cell words in place, at tbbits + m * L * 128
+// (the bulk copies' source; every block starts a multiple of 512 B past
+// the tensor's 16-byte aligned base), its offsets row and qa, qb, ta, tb,
+// final_state and valid at m, and writes its outputs (pairs, the five
+// counts, overflow) at n.  So the traced rows of a batch need no gathered
+// copy of K1's result before the walk: the index is all the walk takes.
+//
 // Layout: one warp per item (one CTA), lane 0 walks.  The walk's rows
 // never go up (an M step climbs mrun <= 63 rows, an I step one, D and
 // boundary steps none), so the rows it reads are a non-increasing
@@ -114,7 +122,8 @@ __global__ void __launch_bounds__(32) banded_traceback_kernel(
     const int32_t* __restrict__ qa_a, const int32_t* __restrict__ qb_a,
     const int32_t* __restrict__ ta_a, const int32_t* __restrict__ tb_a,
     const int32_t* __restrict__ fstate, const uint8_t* __restrict__ fvalid,
-    int L, int P, int32_t* __restrict__ pairs,
+    const int64_t* __restrict__ rows, int L, int P,
+    int32_t* __restrict__ pairs,
     int32_t* __restrict__ n_pairs, int32_t* __restrict__ n_match,
     int32_t* __restrict__ n_mismatch, int32_t* __restrict__ n_ins,
     int32_t* __restrict__ n_del, uint8_t* __restrict__ overflow) {
@@ -126,18 +135,19 @@ __global__ void __launch_bounds__(32) banded_traceback_kernel(
   int written = 0;  // pair words the walk stored
 
   if (lane == 0) {
-    const int qa = qa_a[n], qb = qb_a[n], ta = ta_a[n], tb = tb_a[n];
-    const int32_t* off = offsets + (size_t)n * L;
+    const size_t m = rows ? (size_t)rows[n] : (size_t)n;  // the DP row
+    const int qa = qa_a[m], qb = qb_a[m], ta = ta_a[m], tb = tb_a[m];
+    const int32_t* off = offsets + m * L;
     int r = qb - 1, t = tb - 1;
     int w = tb - 1 - off[min(max(qb - 1, 0), L - 1)];
     bool wbad = false;
-    int st = fstate[n];
-    bool done = fvalid[n] == 0;
+    int st = fstate[m];
+    bool done = fvalid[m] == 0;
 
     // the rows whose cells the walk may read: rc = clamp(r, 0, L - 1) for
     // r in [qa, qb - 1]
     Ring ring;
-    ring.src = tbbits + (size_t)n * L * WB;
+    ring.src = tbbits + m * L * WB;
     ring.smem = smem_addr(ring_words);
     ring.bars = smem_addr(bar);
     ring.need_lo = min(max(qa, 0), L - 1);
@@ -261,14 +271,17 @@ extern "C" int blasr_banded_traceback_setup() {
       cudaSharedmemCarveoutMaxShared);
 }
 
+// N walks, of the DP rows `rows` (int64, N of them) or, where it is null,
+// of rows 0..N-1; the outputs have N rows.
 extern "C" int blasr_banded_traceback(
     const int32_t* tbbits, const int32_t* offsets, const int32_t* qa,
     const int32_t* qb, const int32_t* ta, const int32_t* tb,
-    const int32_t* final_state, const uint8_t* valid, int N, int L, int P,
-    int32_t* pairs, int32_t* n_pairs, int32_t* n_match, int32_t* n_mismatch,
-    int32_t* n_ins, int32_t* n_del, uint8_t* overflow, void* stream) {
+    const int32_t* final_state, const uint8_t* valid, const int64_t* rows,
+    int N, int L, int P, int32_t* pairs, int32_t* n_pairs, int32_t* n_match,
+    int32_t* n_mismatch, int32_t* n_ins, int32_t* n_del, uint8_t* overflow,
+    void* stream) {
   banded_traceback_kernel<<<N, 32, SMEM_BYTES, (cudaStream_t)stream>>>(
-      tbbits, offsets, qa, qb, ta, tb, final_state, valid, L, P, pairs,
+      tbbits, offsets, qa, qb, ta, tb, final_state, valid, rows, L, P, pairs,
       n_pairs, n_match, n_mismatch, n_ins, n_del, overflow);
   return (int)cudaGetLastError();
 }

@@ -17,6 +17,11 @@
 // once every row is done, which changes no row's output, so one lane
 // walking its row to done (or P) reproduces it.
 //
+// Items: as K2's.  Walk n walks DP row m = rows[n] (m = n where `rows` is
+// null), reading its cell words in place at tbbits + m * L * w_b, its
+// offsets row and its per-row inputs at m, and writing its outputs at n,
+// so no gathered copy of the traced rows precedes the walk.
+//
 // Layout: K2's (banded_traceback.cu) at any width.  One warp per item
 // (one CTA); lane 0 walks from a ring of `slots` tiles of `rows` rows in
 // shared memory that it fills itself, one cp.async.bulk copy per tile with
@@ -160,7 +165,8 @@ __global__ void __launch_bounds__(32) banded_traceback_wide_ring_kernel(
     const int32_t* __restrict__ qa_a, const int32_t* __restrict__ qb_a,
     const int32_t* __restrict__ ta_a, const int32_t* __restrict__ tb_a,
     const int32_t* __restrict__ fstate, const uint8_t* __restrict__ fvalid,
-    int L, int w_b, int P, RingPlan plan, int32_t* __restrict__ pairs,
+    const int64_t* __restrict__ rows, int L, int w_b, int P, RingPlan plan,
+    int32_t* __restrict__ pairs,
     int32_t* __restrict__ n_pairs, int32_t* __restrict__ n_match,
     int32_t* __restrict__ n_mismatch, int32_t* __restrict__ n_ins,
     int32_t* __restrict__ n_del, uint8_t* __restrict__ overflow) {
@@ -172,18 +178,19 @@ __global__ void __launch_bounds__(32) banded_traceback_wide_ring_kernel(
   int written = 0;  // pair words the walk stored
 
   if (lane == 0) {
-    const int qa = qa_a[n], qb = qb_a[n], ta = ta_a[n], tb = tb_a[n];
-    const int32_t* off = offsets + (size_t)n * L;
+    const size_t m = rows ? (size_t)rows[n] : (size_t)n;  // the DP row
+    const int qa = qa_a[m], qb = qb_a[m], ta = ta_a[m], tb = tb_a[m];
+    const int32_t* off = offsets + m * L;
     int r = qb - 1, t = tb - 1;
     int w = tb - 1 - off[min(max(qb - 1, 0), L - 1)];
     bool wbad = false;
-    int st = fstate[n];
-    bool done = fvalid[n] == 0;
+    int st = fstate[m];
+    bool done = fvalid[m] == 0;
 
     // the rows whose cells the walk may read: rc = clamp(r, 0, L - 1) for
     // r in [qa, qb - 1]
     Ring ring;
-    ring.src = tbbits + (size_t)n * L * (size_t)w_b;
+    ring.src = tbbits + m * L * (size_t)w_b;
     ring.words = ring_words;
     ring.bars = smem_addr(bar);
     ring.w_b = w_b;
@@ -307,22 +314,24 @@ __global__ void __launch_bounds__(THREADS) banded_traceback_wide_global_kernel(
     const int32_t* __restrict__ qa_a, const int32_t* __restrict__ qb_a,
     const int32_t* __restrict__ ta_a, const int32_t* __restrict__ tb_a,
     const int32_t* __restrict__ fstate, const uint8_t* __restrict__ fvalid,
-    int N, int L, int w_b, int P, int32_t* __restrict__ pairs,
+    const int64_t* __restrict__ rows, int N, int L, int w_b, int P,
+    int32_t* __restrict__ pairs,
     int32_t* __restrict__ n_pairs, int32_t* __restrict__ n_match,
     int32_t* __restrict__ n_mismatch, int32_t* __restrict__ n_ins,
     int32_t* __restrict__ n_del, uint8_t* __restrict__ overflow) {
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
   if (n >= N) return;
-  const int qa = qa_a[n], qb = qb_a[n], ta = ta_a[n], tb = tb_a[n];
-  const int32_t* cells = tbbits + (size_t)n * L * (size_t)w_b;
-  const int32_t* off = offsets + (size_t)n * L;
+  const size_t m = rows ? (size_t)rows[n] : (size_t)n;  // the DP row
+  const int qa = qa_a[m], qb = qb_a[m], ta = ta_a[m], tb = tb_a[m];
+  const int32_t* cells = tbbits + m * L * (size_t)w_b;
+  const int32_t* off = offsets + m * L;
   int32_t* out = pairs + (size_t)n * (P / 2);
 
   int r = qb - 1, t = tb - 1;
   int w = tb - 1 - off[min(max(qb - 1, 0), L - 1)];
   bool wbad = false;
-  int st = fstate[n];
-  bool done = fvalid[n] == 0;
+  int st = fstate[m];
+  bool done = fvalid[m] == 0;
   int nm = 0, nmm = 0, nins = 0, ndel = 0, npairs = 0;
   uint32_t lo = 0;  // the pair of the last even step
   int step = 0;
@@ -433,26 +442,28 @@ extern "C" int blasr_banded_traceback_wide_setup() {
       cudaSharedmemCarveoutMaxShared);
 }
 
+// N walks, of the DP rows `rows` (int64, N of them) or, where it is null,
+// of rows 0..N-1; the outputs have N rows.
 extern "C" int blasr_banded_traceback_wide(
     const int32_t* tbbits, const int32_t* offsets, const int32_t* qa,
     const int32_t* qb, const int32_t* ta, const int32_t* tb,
-    const int32_t* final_state, const uint8_t* valid, int N, int L, int w_b,
-    int P, int32_t* pairs, int32_t* n_pairs, int32_t* n_match,
-    int32_t* n_mismatch, int32_t* n_ins, int32_t* n_del, uint8_t* overflow,
-    void* stream) {
+    const int32_t* final_state, const uint8_t* valid, const int64_t* rows,
+    int N, int L, int w_b, int P, int32_t* pairs, int32_t* n_pairs,
+    int32_t* n_match, int32_t* n_mismatch, int32_t* n_ins, int32_t* n_del,
+    uint8_t* overflow, void* stream) {
   if (w_b < 1) return (int)cudaErrorInvalidValue;
   const RingPlan plan = ring_plan(w_b);
   if (plan.slots > 0) {
     const size_t smem = (size_t)plan.slots * slot_words(plan.rows, w_b) * 4;
     banded_traceback_wide_ring_kernel<<<N, 32, smem, (cudaStream_t)stream>>>(
-        tbbits, offsets, qa, qb, ta, tb, final_state, valid, L, w_b, P, plan,
-        pairs, n_pairs, n_match, n_mismatch, n_ins, n_del, overflow);
+        tbbits, offsets, qa, qb, ta, tb, final_state, valid, rows, L, w_b, P,
+        plan, pairs, n_pairs, n_match, n_mismatch, n_ins, n_del, overflow);
   } else {
     const int blocks = (N + THREADS - 1) / THREADS;
     banded_traceback_wide_global_kernel<<<blocks, THREADS, 0,
                                           (cudaStream_t)stream>>>(
-        tbbits, offsets, qa, qb, ta, tb, final_state, valid, N, L, w_b, P,
-        pairs, n_pairs, n_match, n_mismatch, n_ins, n_del, overflow);
+        tbbits, offsets, qa, qb, ta, tb, final_state, valid, rows, N, L, w_b,
+        P, pairs, n_pairs, n_match, n_mismatch, n_ins, n_del, overflow);
   }
   return (int)cudaGetLastError();
 }

@@ -381,13 +381,19 @@ def _align_items(reads, windows, offsets, qa, qb, ta, tb, submat,
 
 
 def banded_traceback_plain(result: BandedResult, offsets, qa, qb, ta, tb, *,
-                           t_max: int, w_b: int = 128) -> TracebackResult:
+                           t_max: int, w_b: int = 128,
+                           rows=None) -> TracebackResult:
     """Run-length traceback over the cell words (plain PyTorch).
 
     Step for step ``blasr_tpu.kernels.banded.banded_traceback``'s
     ``rl_step``; the JAX chunked while_loop only stops early once every row
     is done, which changes no row's output, so the loop here checks for
-    that once per chunk too."""
+    that once per chunk too.  ``rows`` (int64 [n]) walks those DP rows
+    only, as if the result and the arguments were gathered by it first;
+    ``None`` walks every row."""
+    if rows is not None:
+        result = BandedResult(*(x[rows] for x in result))
+        offsets, qa, qb, ta, tb = (x[rows] for x in (offsets, qa, qb, ta, tb))
     tbb = result.tbbits
     dev = tbb.device
     N, L, _ = tbb.shape
@@ -487,12 +493,16 @@ def banded_traceback_plain(result: BandedResult, offsets, qa, qb, ta, tb, *,
 
 
 def banded_traceback(result: BandedResult, offsets, qa, qb, ta, tb, *,
-                     t_max: int, w_b: int = 128) -> TracebackResult:
+                     t_max: int, w_b: int = 128,
+                     rows=None) -> TracebackResult:
     """Run-length traceback: the CUDA walk (K2, or K2-W at a band width
-    other than 128) on CUDA tensors, the plain version on CPU tensors."""
+    other than 128) on CUDA tensors, the plain version on CPU tensors;
+    ``rows`` (int64 [n]) the DP rows to walk, read in place (``None``:
+    every row)."""
     return on_device(
         "banded_traceback", result.tbbits.device,
         lambda: banded_traceback_plain(result, offsets, qa, qb, ta, tb,
-                                       t_max=t_max, w_b=w_b),
+                                       t_max=t_max, w_b=w_b, rows=rows),
         lambda ops: ops.banded_traceback_cuda(result, offsets, qa, qb, ta,
-                                              tb, t_max=t_max, w_b=w_b))
+                                              tb, t_max=t_max, w_b=w_b,
+                                              rows=rows))

@@ -55,6 +55,9 @@ LAUNCHES = {"banded_dp": 0, "banded_dp_qv": 0, "banded_dp_hp": 0,
             "banded_dp_w_hp": 0, "banded_dp_w_gen": 0,
             "banded_dp_w_hp_gen": 0, "banded_dp_w_qv_gen": 0,
             "banded_traceback_w": 0}
+# K2 and K2-W launches given an index of the DP rows to walk (``rows``)
+# since the last reset, graph replays included
+INDEXED_WALKS = 0
 # the band width of K1 and K2; K1-W and K2-W take every other one
 K1_WIDTH = 128
 # K7's calls by path since the last reset (csrc/chain_members_plan.h):
@@ -86,6 +89,8 @@ _set_up: set = set()
 
 
 def reset_launch_counts() -> None:
+    global INDEXED_WALKS
+    INDEXED_WALKS = 0
     for counts in (LAUNCHES, MEMBER_PATHS):
         for k in counts:
             counts[k] = 0
@@ -162,12 +167,12 @@ ARGTYPES = {
     "blasr_banded_dp_qv": (_I, [_P] * 9 + [_I] * 3 + [_F] + [_P] * 4 + [_P]),
     "blasr_banded_dp_mode": (_I, [_P] * 9 + [_I] * 5 + [_P] + [_F] * 8
                              + [_P] * 4 + [_P]),
-    "blasr_banded_traceback": (_I, [_P] * 8 + [_I] * 3 + [_P] * 7 + [_P]),
+    "blasr_banded_traceback": (_I, [_P] * 9 + [_I] * 3 + [_P] * 7 + [_P]),
     "blasr_banded_dp_wide": (_I, [_P] * 9 + [_I] * 6 + [_P] + [_F] * 8
                              + [_P] * 5 + [_P]),
     "blasr_banded_dp_wide_ws_bytes": (ctypes.c_size_t, [_I]),
     "blasr_banded_dp_wide_max_smem": (_I, []),
-    "blasr_banded_traceback_wide": (_I, [_P] * 8 + [_I] * 4 + [_P] * 7
+    "blasr_banded_traceback_wide": (_I, [_P] * 9 + [_I] * 4 + [_P] * 7
                                     + [_P]),
     "blasr_banded_traceback_wide_plan": (_I, [_I]),
     "blasr_chain_scan": (_I, [_P] * 3 + [_I] + [_P] * 3 + [_I] * 5
@@ -370,22 +375,29 @@ def banded_dp_launch(reads, windows, offsets, qa, qb, ta, tb, *,
 
 
 def banded_traceback_cuda(result: BandedResult, offsets, qa, qb, ta, tb, *,
-                          t_max: int, w_b: int = K1_WIDTH,
+                          t_max: int, w_b: int = K1_WIDTH, rows=None,
                           lib=None) -> TracebackResult:
     """K2 on CUDA tensors (same contract as ``banded_traceback_plain``); at
     a band width other than 128, K2-W (``csrc/banded_traceback_wide.cu``;
-    ``lib``: another build of it, ``chip_smoke.py --compare K2W``)."""
+    ``lib``: another build of it, ``chip_smoke.py --compare K2W``).
+    ``rows`` (int64 [n], contiguous, each in [0, N_dp)) names the DP rows
+    to walk: the kernel reads their cell words and inputs in place, and
+    the outputs have n rows; ``None`` walks every row."""
+    global INDEXED_WALKS
     tbb = result.tbbits
     dev = tbb.device
     if dev.type != "cuda":
         raise ValueError("banded_traceback_cuda needs CUDA tensors")
-    N, L, _ = tbb.shape
-    _check(tbb, "tbbits", torch.int32, (N, L, w_b), dev)
-    _check(offsets, "offsets", torch.int32, (N, L), dev)
+    N_dp, L, _ = tbb.shape
+    _check(tbb, "tbbits", torch.int32, (N_dp, L, w_b), dev)
+    _check(offsets, "offsets", torch.int32, (N_dp, L), dev)
     for name, x in (("qa", qa), ("qb", qb), ("ta", ta), ("tb", tb),
                     ("final_state", result.final_state)):
-        _check(x, name, torch.int32, (N,), dev)
-    _check(result.valid, "valid", torch.bool, (N,), dev)
+        _check(x, name, torch.int32, (N_dp,), dev)
+    _check(result.valid, "valid", torch.bool, (N_dp,), dev)
+    N = N_dp if rows is None else rows.numel()
+    if rows is not None:
+        _check(rows, "rows", torch.int64, (N,), dev)
     wide = w_b != K1_WIDTH
     if not wide and tbb.data_ptr() % 16:
         raise ValueError("K2 copies 16-byte aligned rows of tbbits: its "
@@ -404,7 +416,8 @@ def banded_traceback_cuda(result: BandedResult, offsets, qa, qb, ta, tb, *,
             set_up(lib, dev)
         ins = (tbb.data_ptr(), offsets.data_ptr(), qa.data_ptr(),
                qb.data_ptr(), ta.data_ptr(), tb.data_ptr(),
-               result.final_state.data_ptr(), result.valid.data_ptr())
+               result.final_state.data_ptr(), result.valid.data_ptr(),
+               None if rows is None else rows.data_ptr())
         outs = (pairs.data_ptr(), *(c.data_ptr() for c in counts),
                 overflow.data_ptr())
         with torch.cuda.device(dev):
@@ -417,6 +430,7 @@ def banded_traceback_cuda(result: BandedResult, offsets, qa, qb, ta, tb, *,
         key = "banded_traceback_w" if wide else "banded_traceback"
         _launched(rc, key)
         LAUNCHES[key] += 1
+        INDEXED_WALKS += rows is not None
     return TracebackResult(pairs=pairs, n_pairs=counts[0],
                            n_match=counts[1], n_mismatch=counts[2],
                            n_ins=counts[3], n_del=counts[4],

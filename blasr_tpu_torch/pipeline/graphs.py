@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from blasr_tpu_torch.kernels import cuda_ops
+from blasr_tpu_torch.pipeline.metrics import count
 
 # map_batch passes run through dispatch(): each replay, each eager call and
 # the eager warm-up before a capture is one pass ("dense_reruns" at
@@ -134,7 +135,8 @@ class BatchGraph:
 
     def __init__(self, graph, reads, lens, out, launches: Dict[str, int],
                  qv: Optional[Tuple] = None, qv_rescore=None, marks=(),
-                 keep=(), member_paths: Optional[Dict[str, int]] = None):
+                 keep=(), member_paths: Optional[Dict[str, int]] = None,
+                 indexed_walks: int = 0):
         self.graph = graph
         self.reads, self.lens = reads, lens
         self.qv, self.qv_rescore = qv, qv_rescore
@@ -142,6 +144,7 @@ class BatchGraph:
         self.launches = {k: n for k, n in launches.items() if n}
         self.member_paths = {k: n for k, n in (member_paths or {}).items()
                              if n}
+        self.indexed_walks = indexed_walks
         self.marks = list(marks)
         self._keep = keep       # index tensors the graph reads
 
@@ -164,6 +167,7 @@ class BatchGraph:
             cuda_ops.LAUNCHES[k] += n
         for k, n in self.member_paths.items():
             cuda_ops.MEMBER_PATHS[k] += n
+        cuda_ops.INDEXED_WALKS += self.indexed_walks
         timer = StageTimer.active
         if timer is not None and self.marks:
             # the spans of this replay, read before the next one
@@ -207,6 +211,7 @@ def capture(index, reads, lens, pos, kw, qv=None,
     reserved = torch.cuda.memory_reserved(dev)
     before = dict(cuda_ops.LAUNCHES)
     paths_before = dict(cuda_ops.MEMBER_PATHS)
+    walks_before = cuda_ops.INDEXED_WALKS
     marks = _CaptureMarks()
     timer, StageTimer.active = StageTimer.active, marks
     graph = torch.cuda.CUDAGraph()
@@ -220,9 +225,11 @@ def capture(index, reads, lens, pos, kw, qv=None,
         launches = {k: cuda_ops.LAUNCHES[k] - before[k] for k in before}
         paths = {k: cuda_ops.MEMBER_PATHS[k] - paths_before[k]
                  for k in paths_before}
+        walks = cuda_ops.INDEXED_WALKS - walks_before
         # the capture recorded those launches; replays run them
         cuda_ops.LAUNCHES.update(before)
         cuda_ops.MEMBER_PATHS.update(paths_before)
+        cuda_ops.INDEXED_WALKS = walks_before
         # the warm-up pass above is the dispatch's; the capture is not one
         DISPATCHES["dense_reruns" if kw.get("tb_cap") else "batches"] -= 1
     ms = 1e3 * (time.perf_counter() - t0)
@@ -235,7 +242,7 @@ def capture(index, reads, lens, pos, kw, qv=None,
     keep = tuple(v for v in index
                  if isinstance(v, torch.Tensor) and v is not index.genome)
     return BatchGraph(graph, s_reads, s_lens, out, launches, s_qv, s_rescore,
-                      marks.marks, keep, paths)
+                      marks.marks, keep, paths, walks)
 
 
 def prepare(index, reads, lens, pos, kw, qv=None,
@@ -255,10 +262,17 @@ def dispatch(index, reads, lens, pos, kw, qv=None, qv_rescore=None):
     """``map_batch(index, reads, lens, *pos, **kw)`` (with ``qv`` = (qv1,
     qv2) and ``qv_rescore`` in QV mode): a replay of the call's graph on
     CUDA, captured at the key's first dispatch; an eager call on the CPU
-    or inside :func:`eager_dispatch`."""
-    if reads.device.type != "cuda" or _eager:
+    or inside :func:`eager_dispatch`.  On CUDA the pass's indexed walks
+    (``cuda_ops.INDEXED_WALKS``) go to the counter ``indexed_walks``."""
+    if reads.device.type != "cuda":
         return _map_batch(index, reads, lens, pos, kw, qv, qv_rescore)
-    graph = prepare(index, reads, lens, pos, kw, qv, qv_rescore)
-    DISPATCHES["dense_reruns" if kw.get("tb_cap") else "batches"] += 1
-    DISPATCHES["replays"] += 1
-    return graph.replay(reads, lens, qv, qv_rescore)
+    walks = cuda_ops.INDEXED_WALKS
+    if _eager:
+        out = _map_batch(index, reads, lens, pos, kw, qv, qv_rescore)
+    else:
+        graph = prepare(index, reads, lens, pos, kw, qv, qv_rescore)
+        DISPATCHES["dense_reruns" if kw.get("tb_cap") else "batches"] += 1
+        DISPATCHES["replays"] += 1
+        out = graph.replay(reads, lens, qv, qv_rescore)
+    count("indexed_walks", cuda_ops.INDEXED_WALKS - walks)
+    return out

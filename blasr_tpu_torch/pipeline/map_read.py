@@ -787,14 +787,12 @@ def map_batch(index: DeviceIndex, reads, read_len, submat, gap_costs,
     tb_rows, tb_slots = choices.first(torch.where(keep_tb, 0, 1), n_tb)
     _mark("traceback.rank", dev)
 
-    res_sub = type(res)(score=res.score[tb_rows], tbbits=res.tbbits[tb_rows],
-                        final_state=res.final_state[tb_rows],
-                        valid=res.valid[tb_rows])
-    # offs, qa, qb, ta, tb of the traced rows
-    tb_args = [a[tb_rows] for a in dp_args[2:7]]
+    # the walk reads the traced rows' cell words, offsets and bounds in
+    # place through tb_rows: no copy of them precedes it
     _mark("traceback.gather", dev)
     t_rl = tb_cap if tb_cap > 0 else max(128, (3 * T) // 8)
-    tbk = banded_traceback(res_sub, *tb_args, t_max=t_rl, w_b=w_b)
+    tbk = banded_traceback(res, *dp_args[2:7], rows=tb_rows, t_max=t_rl,
+                           w_b=w_b)
     _mark(("traceback.k2", "traceback"), dev)
 
     def back(v):

@@ -442,11 +442,42 @@ def cold_ms(fn, reps: int) -> float:
     return sum(a.elapsed_time(b) for a, b in evs) / reps
 
 
+def scrambled_rows(n: int, seed: int = 0):
+    """An index of DP rows to walk: about half of ``n`` rows in a scrambled
+    order and the first of them again (int64, on the card)."""
+    perm = torch.randperm(n, generator=torch.Generator().manual_seed(seed))
+    return torch.cat([perm[:(n + 1) // 2], perm[:1]]).to("cuda")
+
+
+def check_indexed(res, rest, t_max: int, name: str, w_b: int, k2,
+                  rows=None):
+    """K2 (K2-W) through an index of DP rows (``rows``, by default
+    :func:`scrambled_rows`) against K2 on the result and arguments
+    gathered by it and against ``k2``, the walk of every row, at those
+    rows: every output exactly, one indexed launch."""
+    from blasr_tpu_torch.kernels import cuda_ops
+    from blasr_tpu_torch.kernels.banded import BandedResult, banded_traceback
+    if rows is None:
+        rows = scrambled_rows(res.tbbits.shape[0])
+    before = cuda_ops.INDEXED_WALKS
+    got = banded_traceback(res, *rest, t_max=t_max, w_b=w_b, rows=rows)
+    torch.cuda.synchronize()
+    assert cuda_ops.INDEXED_WALKS == before + 1, f"{name}: not indexed"
+    copy = banded_traceback(BandedResult(*(x[rows] for x in res)),
+                            *(a[rows] for a in rest), t_max=t_max, w_b=w_b)
+    for f in got._fields:
+        a, b, c = getattr(got, f), getattr(copy, f), getattr(k2, f)[rows]
+        assert torch.equal(a, b) and torch.equal(a, c), \
+            f"{name}: {f} through rows differs from the gathered copy's"
+    return got
+
+
 def check_walk(res, rest, t_max: int, name: str, w_b: int = 128):
     """K2 (banded_traceback on CUDA tensors; K2-W at a band width other
     than 128) against the plain walk, every output exactly; its pair
     buffer is handed out dirty first, so the zeros after each stop are the
-    kernel's own.  Returns (K2's result, max |diff|)."""
+    kernel's own; then through an index of the rows
+    (:func:`check_indexed`).  Returns (K2's result, max |diff|)."""
     from blasr_tpu_torch.kernels.banded import (banded_traceback,
                                                 banded_traceback_plain,
                                                 pair_capacity)
@@ -461,6 +492,7 @@ def check_walk(res, rest, t_max: int, name: str, w_b: int = 128):
         a, b = getattr(k2, f), getattr(pl, f)
         assert a.dtype == b.dtype and torch.equal(a, b), \
             f"{name}: {f} differs from the plain walk"
+    check_indexed(res, rest, t_max, name, w_b, k2)
     return k2, max_abs(list(k2), list(pl))
 
 
@@ -873,6 +905,8 @@ def phase_wide(card):
                 a, b = getattr(k2, f), getattr(pl, f)
                 assert a.dtype == b.dtype and torch.equal(a, b), \
                     f"K2-W w_b={w_b} t_max={t_max}: {f} differs"
+            check_indexed(res, rest, t_max, f"K2-W w_b={w_b} t_max={t_max}",
+                          w_b, k2)
             err = max_abs(list(k2), list(pl))
             kms = cuda_ms(lambda: banded_traceback(  # noqa: B023
                 res, *rest, t_max=t_max, w_b=w_b), 3)
@@ -1158,18 +1192,50 @@ def compare_k1w(card, sources, reps: int = 5) -> None:
 
 
 def compare_k2w(card, sources, reps: int = 5) -> None:
-    """K2-W from each given banded_traceback_wide.cu (one C interface)
-    through the package's wrapper, on the package's K1-W cell words: the
-    six modes' words at phase 2's shapes (WIDE_SMOKE_WIDTHS, N = 64 each)
-    and the distance words at the bench's DP shape (BENCH_DP) at
-    BENCH_WIDE_WIDTHS, at t_max = 3T/8 and T: every output held to the
-    first source's, then timed in turns warm and with the L2 flushed."""
+    """K2-W from each given banded_traceback_wide.cu through the package's
+    wrapper, on the package's K1-W cell words: the six modes' words at
+    phase 2's shapes (WIDE_SMOKE_WIDTHS, N = 64 each) and the distance
+    words at the bench's DP shape (BENCH_DP) at BENCH_WIDE_WIDTHS, at
+    t_max = 3T/8 and T, about half the rows walked in a scrambled order
+    (:func:`scrambled_rows`): a source that takes an index walks them in
+    place, an older one (no ``rows``) a copy gathered inside its call.
+    Every output held to the first source's, then timed in turns warm and
+    with the L2 flushed."""
+    import ctypes
     from blasr_tpu_torch.kernels import cuda_ops
-    from blasr_tpu_torch.kernels.banded import BandedResult
+    from blasr_tpu_torch.kernels.banded import (BandedResult,
+                                                TracebackResult,
+                                                pair_capacity)
     from blasr_tpu_torch.params import MappingParams, ShapeConfig
-    libs = [cuda_ops.bind(build_source("K2W", src)[0],
-                          ("blasr_banded_traceback_wide",))
-            for src in sources]
+    libs = []
+    for src in sources:
+        lib, data = build_source("K2W", src)
+        if b"int64_t* rows" in data:
+            libs.append((cuda_ops.bind(lib, ("blasr_banded_traceback_wide",)),
+                         True))
+            continue
+        P, I = ctypes.c_void_p, ctypes.c_int
+        lib.blasr_banded_traceback_wide.restype = I
+        lib.blasr_banded_traceback_wide.argtypes = \
+            [P] * 8 + [I] * 4 + [P] * 7 + [P]
+        libs.append((lib, False))
+
+    def older_walk(lib, res, rest, t_max, w_b, rows):
+        """An older K2-W (no index) on the rows gathered beforehand."""
+        res = BandedResult(*(x[rows] for x in res))
+        rest = [a[rows] for a in rest]
+        N, L, _ = res.tbbits.shape
+        Pc = pair_capacity(t_max)
+        pairs = torch.empty((N, Pc // 2), dtype=torch.int32, device="cuda")
+        counts = torch.empty((5, N), dtype=torch.int32, device="cuda")
+        ovf = torch.empty(N, dtype=torch.bool, device="cuda")
+        rc = lib.blasr_banded_traceback_wide(
+            res.tbbits.data_ptr(), *(x.data_ptr() for x in rest),
+            res.final_state.data_ptr(), res.valid.data_ptr(), N, L, w_b,
+            Pc, pairs.data_ptr(), *(c.data_ptr() for c in counts),
+            ovf.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        assert rc == 0, f"launch failed: {rc}"
+        return TracebackResult(pairs, *counts, ovf)
     params = MappingParams().make_sane()
     cases = []
     for w_b, L in WIDE_SMOKE_WIDTHS.items():
@@ -1193,10 +1259,16 @@ def compare_k2w(card, sources, reps: int = 5) -> None:
         cases.append((f"N={BENCH_DP[0]}, L={BENCH_DP[1]}, w_b={w_b}", res,
                       args[2:], BENCH_DP[1] + BENCH_DP[2], w_b))
     for label, res, rest, T, w_b in cases:
+        rows = scrambled_rows(res.tbbits.shape[0])
         for t_max in ((3 * T) // 8, T):
             def run(i):
+                lib, indexed = libs[i]
+                if not indexed:
+                    return older_walk(lib, res, rest,  # noqa: B023
+                                      t_max, w_b, rows)  # noqa: B023
                 return cuda_ops.banded_traceback_cuda(  # noqa: B023
-                    res, *rest, t_max=t_max, w_b=w_b, lib=libs[i])
+                    res, *rest, t_max=t_max, w_b=w_b, rows=rows,  # noqa
+                    lib=lib)
 
             outs = [run(i) for i in range(len(libs))]
             torch.cuda.synchronize()
@@ -1213,20 +1285,27 @@ def compare_k2w(card, sources, reps: int = 5) -> None:
 
 def compare_k2(card, sources, reps: int = 5) -> None:
     """K2 from each given banded_traceback.cu on phase 2's inputs (K1's
-    cell words at N=640, L=2048) at t_max = 3T/8 and T: every output held
-    to the first source's, then timed warm and cold.  Each source's walk
-    writes into one pre-zeroed pair buffer (an older walk stores only up
-    to its stop), so the times are its launches alone."""
+    cell words at N=640, L=2048) at t_max = 3T/8 and T, walking N / 2 of
+    the rows in a scrambled order as map_batch's traced rows: a source
+    that takes an index of the rows (``rows``) walks them in place, an
+    older one walks a gathered copy of them (made outside its timing).
+    Every output held to the first source's, then timed warm and cold;
+    the older sources also with their gather inside the timing (the
+    traceback's gather and walk of map_batch before the index).  Each
+    source's walk writes into one pre-zeroed pair buffer (an older walk
+    stores only up to its stop), so the times are its launches alone."""
     import ctypes
-    from blasr_tpu_torch.kernels.banded import pair_capacity
+    from blasr_tpu_torch.kernels.banded import BandedResult, pair_capacity
     from blasr_tpu_torch.kernels.pallas_banded import banded_align_cuda
     from blasr_tpu_torch.params import MappingParams
     libs = []
     for src in sources:
-        lib = build_source("K2", src)[0]
+        lib, data = build_source("K2", src)
         P, I = ctypes.c_void_p, ctypes.c_int
-        lib.blasr_banded_traceback.argtypes = [P] * 8 + [I] * 3 + [P] * 8
-        libs.append(lib)
+        indexed = b"int64_t* rows" in data
+        lib.blasr_banded_traceback.argtypes = \
+            [P] * (9 if indexed else 8) + [I] * 3 + [P] * 8
+        libs.append((lib, indexed))
     N, L, W = 640, 2048, 3072
     dev = torch.device("cuda")
     ins = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
@@ -1234,22 +1313,36 @@ def compare_k2(card, sources, reps: int = 5) -> None:
     sm = np.asarray(MappingParams().make_sane().score_matrix,
                     np.float32).reshape(25)
     res = banded_align_cuda(*ins, sm, 4.0, 4.0, 5.0, 5.0)
+    n_tb = N // 2
+    rows = torch.randperm(N, generator=torch.Generator().manual_seed(22))[
+        :n_tb].to(dev)
+
+    def gathered():
+        return (BandedResult(*(x[rows] for x in res)),
+                [a[rows] for a in ins[2:7]])
+
+    copy = gathered()
     T = L + W
     for t_max in ((3 * T) // 8, T):
         Pc = pair_capacity(t_max)
-        bufs = [(torch.zeros((N, Pc // 2), dtype=torch.int32, device=dev),
-                 torch.empty((5, N), dtype=torch.int32, device=dev),
-                 torch.empty(N, dtype=torch.bool, device=dev))
+        bufs = [(torch.zeros((n_tb, Pc // 2), dtype=torch.int32, device=dev),
+                 torch.empty((5, n_tb), dtype=torch.int32, device=dev),
+                 torch.empty(n_tb, dtype=torch.bool, device=dev))
                 for _ in libs]
 
-        def run(i):
+        def run(i, gather=False):
+            lib, indexed = libs[i]
             pairs, counts, ovf = bufs[i]
-            rc = libs[i].blasr_banded_traceback(
-                res.tbbits.data_ptr(), ins[2].data_ptr(),
-                *(x.data_ptr() for x in ins[3:]),
-                res.final_state.data_ptr(), res.valid.data_ptr(), N, L, Pc,
-                pairs.data_ptr(), *(counts[k].data_ptr() for k in range(5)),
-                ovf.data_ptr(), torch.cuda.current_stream().cuda_stream)
+            if indexed:
+                r, args, idx = res, ins[2:7], (rows.data_ptr(),)
+            else:
+                (r, args), idx = (gathered() if gather else copy), ()
+            rc = lib.blasr_banded_traceback(
+                r.tbbits.data_ptr(), *(x.data_ptr() for x in args),
+                r.final_state.data_ptr(), r.valid.data_ptr(), *idx, n_tb,
+                L, Pc, pairs.data_ptr(),
+                *(counts[k].data_ptr() for k in range(5)), ovf.data_ptr(),
+                torch.cuda.current_stream().cuda_stream)
             assert rc == 0, f"launch failed: {rc}"
             return bufs[i]
 
@@ -1260,9 +1353,16 @@ def compare_k2(card, sources, reps: int = 5) -> None:
             for a, b in zip(bufs[i], bufs[0]):
                 assert torch.equal(a, b), \
                     f"{sources[i]} differs from {sources[0]} (t_max={t_max})"
+        log(f"# K2 (N={N}, L={L}, {n_tb} rows walked, t_max={t_max}): "
+            + ", ".join(f"{src} {'through rows' if ix else 'on the copy'}"
+                        for src, (_, ix) in zip(sources, libs)))
         for mode in ("warm", "cold"):
             in_turns(card, f"K2 (N={N}, L={L}, t_max={t_max})", sources, run,
                      reps, mode)
+        if not all(ix for _, ix in libs):
+            in_turns(card, f"K2 with the copy's gather (N={N}, L={L}, "
+                     f"t_max={t_max})", sources,
+                     lambda i: run(i, gather=True), reps, "warm")
 
 
 def compare_k3(card, sources, reps: int = 20) -> None:
@@ -3663,7 +3763,7 @@ def phase_long_reads(card, cuda_ops):
     assert k2_calls and k4_calls and k5_calls and k6_calls, \
         "the long reads made no K2/K4/K5/K6 call"
     assert launches["banded_traceback"] == sum(
-        a[0].tbbits.shape[0] > 0 for a, _, _ in k2_calls), launches
+        out.n_pairs.shape[0] > 0 for _, _, out in k2_calls), launches
     assert launches["sdp_window"] == sum(a[0].shape[0] > 0
                                          for a, _, _ in k4_calls), launches
     # every launch of the run is one of the calls held to the plain version
@@ -3690,30 +3790,38 @@ def phase_long_reads(card, cuda_ops):
     # as one batch: the time of the longest walk, not the sum of them; it
     # walks host copies (a step's ~30 small ops cost a few microseconds on
     # the host, each a launch on the card)
-    groups = {}
+    # each call's walked rows (map_batch's tb_rows) gathered from its
+    # result and arguments
+    walks, groups = [], {}
     for i, (a, kw, out) in enumerate(k2_calls):
         assert a[0].tbbits.is_cuda and a[0].tbbits.shape[1] == 65536, \
             f"long-read K2 call {i + 1} is not at L = 65536"
+        kw = dict(kw)
+        rows = kw.pop("rows", None)
+        if rows is not None:
+            a = (BandedResult(*(x[rows] for x in a[0])),
+                 *(x[rows] for x in a[1:6]))
+        walks.append((a, kw))
         key = (tuple(a[0].tbbits.shape[1:]), tuple(sorted(kw.items())))
         groups.setdefault(key, []).append(i)
     for idx in groups.values():
-        args = [a for a, _, _ in (k2_calls[i] for i in idx)]
+        args = [walks[i][0] for i in idx]
         res = BandedResult(*(torch.cat([getattr(a[0], f) for a in args])
                              .cpu() for f in BandedResult._fields))
         ref = banded_traceback_plain(
             res, *(torch.cat([a[j] for a in args]).cpu()
-                   for j in range(1, 6)), **k2_calls[idx[0]][1])
+                   for j in range(1, 6)), **walks[idx[0]][1])
         start = 0
         for i in idx:
-            a, _, out = k2_calls[i]
-            n = a[0].tbbits.shape[0]
+            out = k2_calls[i][2]
+            n = walks[i][0][0].tbbits.shape[0]
             for f in out._fields:
                 assert torch.equal(getattr(out, f).cpu(),
                                    getattr(ref, f)[start:start + n]), \
                     f"K2 long-read call {i + 1}: {f} differs from the plain"
             start += n
     log(f"# K2 == plain on the long reads' {len(k2_calls)} banded_traceback "
-        f"call(s) (N={[a[0].tbbits.shape[0] for a, _, _ in k2_calls]}, "
+        f"call(s) (N={[o.n_pairs.shape[0] for _, _, o in k2_calls]}, "
         f"L=65536, t_max={[kw['t_max'] for _, kw, _ in k2_calls]}, "
         f"{[int(o.n_pairs.max()) for _, _, o in k2_calls]} steps in the "
         f"longest walk): exact")
@@ -3918,6 +4026,7 @@ def phase_bench(card, cuda_ops, gi, sims, mode: str, dev=None):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     launches = dict(cuda_ops.LAUNCHES)
+    walks = cuda_ops.INDEXED_WALKS
     calls = dict(graphs.DISPATCHES)
     clocks, counters = dict(mapper.metrics.clocks), dict(
         mapper.metrics.counters)
@@ -3961,14 +4070,22 @@ def phase_bench(card, cuda_ops, gi, sims, mode: str, dev=None):
         "dispatches"
     assert launches["chain_members"] == dispatches, \
         f"K7 launches {launches['chain_members']} != {dispatches} dispatches"
-    return launches
+    # every K2 launch of map_batch walks the traced rows through tb_rows
+    assert walks == launches["banded_traceback"] == \
+        counters.get("indexed_walks"), \
+        f"indexed walks {walks} (counter {counters.get('indexed_walks')}) " \
+        f"!= K2 launches {launches['banded_traceback']}"
+    return dict(launches, indexed_walks=walks)
 
 
 def run_bucket_serial(self, recs, bucket: int, batch: int):
     """PR 9's Mapper._run_bucket, for the comparison of phase 4: one batch
     at a time, inputs copied from pageable memory, the result fetched
-    and collected before the next batch is dispatched."""
-    from blasr_tpu_torch.pipeline.map_read import map_batch, unpack_batch
+    and collected before the next batch is dispatched.  Each batch goes
+    through ``graphs.dispatch`` as the Mapper's do (eager inside
+    ``graphs.eager_dispatch()``), so its counters are the Mapper's."""
+    from blasr_tpu_torch.pipeline import graphs
+    from blasr_tpu_torch.pipeline.map_read import unpack_batch
     cfg = self.cfg
     L = bucket
     T = L + cfg.window_len(L)
@@ -3976,11 +4093,8 @@ def run_bucket_serial(self, recs, bucket: int, batch: int):
 
     def dispatch(arr_d, lens_d, tb_cap=0, qv=None):
         pos, kw = self._batch_call_args(L, tb_cap)
-        if self.use_qv:
-            q1, q2 = qv
-            return map_batch(self.dev, arr_d, lens_d, *pos, qv1=q1, qv2=q2,
-                             qv_rescore=self.qv_rescore, **kw)
-        return map_batch(self.dev, arr_d, lens_d, *pos, **kw)
+        return graphs.dispatch(self.dev, arr_d, lens_d, pos, kw, qv,
+                               self.qv_rescore)
 
     for base in range(0, len(recs), batch):
         group = recs[base:base + batch]
@@ -4695,7 +4809,7 @@ def main() -> int:
     launches = {"banded_dp": dist["banded_dp"],
                 "banded_dp_qv": qvl["banded_dp_qv"],
                 "banded_dp_hp": aff["banded_dp_hp"]}
-    for k in PATH_KERNELS:
+    for k in PATH_KERNELS + ("indexed_walks",):
         launches[k] = dist[k] + qvl[k]
     for k in ("banded_dp_gen", "banded_dp_hp_gen", "banded_dp_qv_gen",
               "anchor_search_block"):
@@ -4750,7 +4864,12 @@ def main() -> int:
          "ms": kres[name]["ms"], "plain_ms": kres[name]["plain_ms"],
          "bound_ms": kres[name]["bound"][0],
          "bound_by": kres[name]["bound"][1], "library_ms": None}
-        for name, src, rep in rows]}
+        for name, src, rep in rows],
+        # K2 launches of the two bench passes given an index (tb_rows)
+        "indexed_walks": launches["indexed_walks"]}
+    log(f"# indexed walks of the two bench passes: "
+        f"{launches['indexed_walks']} of {launches['banded_traceback']} K2 "
+        f"launches")
     print(json.dumps(table))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -130,10 +130,47 @@ def test_kernels_match_plain(cuda):
         before["banded_traceback"] + 2
 
 
+def _scrambled_rows(n, device, seed=0):
+    """About half of ``n`` DP rows in a scrambled order and the first of
+    them again: an index of the rows to walk (int64)."""
+    perm = torch.randperm(n, generator=torch.Generator().manual_seed(seed))
+    return torch.cat([perm[:(n + 1) // 2], perm[:1]]).to(device)
+
+
+def _same_indexed_walk(res, rest, t_max, k2, w_b=128, rows=None):
+    """K2 (K2-W at a band width other than 128) through an index of the DP
+    rows (``rows``, by default :func:`_scrambled_rows`) against K2 on the
+    result and arguments gathered by it, against the plain walk through
+    the same index and against ``k2`` (the walk of every row) at those
+    rows, every output exactly; one launch, counted in INDEXED_WALKS."""
+    if rows is None:
+        rows = _scrambled_rows(res.tbbits.shape[0], res.tbbits.device)
+    key = "banded_traceback" if w_b == 128 else "banded_traceback_w"
+    before, walks = cuda_ops.LAUNCHES[key], cuda_ops.INDEXED_WALKS
+    got = tb.banded_traceback(res, *rest, t_max=t_max, w_b=w_b, rows=rows)
+    torch.cuda.synchronize()
+    assert cuda_ops.LAUNCHES[key] == before + 1
+    assert cuda_ops.INDEXED_WALKS == walks + 1
+    copy = tb.banded_traceback(tb.BandedResult(*(x[rows] for x in res)),
+                               *(a[rows] for a in rest), t_max=t_max,
+                               w_b=w_b)
+    assert cuda_ops.INDEXED_WALKS == walks + 1
+    plain = tb.banded_traceback_plain(res, *rest, t_max=t_max, w_b=w_b,
+                                      rows=rows)
+    assert got.pairs.shape[0] == rows.shape[0]
+    for name in got._fields:
+        a = getattr(got, name)
+        for b in (getattr(copy, name), getattr(plain, name),
+                  getattr(k2, name)[rows]):
+            assert a.dtype == b.dtype and torch.equal(a, b), (name, t_max)
+    return got
+
+
 def _same_walk(res, rest, t_max):
     """K2 against the plain walk on the same CUDA tensors, every output
     exactly, one launch; the pair buffer the kernel fills is handed out
-    dirty first, so the zeros after each stop are the kernel's own."""
+    dirty first, so the zeros after each stop are the kernel's own.  Then
+    K2 through an index of the rows (:func:`_same_indexed_walk`)."""
     N = res.tbbits.shape[0]
     P = tb.pair_capacity(t_max)
     torch.full((N, P // 2), -1, dtype=torch.int32, device=res.tbbits.device)
@@ -144,7 +181,26 @@ def _same_walk(res, rest, t_max):
     p2 = tb.banded_traceback_plain(res, *rest, t_max=t_max)
     for name, a, b in zip(k2._fields, k2, p2):
         assert a.dtype == b.dtype and torch.equal(a, b), (name, t_max)
+    _same_indexed_walk(res, rest, t_max, k2)
     return k2
+
+
+@pytest.mark.parametrize("frac", ["3T/8", "T"])
+def test_traceback_kernel_through_rows_at_bench_shape(cuda, frac):
+    """K2 at the bench's DP shape (N = 640, L = 2048, W = 3072) walking
+    n_tb = 320 of K1's rows in a scrambled order, in place: equal to K2 on
+    the gathered copy, to the plain walk and to the walk of every row at
+    those rows; the launch counted in INDEXED_WALKS."""
+    N, L, W = 640, 2048, 3072
+    args = [t.to(cuda) for t in _case(np.random.default_rng(22), N, L, W,
+                                      steep=(5, 300))]
+    k1 = tpb.banded_align_cuda(*args, _submat(), 4.0, 4.0, 5.0, 5.0)
+    t_max = (3 * (L + W)) // 8 if frac == "3T/8" else L + W
+    rows = torch.randperm(N, generator=torch.Generator().manual_seed(320))[
+        :N // 2].to(cuda)
+    full = tb.banded_traceback(k1, *args[2:], t_max=t_max)
+    got = _same_indexed_walk(k1, args[2:], t_max, full, rows=rows)
+    assert got.pairs.shape[0] == 320 and bool(k1.valid[rows].any())
 
 
 @pytest.mark.parametrize("name", list(TRACEBACK_CASES))
@@ -1177,7 +1233,8 @@ def test_wide_dp_kernel_matches_plain(cuda, w_b, mode):
 
 def _same_wide_walk(res, rest, t_max, w_b):
     """K2-W against the plain walk, every output exactly, one launch; the
-    pair buffer is handed out dirty first."""
+    pair buffer is handed out dirty first.  Then K2-W through an index of
+    the rows (:func:`_same_indexed_walk`)."""
     N = res.tbbits.shape[0]
     P = tb.pair_capacity(t_max)
     torch.full((N, P // 2), -1, dtype=torch.int32, device=res.tbbits.device)
@@ -1190,6 +1247,7 @@ def _same_wide_walk(res, rest, t_max, w_b):
     p2 = tb.banded_traceback_plain(res, *rest, t_max=t_max, w_b=w_b)
     for name, a, b in zip(k2._fields, k2, p2):
         assert a.dtype == b.dtype and torch.equal(a, b), (name, t_max)
+    _same_indexed_walk(res, rest, t_max, k2, w_b)
     return k2
 
 
@@ -1323,6 +1381,14 @@ def test_wide_wrappers_check_their_inputs(cuda):
     res = cuda_ops.banded_dp_launch(*args, **kw, w_b=64)
     with pytest.raises(ValueError):       # tbbits of another width
         cuda_ops.banded_traceback_cuda(res, *args[2:], t_max=512, w_b=96)
+    rows = torch.arange(4, device=cuda)
+    for bad, err in ((rows.to(torch.int32), TypeError),
+                     (rows.cpu(), ValueError),
+                     (rows.reshape(2, 2), ValueError),
+                     (torch.arange(8, device=cuda)[::2], ValueError)):
+        with pytest.raises(err):          # rows not int64, 1-D, contiguous
+            cuda_ops.banded_traceback_cuda(res, *args[2:], t_max=512,
+                                           w_b=64, rows=bad)
 
 
 @pytest.mark.parametrize("w_b", [64, 256])
