@@ -22,6 +22,10 @@
 //     (periodic representatives every E/2), the 16-base XOR/ctz extension,
 //     the length (clamped to max_lcp), hits_t / hits_valid, and
 //     nlogp = fma(len - k, LOG4, log(M / max(nocc, 1)));
+//     and the row's seed counts (its valid k-mers, the sum of their nocc,
+//     those with nocc > O, the sum of min(nocc, O)), per 256-position
+//     block, summed per row by the selection kernel, which adds the
+//     row's anchors kept, min(n_total, A);
 //   per row (selection kernel, one CTA each):
 //     the advance_exact suppression (a prefix max over positions), n_total,
 //     the top-A by the rank (-len << nbits) + bitrev(flat) with the invalid
@@ -102,6 +106,11 @@ constexpr int SELECT_DYNAMIC_MAX = 232448 - 10560;
 // a row's meta words are staged in the selection CTA's shared memory when
 // all of its dynamic arrays fit in this many bytes
 constexpr size_t STAGE_BYTES = 160 * 1024;
+// a row's seed counts: valid k-mers, their occurrences, those with more
+// than O, the occurrences examined (a block's share of each: SEED_PARTS),
+// then the anchors kept
+constexpr int SEED_PARTS = 4;
+constexpr int SEED_COUNTS = 5;
 
 // float32 constants as the plain version rounds them (decimal -> float64
 // -> float32)
@@ -332,9 +341,11 @@ __global__ void __launch_bounds__(CAND_THREADS) anchor_candidates(
     Index ix, Shape s, const int8_t* __restrict__ reads,
     const int32_t* __restrict__ read_len, int64_t* __restrict__ hits_t,
     uint8_t* __restrict__ hits_valid, uint32_t* __restrict__ meta,
-    float* __restrict__ cnlogp, uint32_t* __restrict__ clip_part) {
+    float* __restrict__ cnlogp, uint32_t* __restrict__ clip_part,
+    unsigned long long* __restrict__ seed_part) {
   extern __shared__ int8_t s_read[];   // bytes [q0 - 1, q0 - 1 + span)
   __shared__ uint32_t s_clip[CAND_THREADS / 32];
+  __shared__ unsigned long long s_seeds[CAND_THREADS / 32][SEED_PARTS];
   const int b = blockIdx.y;
   const int q0 = blockIdx.x * CAND_THREADS;
   const int q = q0 + threadIdx.x;
@@ -346,6 +357,7 @@ __global__ void __launch_bounds__(CAND_THREADS) anchor_candidates(
   }
   __syncthreads();
   uint32_t clip = 0;
+  unsigned long long seeds[SEED_PARTS] = {0, 0, 0, 0};
   if (q < L) {
     const int sq = threadIdx.x + 1;   // q's staged byte
     uint32_t key = 0;
@@ -361,6 +373,12 @@ __global__ void __launch_bounds__(CAND_THREADS) anchor_candidates(
     const long long nocc = hi - lo;
     const bool pos_ok = kok && nocc > 0 && nocc <= s.mapp;
     if (pos_ok && nocc > O) clip = (uint32_t)(nocc - O);
+    if (kok) {
+      seeds[0] = 1;
+      seeds[1] = (unsigned long long)nocc;
+      seeds[2] = nocc > O ? 1 : 0;
+      seeds[3] = (unsigned long long)(nocc < O ? nocc : O);
+    }
     const float seed = log_f32(
         __fdiv_rn(s.m_total, __ll2float_rn(nocc > 1 ? nocc : 1)));
     const int rprev = q > 0 ? (int)s_read[sq - 1] : 4;
@@ -398,15 +416,41 @@ __global__ void __launch_bounds__(CAND_THREADS) anchor_candidates(
     }
   }
   // the block's share of n_clipped (unsigned: wraps as the int32 sum does)
+  // and of the seed counts
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) clip += __shfl_down_sync(FULL, clip, o);
-  if ((threadIdx.x & 31) == 0) s_clip[threadIdx.x >> 5] = clip;
+  for (int o = 16; o > 0; o >>= 1) {
+    clip += __shfl_down_sync(FULL, clip, o);
+#pragma unroll
+    for (int i = 0; i < SEED_PARTS; ++i)
+      seeds[i] += __shfl_down_sync(FULL, seeds[i], o);
+  }
+  if ((threadIdx.x & 31) == 0) {
+    s_clip[threadIdx.x >> 5] = clip;
+#pragma unroll
+    for (int i = 0; i < SEED_PARTS; ++i)
+      s_seeds[threadIdx.x >> 5][i] = seeds[i];
+  }
   __syncthreads();
   if (threadIdx.x < 32) {
-    uint32_t c = threadIdx.x < CAND_THREADS / 32 ? s_clip[threadIdx.x] : 0u;
+    const bool w = threadIdx.x < CAND_THREADS / 32;
+    uint32_t c = w ? s_clip[threadIdx.x] : 0u;
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) c += __shfl_down_sync(FULL, c, o);
-    if (threadIdx.x == 0) clip_part[(size_t)b * s.nblk + blockIdx.x] = c;
+    for (int i = 0; i < SEED_PARTS; ++i)
+      seeds[i] = w ? s_seeds[threadIdx.x][i] : 0ull;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      c += __shfl_down_sync(FULL, c, o);
+#pragma unroll
+      for (int i = 0; i < SEED_PARTS; ++i)
+        seeds[i] += __shfl_down_sync(FULL, seeds[i], o);
+    }
+    if (threadIdx.x == 0) {
+      const size_t blk = (size_t)b * s.nblk + blockIdx.x;
+      clip_part[blk] = c;
+#pragma unroll
+      for (int i = 0; i < SEED_PARTS; ++i)
+        seed_part[blk * SEED_PARTS + i] = seeds[i];
+    }
   }
 }
 
@@ -556,10 +600,11 @@ __device__ __forceinline__ unsigned long long* sort_keys(unsigned long long* s_k
 __global__ void __launch_bounds__(SEL_THREADS) anchor_select(
     Shape s, const int64_t* __restrict__ hits_t, uint32_t* __restrict__ meta,
     const float* __restrict__ cnlogp, const uint32_t* __restrict__ clip_part,
+    const unsigned long long* __restrict__ seed_part,
     int64_t* __restrict__ out_q, int64_t* __restrict__ out_t,
     int64_t* __restrict__ out_l, uint8_t* __restrict__ out_valid,
     float* __restrict__ out_nlogp, int32_t* __restrict__ n_total_out,
-    int32_t* __restrict__ n_clipped_out) {
+    int32_t* __restrict__ n_clipped_out, int64_t* __restrict__ seed_out) {
   extern __shared__ unsigned long long s_keys[];     // [P]
   // [P] for the merge sort (P <= MERGE_MAX), then [A_out], [lmax + 1]
   unsigned long long* s_tmp = s_keys + s.P;
@@ -609,6 +654,27 @@ __global__ void __launch_bounds__(SEL_THREADS) anchor_select(
     __syncthreads();
   }
 
+  // warp 1: the row's seed counts, the sum of its blocks' shares
+  if (tid >= 32 && tid < 64) {
+    unsigned long long c[SEED_PARTS] = {0, 0, 0, 0};
+    for (int i = lane; i < s.nblk; i += 32) {
+      const unsigned long long* p =
+          seed_part + ((size_t)b * s.nblk + i) * SEED_PARTS;
+#pragma unroll
+      for (int j = 0; j < SEED_PARTS; ++j) c[j] += p[j];
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+#pragma unroll
+      for (int j = 0; j < SEED_PARTS; ++j)
+        c[j] += __shfl_xor_sync(FULL, c[j], o);
+    }
+    if (lane == 0) {
+#pragma unroll
+      for (int j = 0; j < SEED_PARTS; ++j)
+        seed_out[(size_t)b * SEED_COUNTS + j] = (int64_t)c[j];
+    }
+  }
   // warp 0's share of the row's clip sums, loaded ahead of its use
   uint32_t clip = 0;
   if (tid < 32) {
@@ -660,6 +726,8 @@ __global__ void __launch_bounds__(SEL_THREADS) anchor_select(
       s_prefix = 0u;
       n_clipped_out[b] = (int32_t)clip;
       n_total_out[b] = tot;
+      seed_out[(size_t)b * SEED_COUNTS + SEED_PARTS] = tot < A_out ? tot
+                                                                   : A_out;
     }
   }
   __syncthreads();
@@ -765,11 +833,12 @@ cudaError_t launch_candidates(const Index& ix, const Shape& s,
                               cudaStream_t st, const int8_t* reads,
                               const int32_t* read_len, int64_t* hits_t,
                               uint8_t* hits_valid, uint32_t* meta,
-                              float* cnlogp, uint32_t* clip_part) {
+                              float* cnlogp, uint32_t* clip_part,
+                              unsigned long long* seed_part) {
   anchor_candidates<OT, WIDE>
       <<<dim3(s.nblk, s.B), CAND_THREADS, s.span, st>>>(
           ix, s, reads, read_len, hits_t, hits_valid, meta, cnlogp,
-          clip_part);
+          clip_part, seed_part);
   return cudaGetLastError();
 }
 
@@ -778,23 +847,29 @@ cudaError_t candidates_for(const Index& ix, const Shape& s, cudaStream_t st,
                            const int8_t* reads, const int32_t* read_len,
                            int64_t* hits_t, uint8_t* hits_valid,
                            uint32_t* meta, float* cnlogp,
-                           uint32_t* clip_part) {
+                           uint32_t* clip_part,
+                           unsigned long long* seed_part) {
   switch (s.O) {
     case 1: return launch_candidates<1, WIDE>(ix, s, st, reads, read_len,
                                               hits_t, hits_valid, meta,
-                                              cnlogp, clip_part);
+                                              cnlogp, clip_part,
+                                              seed_part);
     case 2: return launch_candidates<2, WIDE>(ix, s, st, reads, read_len,
                                               hits_t, hits_valid, meta,
-                                              cnlogp, clip_part);
+                                              cnlogp, clip_part,
+                                              seed_part);
     case 3: return launch_candidates<3, WIDE>(ix, s, st, reads, read_len,
                                               hits_t, hits_valid, meta,
-                                              cnlogp, clip_part);
+                                              cnlogp, clip_part,
+                                              seed_part);
     case 4: return launch_candidates<4, WIDE>(ix, s, st, reads, read_len,
                                               hits_t, hits_valid, meta,
-                                              cnlogp, clip_part);
+                                              cnlogp, clip_part,
+                                              seed_part);
     default: return launch_candidates<0, WIDE>(ix, s, st, reads, read_len,
                                                hits_t, hits_valid, meta,
-                                               cnlogp, clip_part);
+                                               cnlogp, clip_part,
+                                              seed_part);
   }
 }
 
@@ -808,9 +883,10 @@ int anchor_search(
     int O, int k, int E, int min_match, long long mapp, int max_lcp,
     int advance_exact, int A_out, int nbits, int lmax, float m_total,
     int64_t* hits_t, uint8_t* hits_valid, uint32_t* meta, float* cnlogp,
-    uint32_t* clip_part, int64_t* out_q, int64_t* out_t, int64_t* out_l,
-    uint8_t* out_valid, float* out_nlogp, int32_t* n_total,
-    int32_t* n_clipped, void* stream) {
+    uint32_t* clip_part, unsigned long long* seed_part, int64_t* out_q,
+    int64_t* out_t, int64_t* out_l, uint8_t* out_valid, float* out_nlogp,
+    int32_t* n_total, int32_t* n_clipped, int64_t* seed_counts,
+    void* stream) {
   const Index ix{genome, keys_sorted, pos_sorted, bucket_starts, bucket_pairs,
                  records, gwords, gnwords, G, M, lookup_mode, use_rec,
                  block, rec_rows};
@@ -831,13 +907,15 @@ int anchor_search(
   const bool narrow = M < (1LL << 31) && O < (1 << 16);
   cudaError_t err =
       narrow ? candidates_for<false>(ix, s, st, reads, read_len, hits_t,
-                                     hits_valid, meta, cnlogp, clip_part)
+                                     hits_valid, meta, cnlogp, clip_part,
+                                     seed_part)
              : candidates_for<true>(ix, s, st, reads, read_len, hits_t,
-                                    hits_valid, meta, cnlogp, clip_part);
+                                    hits_valid, meta, cnlogp, clip_part,
+                                    seed_part);
   if (err != cudaSuccess) return (int)err;
   anchor_select<<<B, SEL_THREADS, smem, st>>>(
-      s, hits_t, meta, cnlogp, clip_part, out_q, out_t, out_l, out_valid,
-      out_nlogp, n_total, n_clipped);
+      s, hits_t, meta, cnlogp, clip_part, seed_part, out_q, out_t, out_l,
+      out_valid, out_nlogp, n_total, n_clipped, seed_counts);
   return (int)cudaGetLastError();
 }
 
@@ -861,15 +939,17 @@ extern "C" int blasr_anchor_search_setup() {
       int O, int k, int E, int min_match, long long mapp, int max_lcp,        \
       int advance_exact, int A_out, int nbits, int lmax, float m_total,       \
       int64_t *hits_t, uint8_t *hits_valid, uint32_t *meta, float *cnlogp,    \
-      uint32_t *clip_part, int64_t *out_q, int64_t *out_t, int64_t *out_l,    \
-      uint8_t *out_valid, float *out_nlogp, int32_t *n_total,                 \
-      int32_t *n_clipped, void *stream
+      uint32_t *clip_part, unsigned long long *seed_part, int64_t *out_q,     \
+      int64_t *out_t, int64_t *out_l, uint8_t *out_valid, float *out_nlogp,   \
+      int32_t *n_total, int32_t *n_clipped, int64_t *seed_counts,             \
+      void *stream
 #define ANCHOR_SEARCH_PASS                                                    \
   reads, read_len, genome, keys_sorted, pos_sorted, bucket_starts,            \
       bucket_pairs, records, gwords, gnwords, G, M, lookup_mode, use_rec, B,  \
       L, O, k, E, min_match, mapp, max_lcp, advance_exact, A_out, nbits,      \
-      lmax, m_total, hits_t, hits_valid, meta, cnlogp, clip_part, out_q,      \
-      out_t, out_l, out_valid, out_nlogp, n_total, n_clipped, stream
+      lmax, m_total, hits_t, hits_valid, meta, cnlogp, clip_part, seed_part,  \
+      out_q, out_t, out_l, out_valid, out_nlogp, n_total, n_clipped,          \
+      seed_counts, stream
 
 // the default strided occurrence sampling
 extern "C" int blasr_anchor_search(ANCHOR_SEARCH_ARGS) {

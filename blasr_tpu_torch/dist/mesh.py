@@ -38,7 +38,7 @@ import torch.distributed as dist
 from blasr_tpu_torch.index.genome import GenomeIndex, build_kmer_index
 from blasr_tpu_torch.pipeline.map_read import (
     BIG32, COL_DPSLOT, COL_NANCH, COL_NCLIP, COL_SCORE, COL_VALID, N_COLS,
-    DeviceIndex, OneBatch, PackedBatch, map_batch)
+    TAIL_WORDS, DeviceIndex, OneBatch, PackedBatch, map_batch)
 
 
 @dataclass
@@ -182,8 +182,8 @@ class WholeBatch(OneBatch):
         """The whole batch's :class:`PackedBatch` from this rank's block
         ``pb`` (its strand rows, its traceback rows, which :meth:`first`
         numbered last) and the other blocks', on every rank; ``flat``
-        ends in the sum of the blocks' DP rows used and the OR of their
-        fault words."""
+        ends in the sums of the blocks' seed counts and DP rows used and
+        the OR of their fault words."""
         n, b = self.n, self.b
 
         def rows(x):                  # [n, 2b, ...] -> [fwd x B, rc x B]
@@ -203,11 +203,12 @@ class WholeBatch(OneBatch):
         has = g_slots >= 0
         ops = g_ops.new_zeros((int(has.sum()),) + pb.ops.shape[1:])
         ops[g_slots[has]] = g_ops[has]
-        tail = _all_gather(pb.flat[-2:], self.group, n)
-        used = tail[:, 0].sum(dtype=pb.flat.dtype)
-        fault = (tail[:, 1] != 0).any()
+        tail = _all_gather(pb.flat[-TAIL_WORDS:], self.group, n)
+        seeds = _sum_seed_words(tail[:, :-2])
+        used = tail[:, -2].sum(dtype=pb.flat.dtype)
+        fault = (tail[:, -1] != 0).any()
         flat = torch.cat([ints.reshape(-1), clusters.reshape(-1),
-                          ops.reshape(-1), used[None],
+                          ops.reshape(-1), seeds, used[None],
                           fault.to(pb.flat.dtype)[None]])
         return PackedBatch(ints=ints, ops=ops, clusters=clusters, flat=flat)
 
@@ -369,19 +370,28 @@ def shard_device_index(gi: GenomeIndex, shards, s: int,
     ).with_pad(DeviceIndex.GENOME_PAD)
 
 
+def _sum_seed_words(words: torch.Tensor) -> torch.Tensor:
+    """The int32 words of the seed counts' sums over the rows of
+    ``words`` ([R, TAIL_WORDS - 2] int32, each row int64 counts
+    as int32 pairs, as ``map_batch`` puts them in ``flat``)."""
+    return words.contiguous().view(torch.int64).sum(dim=0).view(torch.int32)
+
+
 def merge_ref_shards(ints: torch.Tensor, ops: torch.Tensor,
                      clusters: torch.Tensor, faults: torch.Tensor,
-                     rows_used: torch.Tensor) -> PackedBatch:
+                     rows_used: torch.Tensor,
+                     seed_words: torch.Tensor) -> PackedBatch:
     """The ref axis's merge of the R shards' outputs stacked on a leading
     axis (ints [R, 2B, C, N_COLS], ops [R, n_dp, P/2], clusters
     [R, 2B, C_stat, 2], faults [R], each shard's last word of ``flat``,
-    and rows_used [R], the word before it):
+    rows_used [R], the word before it, and seed_words
+    [R, TAIL_WORDS - 2], the seed counts' words before that):
     dp slots translated into rows of the concatenated ops, anchor and
     clip counts summed, the top C candidates per row by score (stable,
     invalid rows last), the heaviest gate-passing clusters of the union,
-    the sum of the DP rows used and the OR of the faults as the last two
-    words of ``flat``, so that a K1 fault in any shard raises in
-    ``unpack_batch``."""
+    the sums of the seed counts and of the DP rows used and the OR of the
+    faults as the tail of ``flat``, so that a K1 fault in any shard
+    raises in ``unpack_batch``."""
     R, n2, C, _ = ints.shape
     n_dp, t_len = ops.shape[1:]
     dev = ints.device
@@ -410,7 +420,8 @@ def merge_ref_shards(ints: torch.Tensor, ops: torch.Tensor,
     fault = (faults != 0).any().to(i32)
     used = rows_used.sum(dtype=i32)
     flat = torch.cat([top.reshape(-1), top_cl.reshape(-1), ops.reshape(-1),
-                      used.reshape(1), fault.reshape(1)])
+                      _sum_seed_words(seed_words), used.reshape(1),
+                      fault.reshape(1)])
     return PackedBatch(ints=top, ops=ops, clusters=top_cl, flat=flat)
 
 
@@ -454,7 +465,7 @@ def map_batch_ref_sharded(
                     **static)
     stacked = [_all_gather(x, mesh.ref_group, n_ref)
                for x in (res.ints, res.ops, res.clusters, res.flat[-1:],
-                         res.flat[-2:-1])]
+                         res.flat[-2:-1], res.flat[-TAIL_WORDS:-2])]
     merged = merge_ref_shards(*stacked)._replace(
         dp_rows=res.dp_rows * n_ref)
     return merged, offs, int(res.ops.shape[0])

@@ -44,6 +44,10 @@ class Anchors(NamedTuple):
     hits_t: Optional[torch.Tensor] = None      # int64 [B, L, O]
     hits_valid: Optional[torch.Tensor] = None  # bool [B, L, O]
     n_clipped: Optional[torch.Tensor] = None   # int32 [B]
+    # int64 [B, 5]: the row's valid k-mers, the sum of their occurrences,
+    # those with more than O, the sum of min(occurrences, O), the anchors
+    # kept (the valid ones of the A selected)
+    seed_counts: Optional[torch.Tensor] = None
 
 
 def _shift_left(x: torch.Tensor, j: int, fill) -> torch.Tensor:
@@ -284,6 +288,11 @@ def _anchor_rows(genome, keys_sorted, pos_sorted, reads, read_len, *, k,
     sel_v = flat_valid.gather(1, order)
     sel_p = flat_p.gather(1, order)
     n_total = flat_valid.sum(dim=1).to(torch.int32)
+    seed_counts = torch.stack([
+        kvalid.sum(dim=1), torch.where(kvalid, nocc, 0).sum(dim=1),
+        (kvalid & (nocc > O)).sum(dim=1),
+        torch.where(kvalid, torch.clamp(nocc, max=O), 0).sum(dim=1),
+        sel_v.sum(dim=1)], dim=1).to(i64)
     n_clipped = torch.where(pos_ok, torch.clamp(nocc - O, min=0),
                             0).sum(dim=1).to(torch.int32)
 
@@ -293,7 +302,7 @@ def _anchor_rows(genome, keys_sorted, pos_sorted, reads, read_len, *, k,
     return Anchors(
         q=sel_q.gather(1, order2), t=sel_t.gather(1, order2),
         l=sel_l.gather(1, order2), valid=sel_v.gather(1, order2),
-        n_total=n_total, n_clipped=n_clipped,
+        n_total=n_total, n_clipped=n_clipped, seed_counts=seed_counts,
         nlogp=sel_p.gather(1, order2),
         hits_t=t,
         hits_valid=pos_ok[:, :, None] & (occ3 < nocc3)

@@ -182,9 +182,9 @@ ARGTYPES = {
                          + [_P]),
     "blasr_sdp_window_smem": (ctypes.c_size_t, [_I] * 3),
     "blasr_anchor_search": (_I, [_P] * 10 + [_LL] * 2 + [_I] * 8 + [_LL]
-                            + [_I] * 5 + [_F] + [_P] * 12 + [_P]),
+                            + [_I] * 5 + [_F] + [_P] * 14 + [_P]),
     "blasr_anchor_search_block": (_I, [_P] * 10 + [_LL] * 2 + [_I] * 8
-                                  + [_LL] + [_I] * 5 + [_F] + [_P] * 12
+                                  + [_LL] + [_I] * 5 + [_F] + [_P] * 14
                                   + [_P] + [_LL]),
     "blasr_band_offsets": (_I, [_P] * 5 + [_I] * 7 + [_P] * 2 + [_P]),
     "blasr_chain_members": (_I, [_P] * 3 + [_I] + [_P] * 2 + [_I] * 6
@@ -618,11 +618,14 @@ def anchor_search_launch(genome, keys_sorted, pos_sorted, reads, read_len, *,
     nlogp = torch.empty((B, A_out), dtype=torch.float32, device=dev)
     n_total = torch.empty(B, dtype=torch.int32, device=dev)
     n_clipped = torch.empty(B, dtype=torch.int32, device=dev)
+    seed_counts = torch.empty((B, 5), dtype=i64, device=dev)
     # the kernels' scratch in one buffer (a view costs more host time than
     # an allocation, so the outputs stay their own): per candidate a meta
     # word and its nlogp, per 256-position block of a row its clip sum
     nblk = -(-L // 256)
     scratch = torch.empty(B * (2 * n + nblk), dtype=torch.int32, device=dev)
+    # and per block of a row its share of four of the seed counts
+    seed_part = torch.empty((B, nblk, 4), dtype=i64, device=dev)
     if B > 0:
         def ptr(x):
             return None if x is None else x.data_ptr()
@@ -648,9 +651,10 @@ def anchor_search_launch(genome, keys_sorted, pos_sorted, reads, read_len, *,
                 clamp30(max_lcp), clamp30(advance_exact), A_out, nbits, lmax,
                 float(M),
                 hits_t.data_ptr(), hits_valid.data_ptr(), meta,
-                meta + 4 * B * n, meta + 8 * B * n, q.data_ptr(),
-                t.data_ptr(), l.data_ptr(), valid.data_ptr(),
-                nlogp.data_ptr(), n_total.data_ptr(), n_clipped.data_ptr())
+                meta + 4 * B * n, meta + 8 * B * n, seed_part.data_ptr(),
+                q.data_ptr(), t.data_ptr(), l.data_ptr(), valid.data_ptr(),
+                nlogp.data_ptr(), n_total.data_ptr(), n_clipped.data_ptr(),
+                seed_counts.data_ptr())
         key = "anchor_search_block" if occ_block_sample else "anchor_search"
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
@@ -664,7 +668,7 @@ def anchor_search_launch(genome, keys_sorted, pos_sorted, reads, read_len, *,
         LAUNCHES[key] += 1
     return Anchors(q=q, t=t, l=l, valid=valid, n_total=n_total,
                    nlogp=nlogp, hits_t=hits_t, hits_valid=hits_valid,
-                   n_clipped=n_clipped)
+                   n_clipped=n_clipped, seed_counts=seed_counts)
 
 
 def band_offsets_launch(mq, mt, ws, *, L: int, W: int, w_b: int,

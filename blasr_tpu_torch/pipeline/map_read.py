@@ -14,6 +14,8 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import time
+from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
@@ -31,10 +33,34 @@ from blasr_tpu_torch.kernels.pallas_banded import (SLOPE_ERROR,
                                                    banded_align_cuda,
                                                    slope_fault)
 from blasr_tpu_torch.pipeline import graphs
-from blasr_tpu_torch.pipeline.metrics import count, records_spans, span
+from blasr_tpu_torch.pipeline.metrics import (count, records_spans, span,
+                                              timeline)
 
 BIG32 = 0x3FFFFFFF
 MASK32 = 0xFFFFFFFF
+# the genome positions (packed words) and index slots (records) that
+# DeviceIndex.from_host derives per step: the set-up holds the arrays it
+# builds and one step's temporaries, not several whole-genome ones
+INDEX_CHUNK = 1 << 21
+
+# the set-up spans of the latest DeviceIndex.from_host, in seconds, each
+# ended by a device sync: "index.upload" (the host arrays onto the
+# device), "index.words" (the packed genome words), "index.records" (the
+# records table; 0.0 where none is built).  Module-level, as
+# graphs.CAPTURES: the index is built before any Mapper's metrics exist.
+INDEX_SPANS: Dict[str, float] = {}
+
+
+@contextmanager
+def _index_span(name: str, device: torch.device):
+    """Time the block into :data:`INDEX_SPANS` up to a sync of
+    ``device``, under a profiler range of ``name`` while one records."""
+    t0 = time.perf_counter()
+    with timeline(name):
+        yield
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+    INDEX_SPANS[name] = time.perf_counter() - t0
 
 
 def _i32_bits(x: torch.Tensor) -> torch.Tensor:
@@ -43,20 +69,25 @@ def _i32_bits(x: torch.Tensor) -> torch.Tensor:
     return (x - ((x >> 31) << 32)).to(torch.int32)
 
 
-def _packed_words(gsent: torch.Tensor):
+def _packed_words(gsent: torch.Tensor, chunk: int = INDEX_CHUNK):
     """(gwords, gnwords) as int64 32-bit patterns: 16 bases per word,
     2 bits each LSB-first; gnwords marks non-ACGT (and past-the-end)
-    bases with 11 (``index.genome.build_packed_words``)."""
+    bases with 11 (``index.genome.build_packed_words``).  Written
+    ``chunk`` positions at a time into the two arrays."""
     G = gsent.shape[0]
-    g = gsent.to(torch.int64)
-    gw = torch.zeros(G, dtype=torch.int64, device=g.device)
-    gn = torch.zeros(G, dtype=torch.int64, device=g.device)
-    for j in range(16):
-        sh = g if j == 0 else torch.cat(
-            [g[j:], torch.full((min(j, G),), 4, dtype=torch.int64,
-                               device=g.device)])[:G]
-        gw = gw | ((sh & 3) << (2 * j))
-        gn = gn | (torch.where(sh >= 4, 3, 0) << (2 * j))
+    dev = gsent.device
+    gw = torch.zeros(G, dtype=torch.int64, device=dev)
+    gn = torch.zeros(G, dtype=torch.int64, device=dev)
+    for a in range(0, G, chunk):
+        n = min(chunk, G - a)
+        # the chunk's bases and the 15 after it, N codes past the genome
+        seg = torch.full((n + 15,), 4, dtype=torch.int64, device=dev)
+        seg[:min(n + 15, G - a)] = gsent[a:a + n + 15]
+        w, m = gw[a:a + n], gn[a:a + n]
+        for j in range(16):
+            sh = seg[j:j + n]
+            w |= (sh & 3) << (2 * j)
+            m |= torch.where(sh >= 4, 3, 0) << (2 * j)
     return gw, gn
 
 
@@ -82,7 +113,11 @@ class DeviceIndex(NamedTuple):
     pos_records: Optional[torch.Tensor] = None
     genome_pad: Optional[torch.Tensor] = None  # int8 [G + pad], pad N codes
 
+    # the most slots whose records are built on a CPU device (the JAX
+    # package's cap); on CUDA the records are built when their bytes fit
+    # in 1 / RECORDS_MEMORY_SHARE of the device's memory
     RECORDS_MAX_SLOTS = 1 << 26
+    RECORDS_MEMORY_SHARE = 8
     RECORDS_PAD = 1024
     # the widest window of the default buckets (ShapeConfig.window_len)
     GENOME_PAD = ShapeConfig().window_len(ShapeConfig().buckets[-1])
@@ -98,53 +133,80 @@ class DeviceIndex(NamedTuple):
         return self._replace(genome=gp[:G], genome_pad=gp)
 
     @staticmethod
-    def _build_records(genome, pos_sorted, gw, gn, k: int):
+    def records_fit(n_slots: int, device) -> bool:
+        """Whether :meth:`from_host` builds the records of an index of
+        ``n_slots`` slots on ``device``: on CUDA when the table's bytes
+        are at most 1 / :data:`RECORDS_MEMORY_SHARE` of the device's
+        memory, elsewhere up to :data:`RECORDS_MAX_SLOTS` slots."""
+        device = torch.device(device)
+        if device.type == "cuda":
+            total = torch.cuda.get_device_properties(device).total_memory
+            return ((n_slots + DeviceIndex.RECORDS_PAD) * 24
+                    <= total // DeviceIndex.RECORDS_MEMORY_SHARE)
+        return n_slots <= DeviceIndex.RECORDS_MAX_SLOTS
+
+    @staticmethod
+    def _build_records(genome, pos_sorted, gw, gn, k: int,
+                       chunk: int = INDEX_CHUNK):
+        """The records table, written ``chunk`` slots at a time into one
+        int32 [M + RECORDS_PAD, 6] table; the pad rows hold 0 in the first
+        two columns and MASK32 (all N) in the words."""
         G = genome.shape[0]
-        pos = pos_sorted
-        recs = [pos, genome[(pos - 1).clamp(0, G - 1)].to(torch.int64)]
-        for j in range(2):
-            off = k + 16 * j
-            gidx = (pos + off).clamp(0, G - 1)
-            recs.append(gw[gidx])
-            recs.append(torch.where(pos + off < G, gn[gidx], MASK32))
-        table = torch.stack(recs, dim=1)
-        pad = torch.zeros((DeviceIndex.RECORDS_PAD, 6), dtype=torch.int64,
-                          device=genome.device)
-        pad[:, 2:] = MASK32
-        return _i32_bits(torch.cat([table, pad], dim=0))
+        M = pos_sorted.shape[0]
+        table = torch.empty((M + DeviceIndex.RECORDS_PAD, 6),
+                            dtype=torch.int32, device=genome.device)
+        for a in range(0, M, chunk):
+            pos = pos_sorted[a:a + chunk]
+            recs = [pos, genome[(pos - 1).clamp(0, G - 1)].to(torch.int64)]
+            for j in range(2):
+                off = k + 16 * j
+                gidx = (pos + off).clamp(0, G - 1)
+                recs.append(gw[gidx])
+                recs.append(torch.where(pos + off < G, gn[gidx], MASK32))
+            table[a:a + pos.shape[0]] = _i32_bits(torch.stack(recs, dim=1))
+        table[M:, :2] = 0
+        table[M:, 2:] = -1          # MASK32's bits as int32
+        return table
 
     @staticmethod
     def from_host(gi: GenomeIndex, device) -> "DeviceIndex":
         """Upload a host :class:`GenomeIndex` (the same one the JAX package
-        takes) and derive the packed words and records on ``device``.
-        Bit-identical to the JAX ``DeviceIndex.from_host`` arrays, and
-        ``genome_pad`` the genome with :data:`GENOME_PAD` N codes after
-        it."""
+        takes) and derive the packed words and, where
+        :meth:`records_fit`, the records on ``device``.  Bit-identical to
+        the JAX ``DeviceIndex.from_host`` arrays, and ``genome_pad`` the
+        genome with :data:`GENOME_PAD` N codes after it.  Its three
+        phases are timed into :data:`INDEX_SPANS`."""
         device = torch.device(device)
-        G = gi.genome.shape[0] + 1
-        gpad = np.full(G + DeviceIndex.GENOME_PAD, 4, dtype=np.int8)
-        gpad[1:G] = gi.genome
-        gpad_d = torch.from_numpy(gpad).to(device)
-        genome_d = gpad_d[:G]
-        starts = np.asarray(gi.seqdb.starts, dtype=np.int64)
-        ends = starts + np.asarray(gi.seqdb.lengths, dtype=np.int64)
-        contig_s = torch.from_numpy(starts + 1).to(device)
-        contig_e = torch.from_numpy(ends + 1).to(device)
-        M = gi.pos_sorted.shape[0]
-        pos_d = torch.from_numpy(
-            np.asarray(gi.pos_sorted, dtype=np.int64) + 1).to(device)
-        keys_d = torch.from_numpy(
-            np.asarray(gi.keys_sorted).astype(np.int64)).to(device)
-        bs_d = bp_d = None
-        if gi.bucket_starts is not None:
-            bs_d = torch.from_numpy(np.asarray(gi.bucket_starts)).to(device)
-            if gi.bucket_starts.shape[0] <= (1 << 25):
-                bp_d = torch.stack([bs_d[:-1], bs_d[1:]], dim=1).contiguous()
-        gw_d, gn_d = _packed_words(genome_d)
+        INDEX_SPANS.clear()
+        with _index_span("index.upload", device):
+            G = gi.genome.shape[0] + 1
+            gpad = np.full(G + DeviceIndex.GENOME_PAD, 4, dtype=np.int8)
+            gpad[1:G] = gi.genome
+            gpad_d = torch.from_numpy(gpad).to(device)
+            genome_d = gpad_d[:G]
+            starts = np.asarray(gi.seqdb.starts, dtype=np.int64)
+            ends = starts + np.asarray(gi.seqdb.lengths, dtype=np.int64)
+            contig_s = torch.from_numpy(starts + 1).to(device)
+            contig_e = torch.from_numpy(ends + 1).to(device)
+            M = gi.pos_sorted.shape[0]
+            pos_d = torch.from_numpy(
+                np.asarray(gi.pos_sorted, dtype=np.int64) + 1).to(device)
+            keys_d = torch.from_numpy(
+                np.asarray(gi.keys_sorted).astype(np.int64)).to(device)
+            bs_d = bp_d = None
+            if gi.bucket_starts is not None:
+                bs_d = torch.from_numpy(
+                    np.asarray(gi.bucket_starts)).to(device)
+                if gi.bucket_starts.shape[0] <= (1 << 25):
+                    bp_d = torch.stack([bs_d[:-1], bs_d[1:]],
+                                       dim=1).contiguous()
+        with _index_span("index.words", device):
+            gw_d, gn_d = _packed_words(genome_d)
         rec_d = None
-        if M <= DeviceIndex.RECORDS_MAX_SLOTS:
-            rec_d = DeviceIndex._build_records(genome_d, pos_d, gw_d, gn_d,
-                                               gi.k)
+        with _index_span("index.records", device):
+            if DeviceIndex.records_fit(M, device):
+                rec_d = DeviceIndex._build_records(genome_d, pos_d, gw_d,
+                                                   gn_d, gi.k)
         return DeviceIndex(
             genome=genome_d, keys_sorted=keys_d, pos_sorted=pos_d,
             contig_starts=contig_s, contig_ends=contig_e, k=gi.k,
@@ -183,6 +245,17 @@ def device_index_from_jax_arrays(arrs: dict, device) -> DeviceIndex:
             DeviceIndex.GENOME_PAD)
 
 
+# the anchor search's seed counts, summed over a batch's rows on the
+# card (``Anchors.seed_counts``), as MappingMetrics counters: the valid
+# read k-mers looked up, the sum of their occurrences (nocc), those with
+# nocc > occ_per_pos, the sum of min(nocc, occ_per_pos), and the anchors
+# kept (valid ones among the top A of each strand row)
+SEED_COUNTERS = ("anchor_seeds", "anchor_slots", "anchor_capped",
+                 "anchor_examined", "anchor_kept")
+# the words of PackedBatch.flat after the ops: the seed counts (int64,
+# two int32 words each), the DP rows used, K1's slope fault
+TAIL_WORDS = 2 * len(SEED_COUNTERS) + 2
+
 # column indices of PackedBatch.ints
 (COL_VALID, COL_QA, COL_QB, COL_TS, COL_TE, COL_NMATCH, COL_NMIS, COL_NINS,
  COL_NDEL, COL_DPSLOT, COL_SCORE, COL_CHSCORE, COL_CHANCH, COL_NANCH,
@@ -192,10 +265,11 @@ N_COLS = 17
 
 class PackedBatch(NamedTuple):
     """Device-side result of map_batch (layout of the JAX PackedBatch, and
-    two more words at the end of ``flat``: the DP rows the batch needed,
-    the sum of qb - qa over its valid DP items, then K1's slope fault,
-    nonzero when some active row advanced the band by other than 0, 1 or
-    2).  ``dp_rows`` is the rows K1 stores, n_dp x L, from the call's
+    :data:`TAIL_WORDS` more words at the end of ``flat``: the batch's
+    seed counts (:data:`SEED_COUNTERS`, int64 as int32 pairs), the DP
+    rows the batch needed, the sum of qb - qa over its valid DP items,
+    then K1's slope fault, nonzero when some active row advanced the band
+    by other than 0, 1 or 2).  ``dp_rows`` is the rows K1 stores, n_dp x L, from the call's
     static shape.  :func:`start_fetch` adds the host copy of ``flat`` and
     the event that marks its end.  A batch from a graph replay
     (``pipeline/graphs.py``) holds the graph's own device tensors:
@@ -207,7 +281,8 @@ class PackedBatch(NamedTuple):
     ints: torch.Tensor      # int32 [2B, C, N_COLS] columns per COL_*
     ops: torch.Tensor       # int32 [N_tb, P/2] RL traceback pairs
     clusters: torch.Tensor  # int32 [2B, C_stat, 2] (chain weight, gate ok)
-    # int32 [*]: ints, clusters, ops, the DP rows used, the fault
+    # int32 [*]: ints, clusters, ops, the seed counts, the DP rows used,
+    # the fault
     flat: Optional[torch.Tensor] = None
     host: Optional[torch.Tensor] = None  # host copy of flat (start_fetch)
     ready: Optional["torch.cuda.Event"] = None  # recorded after that copy
@@ -262,7 +337,7 @@ def unpack_batch(pb: PackedBatch) -> BatchResult:
     wait is span ``collect.wait`` (``graphs.DISPATCHES["waited"]`` counts
     the copies not done when it began), the rest ``collect.unpack``; the
     DP rows stored and needed go to the counters ``dp_rows_stored`` and
-    ``dp_rows_used``."""
+    ``dp_rows_used``, the seed counts to :data:`SEED_COUNTERS`."""
     if pb.host is None:
         pb = start_fetch(pb)
     if pb.ready is not None:
@@ -280,11 +355,14 @@ def _unpack(pb: PackedBatch) -> BatchResult:
         raise ValueError(SLOPE_ERROR)
     count("dp_rows_stored", pb.dp_rows)
     count("dp_rows_used", buf[-2])
+    seeds = buf[-TAIL_WORDS:-2].copy().view(np.int64)
+    for name, n in zip(SEED_COUNTERS, seeds):
+        count(name, n)
     n_i = int(np.prod(pb.ints.shape))
     n_c = int(np.prod(pb.clusters.shape))
     ints = buf[:n_i].reshape(tuple(pb.ints.shape))
     clusters = buf[n_i:n_i + n_c].reshape(tuple(pb.clusters.shape))
-    ops = buf[n_i + n_c:-2].reshape(tuple(pb.ops.shape))
+    ops = buf[n_i + n_c:-TAIL_WORDS].reshape(tuple(pb.ops.shape))
     c = [ints[..., i] for i in range(ints.shape[-1])]
     return BatchResult(
         score=c[10].astype(np.float32), valid=c[0] > 0,
@@ -585,6 +663,8 @@ def map_batch(index: DeviceIndex, reads, read_len, submat, gap_costs,
         bucket_starts=index.bucket_starts, bucket_pairs=index.bucket_pairs,
         gwords=index.gwords, gnwords=index.gnwords,
         pos_records=index.pos_records)
+    # the batch's seed counts, for the tail of flat
+    seed_words = anchors.seed_counts.sum(dim=0).view(i32)
     _mark("anchors", dev)
 
     # max(2C, 16) chain intervals: the first C feed the DP, all of them
@@ -846,7 +926,7 @@ def map_batch(index: DeviceIndex, reads, read_len, submat, gap_costs,
     # the query rows the valid DP items need, of the n_dp x L K1 stores
     rows_used = torch.where(sel_valid, qb - qa, 0).sum().to(i32)
     flat = torch.cat([ints.reshape(-1), cluster_stats.reshape(-1),
-                      packed.reshape(-1), rows_used.reshape(1),
+                      packed.reshape(-1), seed_words, rows_used.reshape(1),
                       fault.to(i32).reshape(1)])
     _mark("pack", dev)
     return PackedBatch(ints=ints, ops=packed, clusters=cluster_stats,

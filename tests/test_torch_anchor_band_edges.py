@@ -78,7 +78,7 @@ def test_find_anchors_edges_match_jax(edge_index, name):
     dtypes = dict(valid=torch.bool, hits_valid=torch.bool,
                   nlogp=torch.float32, n_total=torch.int32,
                   n_clipped=torch.int32)
-    for f in tanchor.Anchors._fields:
+    for f in janchor.Anchors._fields:
         have = getattr(ta, f)
         assert have.dtype == dtypes.get(f, torch.int64), f
         np.testing.assert_array_equal(np.asarray(getattr(ja, f)),

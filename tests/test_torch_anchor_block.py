@@ -88,7 +88,7 @@ def _run(world, records: bool, block: bool = True):
 @pytest.mark.parametrize("world", list(WORLDS))
 def test_block_sample_matches_jax(world, records):
     ja, ta = _run(world, records)
-    for f in tanchor.Anchors._fields:
+    for f in janchor.Anchors._fields:
         np.testing.assert_array_equal(np.asarray(getattr(ja, f)),
                                       getattr(ta, f).numpy(), err_msg=f)
     assert int(ta.n_total.min()) > 0

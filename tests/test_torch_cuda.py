@@ -1163,8 +1163,8 @@ def test_shard_lut_forms_map_the_same_on_card(cuda):
 def test_merge_on_card_equals_cpu(cuda):
     """merge_ref_shards (plain torch: the JAX merge is XLA outside any
     Pallas kernel) gives one batch on CUDA tensors and on the CPU, on
-    random shard outputs with tied scores, invalid rows, a fault and the
-    shards' DP rows used."""
+    random shard outputs with tied scores, invalid rows, a fault, the
+    shards' DP rows used and their seed counts."""
     from blasr_tpu_torch.dist.mesh import merge_ref_shards
     rng = np.random.default_rng(3)
     R, n2, C, n_dp, half, c_stat = 3, 8, 4, 16, 24, 16
@@ -1175,13 +1175,17 @@ def test_merge_on_card_equals_cpu(cuda):
     cl = rng.integers(0, 3, (R, n2, c_stat, 2)).astype(np.int32)
     faults = np.asarray([0, 0, 1], np.int32)
     used = rng.integers(0, 1 << 16, R).astype(np.int32)
+    seeds = rng.integers(0, 1 << 40, (R, len(tmr.SEED_COUNTERS)))
+    words = seeds.astype(np.int64).view(np.int32)
     outs = [merge_ref_shards(*(torch.from_numpy(a).to(dev)
-                               for a in (ints, ops, cl, faults, used)))
+                               for a in (ints, ops, cl, faults, used, words)))
             for dev in ("cuda", "cpu")]
     for f in ("ints", "ops", "clusters", "flat"):
         assert torch.equal(getattr(outs[0], f).cpu(), getattr(outs[1], f))
     assert int(outs[1].flat[-1]) == 1
     assert int(outs[1].flat[-2]) == int(used.sum())
+    tail = outs[1].flat[-tmr.TAIL_WORDS:-2].numpy().view(np.int64)
+    np.testing.assert_array_equal(tail, seeds.sum(axis=0))
 
 
 # ------------------------------------------------ band widths other than 128

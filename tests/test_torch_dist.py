@@ -30,7 +30,7 @@ from blasr_tpu_torch.kernels.anchor import find_anchors  # noqa: E402
 from blasr_tpu_torch.index.genome import \
     build_genome_index as t_build_genome_index  # noqa: E402
 from blasr_tpu_torch.pipeline.map_read import (  # noqa: E402
-    DeviceIndex, PackedBatch, map_batch, unpack_batch)
+    TAIL_WORDS, DeviceIndex, PackedBatch, map_batch, unpack_batch)
 from test_dist import setup_world  # noqa: E402
 from torch_dist_rank import finish_ranks, start_ranks  # noqa: E402
 from torch_shared import TORCH_THREADS, shared  # noqa: E402
@@ -263,6 +263,10 @@ def test_shard_index_without_bucket_pairs_finds_the_same_anchors(dist_runs):
 
 # ------------------------------------------------------------- the merge
 
+# two shards' seed-count words, all zero
+NO_SEEDS = torch.zeros((2, TAIL_WORDS - 2), dtype=torch.int32)
+
+
 def captured_stack(jax_out):
     seen = jax_out[3]
     return [torch.from_numpy(np.stack([seen[s][f] for s in (0, 1)]))
@@ -275,7 +279,8 @@ def test_merge_equals_jax_on_captured_shard_outputs(dist_runs):
     jax_out = dist_runs[2]
     got = tmesh.merge_ref_shards(*captured_stack(jax_out),
                                  torch.zeros(2, dtype=torch.int32),
-                                 torch.zeros(2, dtype=torch.int32))
+                                 torch.zeros(2, dtype=torch.int32),
+                                 NO_SEEDS)
     for f in ("ints", "ops", "clusters"):
         np.testing.assert_array_equal(getattr(got, f).numpy(),
                                       np.asarray(getattr(jax_out[0], f)))
@@ -289,10 +294,10 @@ def test_merge_carries_any_shards_fault(dist_runs):
     stack = captured_stack(jax_out)
     used = torch.zeros(2, dtype=torch.int32)
     ok = tmesh.merge_ref_shards(*stack, torch.tensor([0, 0], dtype=torch.int32),
-                                used)
+                                used, NO_SEEDS)
     unpack_batch(ok)
     bad = tmesh.merge_ref_shards(*stack, torch.tensor([0, 1], dtype=torch.int32),
-                                 used)
+                                 used, NO_SEEDS)
     assert torch.equal(bad.flat[:-1], ok.flat[:-1]) and bad.flat[-1] == 1
     with pytest.raises(ValueError):
         unpack_batch(bad)

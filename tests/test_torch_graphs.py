@@ -258,4 +258,4 @@ def test_padded_index_map_batch_matches_jax():
     ts = res.t_start[0][res.valid[0]]
     assert (ts >= G - 1 - 700).all()          # on the short last contig
     assert int(got.flat[-1]) == 0
-    np.testing.assert_array_equal(want, got.flat.numpy()[:-2])
+    np.testing.assert_array_equal(want, got.flat.numpy()[:-tmr.TAIL_WORDS])

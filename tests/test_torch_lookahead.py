@@ -60,9 +60,10 @@ def _traced(module, log):
 
 
 # counters the port's Mapper keeps beside the JAX Mapper's: unpack_batch's
-# span count (no collect.wait on the CPU, whose copies are done on return)
-# and K1's rows stored and needed
-PORT_COUNTERS = {"collect.unpack", "dp_rows_stored", "dp_rows_used"}
+# span count (no collect.wait on the CPU, whose copies are done on return),
+# K1's rows stored and needed and the anchor search's seed counts
+PORT_COUNTERS = {"collect.unpack", "dp_rows_stored", "dp_rows_used",
+                 *tmr.SEED_COUNTERS}
 
 
 @pytest.fixture(scope="module")
@@ -95,6 +96,8 @@ def test_lookahead_matches_jax(small, monkeypatch):
     log = logs["port"]
     assert own["collect.unpack"] == log.count("unpack")
     assert 0 < own["dp_rows_used"] <= own["dp_rows_stored"]
+    assert 0 < own["anchor_examined"] <= own["anchor_slots"]
+    assert own["anchor_capped"] <= own["anchor_seeds"]
     assert log == logs["jax"]
     # four dispatches in flight: the fifth is made before the first unpack
     assert log[:6] == [f"dispatch {i}" for i in range(5)] + ["unpack"]

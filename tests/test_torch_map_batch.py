@@ -46,8 +46,8 @@ def test_map_batch_flat_matches_jax():
     got = tmr.map_batch(tm.dev, torch.from_numpy(arr),
                         torch.from_numpy(lens), *tpos, **tkw)
     w = np.asarray(want.flat)
-    # the last two words: the DP rows used, K1's slope fault
-    g = got.flat.numpy()[:-2]
+    # the last words: the seed counts, the DP rows used, K1's slope fault
+    g = got.flat.numpy()[:-tmr.TAIL_WORDS]
     assert got.flat[-1] == 0 and got.flat[-2] > 0
     assert w.dtype == g.dtype and w.shape == g.shape
     res = tmr.unpack_batch(got)
@@ -121,7 +121,7 @@ def test_map_batch_qv_flat_matches_jax(score_type):
     assert res.valid.any() and (res.dp_slot >= 0).any()
     assert got.flat[-1] == 0             # K1's slope fault
     np.testing.assert_array_equal(np.asarray(want.flat),
-                                  got.flat.numpy()[:-2])
+                                  got.flat.numpy()[:-tmr.TAIL_WORDS])
 
 
 def test_revcomp_qv_matches_jax():

@@ -99,7 +99,7 @@ def anchors(world):
 def as_torch_anchors(ja):
     return tanchor.Anchors(**{
         f: torch.from_numpy(np.array(getattr(ja, f)))
-        for f in tanchor.Anchors._fields})
+        for f in janchor.Anchors._fields})
 
 
 def test_device_index_from_host_matches_jax(world):
@@ -125,7 +125,7 @@ def test_revcomp_matches_jax(world):
 def test_find_anchors_matches_jax(anchors):
     ja, ta = anchors
     assert int(np.asarray(ja.valid).sum()) > 100
-    for f in tanchor.Anchors._fields:
+    for f in janchor.Anchors._fields:
         np.testing.assert_array_equal(np.asarray(getattr(ja, f)),
                                       getattr(ta, f).numpy(), err_msg=f)
 
